@@ -1,0 +1,709 @@
+"""NeuralGraphMap: the online dense neural mapping engine (port of
+neural_graph_mapping_tpu.mapping.engine, multi-view frame step).
+
+Device side: one optimization iteration is field selection -> multi-view
+target sampling -> field-parallel render -> losses -> per-field Adam with
+gather/scatter; a frame writes the keyframe cache, tests which fields the
+frame observes, and runs ``num_iterations_per_frame`` iterations (the JAX
+package's ``lax.scan`` becomes a Python loop). Host side: the pose graph,
+keyframe slot registry and kf->fields index, as in the JAX package.
+
+Randomness comes from ``torch.Generator``s on the engine's device; every
+ported function also takes its draws as optional tensors
+(:class:`IterationDraws`), which is how the tests replay JAX's draws.
+
+Not ported here (see ROADMAP.md): the single-view update mode, field-axis
+sharding over several devices, and everything after ``process_frame``
+(rendering full images, meshing).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, NamedTuple, Optional, Set
+
+import numpy as np
+import torch
+
+from neural_graph_mapping_tpu_torch.mapping import graph as graph_mod
+from neural_graph_mapping_tpu_torch.mapping import map_state, optimizer, render, sampling
+from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
+from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
+from neural_graph_mapping_tpu_torch.utils import transforms
+
+logger = logging.getLogger(__name__)
+
+
+class IterationDraws(NamedTuple):
+    """Random inputs of one optimization iteration; None = draw from the
+    generator. Shapes: F = num_train_fields, R = rays per field, S = cache
+    slots, N = field capacity."""
+
+    u_obs: Optional[torch.Tensor] = None  # (N,) observed-field Gumbel uniforms
+    u_rand: Optional[torch.Tensor] = None  # (N,) random-field Gumbel uniforms
+    offsets: Optional[torch.Tensor] = None  # (20, 3) sphere offsets ~ N(0, 1)
+    kf_gumbel: Optional[torch.Tensor] = None  # (F, R, S) keyframe choice noise
+    pix_u: Optional[torch.Tensor] = None  # (F, R, 2) pixel uniforms
+    u_coarse: Optional[torch.Tensor] = None  # (F, R, coarse) stratified uniforms
+    u_guided: Optional[torch.Tensor] = None  # (F, R, guided) stratified uniforms
+
+
+class LossConfig(NamedTuple):
+    """Loss hyperparameters."""
+
+    termination_weight: float = 0.0
+    photometric_weight: float = 1.0
+    photometric_loss: str = "l1"
+    depth_weight: float = 1.0
+    depth_loss: str = "huber"
+    freespace_weight: float = 40.0
+    tsdf_weight: float = 50.0
+    num_rays_per_field: int = 512
+    # debug filter: restrict field selection to this field
+    single_field_id: Optional[int] = None
+
+
+def compute_losses(
+    cfg: LossConfig,
+    rcfg: render.RenderConfig,
+    target: sampling.Target,
+    pred: render.Prediction,
+):
+    """Assemble the training loss. Depth/rgb are supervised only where the
+    target depth is usable AND the predicted termination prob exceeds 0.8."""
+    depth_mask = target.depth_mask & (pred.term_probs > 0.8)
+    rgb_mask = depth_mask
+
+    loss_dict = {}
+    termination = losses_mod.termination_loss(pred.term_probs, target.term_probs, target.term_mask)
+    loss_dict["termination"] = termination
+    combined = cfg.termination_weight * termination
+
+    photometric = losses_mod.photometric_loss(
+        cfg.photometric_loss, target.rgbds[..., :3], pred.rgbds[..., :3], pred.color_vars,
+        mask=rgb_mask,
+    )
+    loss_dict[f"photometric_{cfg.photometric_loss}"] = photometric
+    combined = combined + cfg.photometric_weight * photometric
+
+    depth = losses_mod.depth_loss(
+        cfg.depth_loss, target.rgbds[..., 3], pred.rgbds[..., 3], pred.depth_vars,
+        mask=depth_mask,
+    )
+    loss_dict[f"depth_{cfg.depth_loss}"] = depth
+    combined = combined + cfg.depth_weight * depth
+
+    if cfg.freespace_weight != 0.0:
+        freespace = losses_mod.freespace_loss(
+            pred.sample_geometries, rcfg.truncation_distance, pred.freespace_mask
+        )
+        loss_dict["freespace"] = freespace
+        combined = combined + cfg.freespace_weight * freespace
+
+    if cfg.tsdf_weight != 0.0:
+        deltas = target.gt_distances[..., None] - pred.sample_distances
+        tsdf = losses_mod.tsdf_loss(
+            pred.sample_geometries, deltas, rcfg.truncation_distance, pred.tsdf_mask
+        )
+        loss_dict["tsdf"] = tsdf
+        combined = combined + cfg.tsdf_weight * tsdf
+
+    # supervision-coverage diagnostics (not losses)
+    loss_dict["diag_depth_mask_frac"] = torch.mean(depth_mask.float())
+    loss_dict["diag_term_mask_frac"] = torch.mean(target.term_mask.float())
+    loss_dict["diag_valid_fields"] = torch.sum(target.field_valid.float())
+    loss_dict["combined"] = combined
+    return combined, loss_dict
+
+
+def loss_and_grads(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    loss_cfg: LossConfig,
+    sub_params: dict,
+    sub_positions: torch.Tensor,
+    sub_orientations: torch.Tensor,
+    target: sampling.Target,
+    draws: IterationDraws = IterationDraws(),
+    generator: Optional[torch.Generator] = None,
+):
+    """Render the target's rays through the gathered fields, take the losses
+    and their gradients w.r.t. ``sub_params`` -> (loss_dict, grads)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
+    pred = render.render_rays_vmap(
+        fset, leaves, sub_positions, sub_orientations, camera, target, rcfg,
+        draws.u_coarse, draws.u_guided, generator,
+    )
+    combined, loss_dict = compute_losses(loss_cfg, rcfg, target, pred)
+    names = list(leaves)
+    grads = torch.autograd.grad(combined, [leaves[k] for k in names], allow_unused=True)
+    grads = {
+        k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(names, grads)
+    }
+    return {k: v.detach() for k, v in loss_dict.items()}, grads
+
+
+def _optimization_iteration_core(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,
+    map_positions: torch.Tensor,
+    map_orientations: torch.Tensor,
+    target: sampling.Target,
+    draws: IterationDraws = IterationDraws(),
+    generator: Optional[torch.Generator] = None,
+):
+    """Render + losses + per-field Adam for a pre-built target. Updates
+    ``params``, ``adam`` and ``training_iterations`` in place."""
+    sub_params = fset.gather_fields(params, target.field_ids)
+    loss_dict, grads = loss_and_grads(
+        fset, camera, rcfg, loss_cfg, sub_params,
+        map_positions[target.field_ids], map_orientations[target.field_ids],
+        target, draws, generator,
+    )
+    optimizer.adam_slice_update(
+        ocfg, params, adam, target.field_ids, target.field_valid, grads, sub_params
+    )
+    training_iterations.index_add_(
+        0, target.field_ids, target.field_valid.to(training_iterations.dtype)
+    )
+    return params, adam, training_iterations, loss_dict
+
+
+def optimization_iteration(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,  # (N_cap,)
+    map_positions: torch.Tensor,  # (N_cap, 3)
+    map_orientations: torch.Tensor,  # (N_cap, 4)
+    allocated_mask: torch.Tensor,  # (N_cap,)
+    observed_mask: torch.Tensor,  # (N_cap,)
+    cache_rgb: torch.Tensor,  # (S, H, W, 3)
+    cache_depth: torch.Tensor,  # (S, H, W)
+    cache_c2w: torch.Tensor,  # (S, 4, 4)
+    cache_valid: torch.Tensor,  # (S,)
+    draws: IterationDraws = IterationDraws(),
+    generator: Optional[torch.Generator] = None,
+):
+    """One multi-view optimization iteration (selection, sampling, render,
+    losses, Adam); returns (params, adam, training_iterations, loss_dict)."""
+    if loss_cfg.single_field_id is not None:
+        only = torch.arange(allocated_mask.shape[0], device=allocated_mask.device) == loss_cfg.single_field_id
+        allocated_mask = allocated_mask & only
+        observed_mask = observed_mask & only
+    field_ids, field_valid = sampling.select_target_fields(
+        observed_mask, allocated_mask, num_train_fields, draws.u_obs, draws.u_rand, generator
+    )
+    target = sampling.sample_target_mv(
+        camera, field_ids, field_valid, map_positions, cache_rgb, cache_depth, cache_c2w,
+        cache_valid, fset.field_radius, loss_cfg.num_rays_per_field,
+        offsets=draws.offsets, kf_gumbel=draws.kf_gumbel, pix_u=draws.pix_u,
+        generator=generator,
+    )
+    return _optimization_iteration_core(
+        fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
+        map_positions, map_orientations, target, draws, generator,
+    )
+
+
+def optimization_iterations_scan(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    num_iters: int,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,
+    map_positions: torch.Tensor,
+    map_orientations: torch.Tensor,
+    allocated_mask: torch.Tensor,
+    observed_mask: torch.Tensor,
+    cache_rgb: torch.Tensor,
+    cache_depth: torch.Tensor,
+    cache_c2w: torch.Tensor,
+    cache_valid: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+):
+    """``num_iters`` iterations, each resampling its targets; returns the
+    last iteration's loss dict with the updated state. No host syncs."""
+    loss_dict = {}
+    for _ in range(num_iters):
+        params, adam, training_iterations, loss_dict = optimization_iteration(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam,
+            training_iterations, map_positions, map_orientations, allocated_mask,
+            observed_mask, cache_rgb, cache_depth, cache_c2w, cache_valid,
+            generator=generator,
+        )
+    return params, adam, training_iterations, loss_dict
+
+
+def frame_step(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    num_iters: int,
+    write_current: bool,
+    has_fields: bool,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,
+    map_positions: torch.Tensor,
+    map_orientations: torch.Tensor,
+    allocated_mask: torch.Tensor,
+    cache_rgb: torch.Tensor,
+    cache_depth: torch.Tensor,
+    cache_c2w: torch.Tensor,
+    cache_valid: torch.Tensor,
+    rgbd: torch.Tensor,  # (H, W, 4) current frame
+    c2w: torch.Tensor,  # (4, 4)
+    kf_slot: int,  # < 0 -> not a keyframe
+    generator: Optional[torch.Generator] = None,
+):
+    """One frame: keyframe-cache writes (in place), the observed-field test,
+    and all optimization iterations."""
+    rgb = rgbd[..., :3].to(cache_rgb.dtype)
+    depth = rgbd[..., 3]
+    if write_current:
+        cache_rgb[0] = rgb
+        cache_depth[0] = depth
+    if kf_slot >= 0:
+        cache_rgb[kf_slot] = rgb
+        cache_depth[kf_slot] = depth
+
+    observed = sampling.observed_fields_mask(
+        camera, depth, c2w, map_positions, allocated_mask, fset.field_radius,
+        generator=generator,
+    )
+    loss_dict = {}
+    if has_fields:
+        params, adam, training_iterations, loss_dict = optimization_iterations_scan(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, num_iters,
+            params, adam, training_iterations, map_positions, map_orientations,
+            allocated_mask, observed, cache_rgb, cache_depth, cache_c2w,
+            cache_valid, generator,
+        )
+    return params, adam, training_iterations, cache_rgb, cache_depth, observed, loss_dict
+
+
+def allocate_fields_jit(
+    camera,
+    field_radius: float,
+    max_new: int,
+    depth_image: torch.Tensor,
+    c2w: torch.Tensor,
+    active_positions: torch.Tensor,
+    active_mask: torch.Tensor,
+    shift: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Uncovered-cell field allocation for one depth image (name kept from
+    the JAX package, where it is jitted) -> (centers, num_new, bb_min, bb_max)."""
+    points_cam, _, valid = camera.depth_to_points_full(depth_image, "opengl")
+    points_world = transforms.transform_points(points_cam, c2w)
+    points_world = torch.where(valid[:, None], points_world, torch.zeros_like(points_world))
+    centers, num_new = map_state.uncovered_cells(
+        points_world, valid, active_positions, active_mask, field_radius, max_new,
+        shift=shift, generator=generator,
+    )
+    inf = torch.full_like(points_world, torch.inf)
+    bb_min = torch.amin(torch.where(valid[:, None], points_world, inf), dim=0)
+    bb_max = torch.amax(torch.where(valid[:, None], points_world, -inf), dim=0)
+    return centers, num_new, bb_min, bb_max
+
+
+class NeuralGraphMap:
+    """Online neural graph mapping on one device.
+
+    Construct from a config dict and the device that holds the map, and
+    drive :meth:`process_frame` per frame.
+    """
+
+    def __init__(self, config: dict, device) -> None:
+        if device is None:
+            raise ValueError("NeuralGraphMap needs an explicit device, e.g. 'cuda' or 'cpu'")
+        self._device = torch.device(device)
+        self._read_config(config)
+        self._init_model()
+        self._init_state()
+
+    # -- configuration ---------------------------------------------------------
+
+    def _read_config(self, config: dict) -> None:
+        c = dict(config)
+        self._config = c
+        self._model_kwargs = c["model_kwargs"]
+        self._field_radius = float(c.get("field_radius", 1.0))
+        self._update_mode = c.get("update_mode", "multi_view")
+        if self._update_mode != "multi_view":
+            raise NotImplementedError(f"update_mode {self._update_mode!r} is not ported yet")
+        self._num_iterations_per_frame = int(c.get("num_iterations_per_frame", 5))
+        self._keyframes_only = bool(c.get("keyframes_only", False))
+        self._max_depth = c.get("max_depth", None)
+        self._disable_relative_fields = bool(c.get("disable_relative_fields", False))
+        self._num_kf_slots = int(c.get("num_kf_slots", 1000))
+        self._max_new_fields = int(c.get("max_new_fields", 256))
+        self._active_max_edges = int(c.get("active_max_edges", 100))
+
+        trunc = c.get("truncation_distance", 0.1)
+        range_guided = c.get("range_depth_guided", None)
+        if range_guided is None:
+            range_guided = trunc
+        self._rcfg = render.RenderConfig(
+            geometry_mode=c.get("geometry_mode", "nrgbd"),
+            geometry_factor=float(c.get("geometry_factor", 20.0)),
+            color_factor=float(c.get("color_factor", 1.0)),
+            num_samples_coarse=int(c.get("num_samples_coarse", 8)),
+            num_samples_depth_guided=int(c.get("num_samples_depth_guided", 16)),
+            range_depth_guided=float(range_guided),
+            truncation_distance=float(trunc),
+        )
+        self._ocfg = optimizer.AdamConfig(
+            learning_rate=float(c.get("learning_rate", 1e-3)),
+            eps=float(c.get("adam_eps", 1e-15)),
+            weight_decay=float(c.get("adam_weight_decay", 0.0)),
+        )
+        self._loss_cfg = LossConfig(
+            termination_weight=float(c.get("termination_weight", 0.0)),
+            photometric_weight=float(c.get("photometric_weight", 1.0)),
+            photometric_loss=c.get("photometric_loss", "l1"),
+            depth_weight=float(c.get("depth_weight", 1.0)),
+            depth_loss=c.get("depth_loss", "huber"),
+            freespace_weight=float(c.get("freespace_weight", 40.0)),
+            tsdf_weight=float(c.get("tsdf_weight", 50.0)),
+            num_rays_per_field=int(c.get("num_rays_per_field", 512)),
+            single_field_id=(
+                int(c["single_field_id"]) if c.get("single_field_id") is not None else None
+            ),
+        )
+        self._num_train_fields = int(c.get("num_train_fields", 32))
+        self._seed = int(c.get("seed", 0))
+        if int(c.get("num_field_shards", 1)) > 1:
+            raise NotImplementedError("field-axis sharding is not ported yet")
+
+    def _init_model(self) -> None:
+        self._fset = NeuralFieldSet(**self._model_kwargs).to(self._device)
+        # two streams of draws, as the JAX engine has two keys: one for
+        # parameter init, one for the per-frame programs
+        self._init_gen = torch.Generator(self._device).manual_seed(self._seed)
+        self._frame_gen = torch.Generator(self._device).manual_seed(self._seed + 1)
+        self._frame_counter = 0
+
+    def _init_state(self) -> None:
+        cap = 32
+        dev = self._device
+        self._map_arrays = map_state.init_map_arrays(cap, dev)
+        self._params = self._fset.init_fields(cap, self._init_gen, dev)
+        self._adam = optimizer.init_adam_state(self._params)
+        self._num_fields = 0
+
+        self._graph: Dict[int, Set[int]] = {}
+        self._kf2fields: Dict[int, Set[int]] = {}
+        self._kf_ids: Set[int] = set()
+        self._last_update: Optional[int] = None
+        self._prev_kf2w_slots: Optional[np.ndarray] = None
+
+        # keyframe cache; slot 0 = current frame
+        self._cache_rgb = None  # allocated lazily once H, W known
+        self._cache_depth = None
+        self._cache_c2w_np = np.tile(np.eye(4, dtype=np.float32), (self._num_kf_slots, 1, 1))
+        self._cache_valid_np = np.zeros((self._num_kf_slots,), bool)
+        self._free_slots = list(range(1, self._num_kf_slots))
+        self._frame_to_slot: Dict[int, int] = {}
+        # device mirrors of the host-side cache bookkeeping, re-uploaded only
+        # when written
+        self._cache_c2w_dev = None
+        self._cache_valid_dev = None
+        self._cache_c2w_dirty = True
+        self._cache_valid_dirty = True
+        self._last_graph_obj = None
+        self._pending_slot_poses: Optional[np.ndarray] = None
+
+        self._observed_mask = None
+        self._bb_min = np.full((3,), np.inf, np.float32)
+        self._bb_max = np.full((3,), -np.inf, np.float32)
+
+    # -- capacity management ----------------------------------------------------
+
+    @property
+    def num_fields(self) -> int:
+        return self._num_fields
+
+    @property
+    def capacity(self) -> int:
+        return map_state.capacity(self._map_arrays)
+
+    def _ensure_capacity(self, required: int) -> None:
+        cap = self.capacity
+        if required <= cap:
+            return
+        new_cap = cap
+        while new_cap < required:
+            new_cap *= 2
+        logger.info("growing field capacity %d -> %d", cap, new_cap)
+        self._map_arrays = map_state.grow_capacity(self._map_arrays, new_cap)
+        extra = self._fset.init_fields(new_cap - cap, self._init_gen, self._device)
+        self._params = {k: torch.cat([v, extra[k]]) for k, v in self._params.items()}
+        self._adam = optimizer.grow_adam_state(self._adam, self._params)
+
+    def _allocated_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self._device) < self._num_fields
+
+    def _to_device(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self._device)
+
+    # -- per-frame pipeline ------------------------------------------------------
+
+    def _init_cache(self, h: int, w: int) -> None:
+        s = self._num_kf_slots
+        self._cache_rgb = torch.zeros((s, h, w, 3), dtype=torch.bfloat16, device=self._device)
+        self._cache_depth = torch.zeros((s, h, w), dtype=torch.float32, device=self._device)
+
+    def _update_graph(self, dataset, frame_id: int) -> None:
+        """Pose-graph update + keyframe removal handling; the graph copy runs
+        only when the dataset hands over a different graph object, the pose
+        snapshot only when poses may have moved or keyframes were removed."""
+        new_graph = dataset.get_slam_essential_graph(frame_id)
+
+        if self._last_update is None:
+            self._graph = {k: set(v) for k, v in new_graph.items()}
+            self._last_graph_obj = new_graph
+            self._last_update = frame_id
+            self._prev_kf2w_slots = self._snapshot_kf_slot_poses(dataset, frame_id)
+            self._pending_slot_poses = None
+            return
+
+        poses_dirty = dataset.slam_poses_dirty(frame_id)
+        graph_changed = new_graph is not self._last_graph_obj
+
+        removed: Set[int] = set()
+        if graph_changed:
+            prev_kfs = set(self._kf_ids)
+            removed = prev_kfs - set(new_graph.keys())
+            surviving = prev_kfs - removed
+            if dataset.is_keyframe(frame_id):
+                surviving.add(frame_id)
+
+            kf_ids_np = kf_slots_np = None
+            if removed:  # device->host pulls only when keyframes disappeared
+                kf_ids_np = self._map_arrays.kf_ids.cpu().numpy().copy()
+                kf_slots_np = self._map_arrays.kf_slots.cpu().numpy().copy()
+            dirty = False
+            for kf in sorted(removed):
+                self._kf_ids.discard(kf)
+                slot = self._frame_to_slot.pop(kf, None)
+                if slot is not None:
+                    self._free_slots.append(slot)
+                    self._cache_valid_np[slot] = False
+                    self._cache_valid_dirty = True
+                # re-anchor fields to the nearest surviving keyframe
+                after = min((i for i in surviving if i >= kf), default=None)
+                before = max((i for i in surviving if i <= kf), default=None)
+                new_anchor = after if (after is not None and after in prev_kfs) else before
+                if new_anchor is None:
+                    continue
+                if kf in self._kf2fields:
+                    self._kf2fields.setdefault(new_anchor, set()).update(self._kf2fields.pop(kf))
+                mask = kf_ids_np == kf
+                if mask.any():
+                    kf_ids_np[mask] = new_anchor
+                    kf_slots_np[mask] = self._frame_to_slot.get(new_anchor, 0)
+                    dirty = True
+            if dirty:
+                self._map_arrays = self._map_arrays._replace(
+                    kf_ids=self._to_device(kf_ids_np), kf_slots=self._to_device(kf_slots_np)
+                )
+
+        # loop-closure deformation against the previous frame's slot poses
+        self._pending_slot_poses = None
+        if poses_dirty or removed:
+            new_slot_poses = self._snapshot_kf_slot_poses(dataset, frame_id)
+            self._pending_slot_poses = new_slot_poses  # reused after kf registration
+            if (
+                not self._disable_relative_fields
+                and self._num_fields > 0
+                and not np.array_equal(new_slot_poses, self._prev_kf2w_slots)
+            ):
+                self._map_arrays = map_state.reanchor_field_poses(
+                    self._map_arrays,
+                    self._to_device(self._prev_kf2w_slots),
+                    self._to_device(new_slot_poses),
+                )
+        if graph_changed:
+            self._graph = {k: set(v) for k, v in new_graph.items()}
+            self._last_graph_obj = new_graph
+        self._last_update = frame_id
+
+    def _snapshot_kf_slot_poses(self, dataset, at_frame_id: int) -> np.ndarray:
+        """Per-slot keyframe poses at a given frame (identity for free slots)."""
+        poses = np.tile(np.eye(4, dtype=np.float32), (self._num_kf_slots, 1, 1))
+        for kf, slot in self._frame_to_slot.items():
+            c2w = np.asarray(dataset.get_slam_c2ws(kf, at_frame_id))
+            if np.isfinite(c2w).all():
+                poses[slot] = c2w
+        return poses
+
+    def _active_field_ids(self, frame_id: int) -> np.ndarray:
+        """Fields of keyframes within BFS distance of the closest keyframe."""
+        kfs = [k for k in self._graph.keys() if k <= frame_id]
+        if not kfs:
+            return np.zeros((0,), np.int64)
+        neighbors = graph_mod.get_neighbors(
+            self._graph, {max(kfs)}, max_edges=self._active_max_edges, include_queries=True
+        )
+        ids: Set[int] = set()
+        for kf in neighbors:
+            ids |= self._kf2fields.get(kf, set())
+        return np.fromiter(ids, np.int64) if ids else np.zeros((0,), np.int64)
+
+    def process_frame(self, dataset, frame_id: int, rgbd) -> dict:
+        """Ingest one frame (H, W, 4 RGB-D, numpy or tensor) and run the
+        per-frame optimization. Returns the last iteration's losses as
+        floats (one device sync per frame)."""
+        self._frame_counter += 1
+        rgbd = self._to_device(rgbd).float()
+        h, w = rgbd.shape[0], rgbd.shape[1]
+        if self._cache_rgb is None:
+            self._init_cache(h, w)
+            self._camera = dataset.camera
+
+        if self._max_depth is not None:
+            depth = rgbd[..., 3]
+            rgbd = rgbd.clone()
+            rgbd[..., 3] = torch.where(depth > self._max_depth, torch.zeros_like(depth), depth)
+
+        c2w_np = np.asarray(dataset.get_slam_c2ws(frame_id), dtype=np.float32)
+        c2w_missing = not np.isfinite(c2w_np).all()
+        c2w = self._to_device(c2w_np if not c2w_missing else np.eye(4, dtype=np.float32))
+
+        self._update_graph(dataset, frame_id)
+
+        is_kf = dataset.is_keyframe(frame_id)
+        kf_slot = -1
+        if is_kf:
+            self._kf_ids.add(frame_id)
+            if not self._free_slots:
+                raise ValueError("Maximum number of keyframes reached.")
+            kf_slot = self._free_slots.pop(0)
+            self._frame_to_slot[frame_id] = kf_slot
+            self._cache_valid_np[kf_slot] = True
+            self._cache_valid_dirty = True
+            if not c2w_missing:
+                self._allocate_new_fields(frame_id, rgbd[..., 3], c2w, kf_slot)
+
+        # current frame occupies slot 0
+        write_current = not self._keyframes_only and not c2w_missing
+        if not self._keyframes_only:
+            if bool(self._cache_valid_np[0]) != (not c2w_missing):
+                self._cache_valid_np[0] = not c2w_missing
+                self._cache_valid_dirty = True
+            if not c2w_missing:
+                self._cache_c2w_np[0] = c2w_np
+                self._cache_c2w_dirty = True
+
+        # refresh slot poses after keyframe registration; kept as the prev
+        # snapshot for the next frame's re-anchoring
+        if self._pending_slot_poses is not None:
+            snap = self._pending_slot_poses
+            self._pending_slot_poses = None
+            if is_kf and not c2w_missing:
+                snap[kf_slot] = c2w_np
+            self._prev_kf2w_slots = snap
+            self._cache_c2w_np[1:] = snap[1:]
+            self._cache_c2w_dirty = True
+        elif is_kf and not c2w_missing:
+            self._prev_kf2w_slots[kf_slot] = c2w_np
+            self._cache_c2w_np[kf_slot] = c2w_np
+            self._cache_c2w_dirty = True
+
+        if self._cache_c2w_dirty or self._cache_c2w_dev is None:
+            self._cache_c2w_dev = self._to_device(self._cache_c2w_np.copy())
+            self._cache_c2w_dirty = False
+        if self._cache_valid_dirty or self._cache_valid_dev is None:
+            self._cache_valid_dev = self._to_device(self._cache_valid_np.copy())
+            self._cache_valid_dirty = False
+
+        (
+            self._params,
+            self._adam,
+            new_ti,
+            self._cache_rgb,
+            self._cache_depth,
+            self._observed_mask,
+            loss_dict,
+        ) = frame_step(
+            self._fset,
+            self._camera,
+            self._rcfg,
+            self._ocfg,
+            self._loss_cfg,
+            self._num_train_fields,
+            self._num_iterations_per_frame,
+            write_current,
+            self._num_fields > 0,
+            self._params,
+            self._adam,
+            self._map_arrays.training_iterations,
+            self._map_arrays.positions,
+            self._map_arrays.orientations,
+            self._allocated_mask(),
+            self._cache_rgb,
+            self._cache_depth,
+            self._cache_c2w_dev,
+            self._cache_valid_dev,
+            rgbd,
+            c2w,
+            kf_slot,
+            self._frame_gen,
+        )
+        self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
+        if not loss_dict:
+            return {}
+        values = torch.stack(list(loss_dict.values())).tolist()
+        return dict(zip(loss_dict.keys(), values))
+
+    def _allocate_new_fields(self, frame_id, depth, c2w, kf_slot) -> None:
+        active_ids = self._active_field_ids(frame_id)
+        active_mask_np = np.zeros((self.capacity,), bool)
+        if self._num_fields > 0:
+            active_mask_np[active_ids] = True
+        centers, num_new, bb_min, bb_max = allocate_fields_jit(
+            self._camera,
+            self._field_radius,
+            self._max_new_fields,
+            depth,
+            c2w,
+            self._map_arrays.positions,
+            self._to_device(active_mask_np),
+            generator=self._frame_gen,
+        )
+        n_new = int(num_new)  # host needs the count: one sync per keyframe
+        self._bb_min = np.minimum(self._bb_min, bb_min.cpu().numpy())
+        self._bb_max = np.maximum(self._bb_max, bb_max.cpu().numpy())
+        if n_new == 0:
+            return
+        self._ensure_capacity(self._num_fields + n_new)
+        self._map_arrays = map_state.append_fields(
+            self._map_arrays, self._num_fields, centers, n_new, frame_id, kf_slot
+        )
+        self._kf2fields.setdefault(frame_id, set()).update(
+            range(self._num_fields, self._num_fields + n_new)
+        )
+        self._num_fields += n_new

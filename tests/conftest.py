@@ -20,3 +20,9 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (tests of the port's CUDA kernels); skips without one"
+    )

@@ -73,6 +73,17 @@ class Camera:
             raise ValueError(f"Unsupported camera convention {convention}.")
         return torch.tensor(rows, dtype=torch.float32, device=device)
 
+    def scaled_camera(self, scale_factor: float) -> "Camera":
+        """Camera with all intrinsics scaled (width and height truncated to int)."""
+        return Camera(
+            width=int(self.width * scale_factor),
+            height=int(self.height * scale_factor),
+            fx=self.fx * scale_factor,
+            fy=self.fy * scale_factor,
+            cx=self.cx * scale_factor,
+            cy=self.cy * scale_factor,
+        )
+
     def project_points(
         self, points: torch.Tensor, convention: str, pixel_center: float = 0.5
     ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) kernels for the permutohedral hash encoding and the
-// keyframe-visibility lookup, with a plain C interface for ctypes.
+// Hopper (sm_90a) kernels for the permutohedral hash encoding (training
+// encode and table gradient, and the render path's tile-sorted MoE encodes)
+// and the keyframe-visibility lookup, with a plain C interface for ctypes.
 //
-// Build (neural_graph_mapping_tpu_torch/ops/permuto_cuda.py does this at
-// first use):
+// Build (neural_graph_mapping_tpu_torch/ops/cuda_build.py does this at first
+// use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libngm_permuto.so permuto.cu
 //
@@ -115,6 +116,31 @@ __device__ __forceinline__ void lattice_level(
   }
 }
 
+// All levels of one point from one field's feature-major (2, L, T) table:
+// o[(2l + f) * stride + p] = sum_k w_k * tab[f, l, idx_k].
+__device__ __forceinline__ void encode_point(const float* __restrict__ tab, int T,
+                                             float x, float y, float z,
+                                             const LevelConsts& c,
+                                             float* __restrict__ o,
+                                             size_t stride, int p) {
+  const int L = c.n_levels;
+  for (int l = 0; l < L; ++l) {
+    uint32_t idx[kCorners];
+    float w[kCorners];
+    lattice_level(x, y, z, c, l, idx, w);
+    const float* t0 = tab + (size_t)l * T;
+    const float* t1 = tab + (size_t)(L + l) * T;
+    float acc0 = 0.0f;
+    float acc1 = 0.0f;
+    for (int k = 0; k < kCorners; ++k) {
+      acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
+      acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
+    }
+    o[(size_t)(2 * l) * stride + p] = acc0;
+    o[(size_t)(2 * l + 1) * stride + p] = acc1;
+  }
+}
+
 // Replaces permuto_pallas.encode_fwd (_encode_fwd_kernel): the fused
 // permutohedral encode, out[b, 2l+f, p] = sum_k w_k * table[b, f, l, idx_k].
 //
@@ -139,23 +165,8 @@ __global__ void encode_fwd_kernel(const float* __restrict__ table,
   const float y = coords[cbase + P + p];
   const float z = coords[cbase + 2 * (size_t)P + p];
   const int L = c.n_levels;
-  const float* tab = table + (size_t)b * 2 * L * T;
-  float* o = out + (size_t)b * 2 * L * P;
-  for (int l = 0; l < L; ++l) {
-    uint32_t idx[kCorners];
-    float w[kCorners];
-    lattice_level(x, y, z, c, l, idx, w);
-    const float* t0 = tab + (size_t)l * T;
-    const float* t1 = tab + (size_t)(L + l) * T;
-    float acc0 = 0.0f;
-    float acc1 = 0.0f;
-    for (int k = 0; k < kCorners; ++k) {
-      acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
-      acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
-    }
-    o[(size_t)(2 * l) * P + p] = acc0;
-    o[(size_t)(2 * l + 1) * P + p] = acc1;
-  }
+  encode_point(table + (size_t)b * 2 * L * T, T, x, y, z, c,
+               out + (size_t)b * 2 * L * P, P, p);
 }
 
 // Replaces permuto_pallas.encode_bwd_table (_encode_bwd_kernel): recompute
@@ -218,6 +229,114 @@ __global__ void batched_gather_kernel(const float* __restrict__ values,
   out[e] = __ldg(values + b * N + idx[e]);
 }
 
+// -- render path: tile-sorted mixture-of-experts encodes ---------------------
+//
+// The render dispatch (ops/dispatch.py tiled_dispatch_sorted) packs every
+// (sample, field) pair into kTile-pair tiles, each owned by one field
+// (tile_experts[t]). Tiles at or past *num_live (a device scalar, so the
+// host never waits for it) hold only invalid pairs and padding: their
+// output is never written and every consumer masks it by select.
+//
+// Bound: the same random 8-byte table gathers as encode_fwd_kernel, now
+// ~1.07 G per 8,388,608-pair render block (16 levels x 4 corners x 2
+// features a pair), plus the 1.07 GB (tiles, 2L, 1024) f32 output, which is
+// the least traffic the block needs (~0.32 ms at 3.35 TB/s). Consecutive
+// tiles mostly share a field, so a field's 512 KiB table is reused from L2;
+// even 1000 fields' tables (512 MB) are gathered straight from device
+// memory through L2 without staging. Design: one block of kThreads threads
+// per quarter tile (grid = tiles x kTile / kThreads), one thread per pair,
+// the tile's field read once per thread from tile_experts; coordinates and
+// outputs are coalesced along the tile's lanes. The TPU kernel's table DMA
+// per grid step and its 128-lane sweep are not carried over.
+constexpr int kTile = 1024;  // pairs per tile (permuto_pallas.TILE_M)
+
+// Replaces permuto_pallas.encode_fwd_moe (_encode_fwd_moe_kernel): the MoE
+// encode from carried field-local coordinates (tiles, 3, kTile).
+__global__ void encode_fwd_moe_kernel(const float* __restrict__ tables,
+                                      const float* __restrict__ coords,
+                                      const int* __restrict__ tile_experts,
+                                      const int* __restrict__ num_live,
+                                      float* __restrict__ out, int T,
+                                      __grid_constant__ const LevelConsts c) {
+  const int t = blockIdx.x;
+  if (t >= __ldg(num_live)) return;
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  const int L = c.n_levels;
+  const float* xyz = coords + (size_t)t * kDim * kTile;
+  const int e = __ldg(tile_experts + t);
+  encode_point(tables + (size_t)e * 2 * L * T, T, xyz[lane], xyz[kTile + lane],
+               xyz[2 * kTile + lane], c, out + (size_t)t * 2 * L * kTile, kTile,
+               lane);
+}
+
+// Launch constants of the ray rebuild (everything but the camera/extrinsics
+// vector, which lives on the device because it comes from the pose).
+struct RayConsts {
+  int block_offset;  // pixel index of the block's first ray
+  int log2_ks;       // log2(k * samples per ray): pair index -> ray
+  int width;         // image width (exact integer row split)
+  float coord_scale;  // field-local scaling (scale_mode)
+  float coord_shift;
+};
+
+// Replaces permuto_pallas.encode_fwd_moe_rays (_encode_fwd_moe_rays_kernel):
+// the MoE encode that rebuilds each sample point from its k-minor pair index
+// and span distance, in the TPU kernel's order of operations:
+//   ray = orig >> log2_ks; pixel = block_offset + ray; row = pixel / width
+//   (an exact integer division, no f32 reciprocal); direction
+//   (R @ ((j - cx)/fx, -(i - cy)/fy, -1)) / norm; world = origin + dir * dist;
+//   local = conj(q) * (world - p_field) * coord_scale + coord_shift.
+// rayp (16,) f32 on the device: R row-major (9), origin (3), 1/fx, 1/fy, cx,
+// cy. poses (N, 7): position, wxyz quaternion. The norm is 1 / sqrtf(...)
+// (IEEE sqrt and division, no rsqrtf approximation) so the coordinates are
+// bit-identical to the plain version's and land on the same simplex corners.
+__global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
+                                           const int* __restrict__ orig,
+                                           const float* __restrict__ dist,
+                                           const int* __restrict__ tile_experts,
+                                           const int* __restrict__ num_live,
+                                           const float* __restrict__ rayp,
+                                           const float* __restrict__ poses,
+                                           float* __restrict__ out, int T,
+                                           __grid_constant__ const RayConsts rc,
+                                           __grid_constant__ const LevelConsts c) {
+  const int t = blockIdx.x;
+  if (t >= __ldg(num_live)) return;
+  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
+  const size_t i = (size_t)t * kTile + lane;
+  const int e = __ldg(tile_experts + t);
+  const int ray = (int)((uint32_t)orig[i] >> rc.log2_ks);
+  const int pix = ray + rc.block_offset;
+  const int iy_i = pix / rc.width;
+  const float iy = (float)iy_i;
+  const float jx = (float)(pix - iy_i * rc.width);
+  const float dx = (jx - __ldg(rayp + 14)) * __ldg(rayp + 12);
+  const float dy = -(iy - __ldg(rayp + 15)) * __ldg(rayp + 13);
+  const float inv_n = 1.0f / sqrtf(dx * dx + dy * dy + 1.0f);
+  const float dwx = (__ldg(rayp + 0) * dx + __ldg(rayp + 1) * dy - __ldg(rayp + 2)) * inv_n;
+  const float dwy = (__ldg(rayp + 3) * dx + __ldg(rayp + 4) * dy - __ldg(rayp + 5)) * inv_n;
+  const float dwz = (__ldg(rayp + 6) * dx + __ldg(rayp + 7) * dy - __ldg(rayp + 8)) * inv_n;
+  const float d = dist[i];
+  const float* pose = poses + (size_t)e * 7;
+  const float px = __ldg(rayp + 9) + dwx * d - __ldg(pose + 0);
+  const float py = __ldg(rayp + 10) + dwy * d - __ldg(pose + 1);
+  const float pz = __ldg(rayp + 11) + dwz * d - __ldg(pose + 2);
+  // inverse quaternion rotate (conjugate), as fields.world_to_local_soa
+  const float qw = __ldg(pose + 3);
+  const float qx = -__ldg(pose + 4);
+  const float qy = -__ldg(pose + 5);
+  const float qz = -__ldg(pose + 6);
+  const float tx = 2.0f * (qy * pz - qz * py);
+  const float ty = 2.0f * (qz * px - qx * pz);
+  const float tz = 2.0f * (qx * py - qy * px);
+  const float xs = (px + qw * tx + (qy * tz - qz * ty)) * rc.coord_scale + rc.coord_shift;
+  const float ys = (py + qw * ty + (qz * tx - qx * tz)) * rc.coord_scale + rc.coord_shift;
+  const float zs = (pz + qw * tz + (qx * ty - qy * tx)) * rc.coord_scale + rc.coord_shift;
+  const int L = c.n_levels;
+  encode_point(tables + (size_t)e * 2 * L * T, T, xs, ys, zs, c,
+               out + (size_t)t * 2 * L * kTile, kTile, lane);
+}
+
 int fill_consts(LevelConsts* c, int L, const float* scales, const float* shifts,
                 const float* elev, const int* caps) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
@@ -266,6 +385,44 @@ int ngm_batched_gather(const float* values, const int64_t* idx, float* out, int 
   const int blocks = (int)((total + kThreads - 1) / kThreads);
   batched_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       values, idx, out, N, M, total);
+  return (int)cudaGetLastError();
+}
+
+// tables (N, 2, L, T), coords (tiles, 3, kTile), tile_experts (tiles,) int32,
+// num_live () int32 on the device -> out (tiles, 2L, kTile).
+int ngm_encode_fwd_moe(const float* tables, const float* coords,
+                       const int* tile_experts, const int* num_live, float* out,
+                       int tiles, int L, int T, const float* scales,
+                       const float* shifts, const float* elev, const int* caps,
+                       void* stream) {
+  LevelConsts c;
+  const int err = fill_consts(&c, L, scales, shifts, elev, caps);
+  if (err) return err;
+  const dim3 grid(tiles, kTile / kThreads);
+  encode_fwd_moe_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      tables, coords, tile_experts, num_live, out, T, c);
+  return (int)cudaGetLastError();
+}
+
+// tables (N, 2, L, T), orig (tiles, kTile) int32 k-minor pair indices, dist
+// (tiles, kTile), tile_experts (tiles,), num_live (), rayp (16,), poses
+// (N, 7), all on the device -> out (tiles, 2L, kTile).
+int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
+                            const float* dist, const int* tile_experts,
+                            const int* num_live, const float* rayp,
+                            const float* poses, float* out, int tiles, int L,
+                            int T, int block_offset, int log2_ks, int width,
+                            float coord_scale, float coord_shift,
+                            const float* scales, const float* shifts,
+                            const float* elev, const int* caps, void* stream) {
+  LevelConsts c;
+  const int err = fill_consts(&c, L, scales, shifts, elev, caps);
+  if (err) return err;
+  if (width < 1 || log2_ks < 0 || log2_ks > 30) return (int)cudaErrorInvalidValue;
+  const RayConsts rc = {block_offset, log2_ks, width, coord_scale, coord_shift};
+  const dim3 grid(tiles, kTile / kThreads);
+  encode_fwd_moe_rays_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, rc, c);
   return (int)cudaGetLastError();
 }
 

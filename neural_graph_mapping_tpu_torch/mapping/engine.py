@@ -1,5 +1,6 @@
 """NeuralGraphMap: the online dense neural mapping engine (port of
-neural_graph_mapping_tpu.mapping.engine, multi-view frame step).
+neural_graph_mapping_tpu.mapping.engine: the multi-view frame step and
+full-image rendering through the tiled KNN path).
 
 Device side: one optimization iteration is field selection -> multi-view
 target sampling -> field-parallel render -> losses -> per-field Adam with
@@ -13,8 +14,8 @@ ported function also takes its draws as optional tensors
 (:class:`IterationDraws`), which is how the tests replay JAX's draws.
 
 Not ported here (see ROADMAP.md): the single-view update mode, field-axis
-sharding over several devices, and everything after ``process_frame``
-(rendering full images, meshing).
+sharding over several devices, the capacity-buffer render fallback (other
+encodings), and meshing.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from neural_graph_mapping_tpu_torch.mapping import graph as graph_mod
 from neural_graph_mapping_tpu_torch.mapping import map_state, optimizer, render, sampling
 from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
 from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
-from neural_graph_mapping_tpu_torch.utils import transforms
+from neural_graph_mapping_tpu_torch.ops import quadrature as quad_mod
+from neural_graph_mapping_tpu_torch.utils import chunking, transforms
 
 logger = logging.getLogger(__name__)
 
@@ -329,6 +331,123 @@ def allocate_fields_jit(
     return centers, num_new, bb_min, bb_max
 
 
+def span_sample_distances(
+    t0: torch.Tensor,  # (B,) per-ray span start
+    t1: torch.Tensor,  # (B,) per-ray span end
+    u: torch.Tensor,  # (B, S) stratification jitter in [0, 1)
+    sample_spacing: float,
+) -> torch.Tensor:
+    """Stratified sample distances of the span-restricted render path
+    (B, S). With ``sample_spacing > 0`` samples step from t0 at that
+    spacing, stretched to span / S only where the span outruns S samples;
+    with 0, a dense stratification of [t0, t1]."""
+    num_samples = u.shape[-1]
+    if sample_spacing > 0.0:
+        per_ray = torch.clamp((t1 - t0) / num_samples, min=sample_spacing)  # (B,)
+        steps = torch.arange(num_samples, dtype=torch.float32, device=u.device)
+        return t0[:, None] + (steps[None, :] + u) * per_ray[:, None]
+    edges = torch.linspace(0.0, 1.0, num_samples + 1, device=u.device)[:-1]
+    return t0[:, None] + (t1 - t0)[:, None] * (edges + u / num_samples)
+
+
+def render_block_tiled(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    num_samples: int,
+    near: float,
+    far: float,
+    params: dict,
+    positions: torch.Tensor,  # (N, 3)
+    orientations: torch.Tensor,  # (N, 4)
+    allocated_mask: torch.Tensor,  # (N,) bool
+    ijs: torch.Tensor,  # (B, 2) float (row, column)
+    c2w: torch.Tensor,  # (4, 4)
+    u: Optional[torch.Tensor] = None,  # (B, S) jitter; None = draw from generator
+    generator: Optional[torch.Generator] = None,
+    use_ray_kernel: bool = False,
+    block_offset: Optional[int] = None,  # index of ijs[0] in the row-major grid
+    sample_spacing: float = 0.0,
+):
+    """One span-restricted render block through the tiled KNN path
+    (engine.render_block_tiled_jit) -> (rgbd (B, 4), depth_vars (B,),
+    term_probs (B,)).
+
+    Per ray, samples start where the ray first enters an allocated field
+    sphere (``span_sample_distances``); every (sample, neighbour) pair is
+    evaluated by ``NeuralFieldSet.apply_knn_tiled`` and composited by
+    ``quadrature``. With ``use_ray_kernel`` (k * S a power of two, ``ijs``
+    the row-major pixel grid from ``block_offset``) the MoE kernel rebuilds
+    each sample point from its pair index and distance. No host sync.
+    """
+    b = ijs.shape[0]
+    dirs = camera.ijs_to_directions(ijs)  # (B, 3) camera frame
+    rot = c2w[:3, :3]
+    origin = c2w[:3, 3]
+    dirs_w = dirs @ rot.T  # (B, 3) world
+
+    # per-ray span over the allocated field spheres
+    co = positions - origin[None, :]  # (N, 3)
+    proj = dirs_w @ co.T  # (B, N)
+    c_sq = torch.sum(co * co, dim=-1)  # (N,)
+    r = float(fset.field_radius)
+    disc = proj * proj - (c_sq[None, :] - r * r)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    enter = proj - sq
+    exit_ = proj + sq
+    hit = (disc > 0.0) & allocated_mask[None, :] & (exit_ > near) & (enter < far)
+    enter_c = torch.clamp(enter, near, far)
+    exit_c = torch.clamp(exit_, near, far)
+    t0 = torch.amin(torch.where(hit, enter_c, far), dim=-1)  # (B,)
+    t1 = torch.amax(torch.where(hit, exit_c, near), dim=-1)
+    any_hit = torch.any(hit, dim=-1)
+    t0 = torch.where(any_hit, t0, near)
+    t1 = torch.where(any_hit, torch.maximum(t1, t0), far)
+
+    if u is None:
+        u = torch.rand((b, num_samples), generator=generator, device=ijs.device)
+    distances = span_sample_distances(t0, t1, u, sample_spacing)  # (B, S)
+    points_world = origin[None, None, :] + dirs_w[:, None, :] * distances[..., None]
+
+    ray_ctx = None
+    if use_ray_kernel:
+        ks = fset.num_knn * num_samples
+        log2_ks = ks.bit_length() - 1
+        if (1 << log2_ks) != ks or block_offset is None:
+            raise ValueError("the ray kernel needs a power-of-two k * S and a block_offset")
+        fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
+        # a non-blocking copy: a blocking one would wait for the device
+        intr = torch.tensor([1.0 / fx, 1.0 / fy, cx, cy], dtype=torch.float32).to(
+            c2w.device, non_blocking=True
+        )
+        ray_ctx = {
+            "dist": distances.reshape(-1),
+            "ray_params": torch.cat([rot.reshape(-1), origin, intr]).contiguous(),
+            "block_offset": int(block_offset),
+            "log2_ks": log2_ks,
+            "width": int(camera.width),
+        }
+
+    outs = fset.apply_knn_tiled(
+        params, points_world.reshape(-1, 3), positions, orientations, allocated_mask,
+        ray_ctx=ray_ctx,
+    ).reshape(b, num_samples, -1)
+
+    sample_colors = rcfg.color_factor * outs[..., :3]
+    sample_geometries = outs[..., 3]
+    # depth = -z in the camera frame = distance * (-dir_z); dirs are unit
+    sample_depths = distances * (-dirs[:, 2])[:, None]
+    neus_isds = None
+    if rcfg.geometry_mode == "neus":
+        neus_isds = 1.0 / torch.abs(torch.mean(params["neus_sd"]))
+    q = quad_mod.quadrature(
+        rcfg.geometry_mode, sample_colors, sample_geometries, distances, sample_depths,
+        geometry_factor=rcfg.geometry_factor, neus_isds=neus_isds,
+    )
+    rgbd = torch.cat([q.colors, q.depths[..., None]], dim=-1)
+    return rgbd, q.depth_vars, q.term_probs
+
+
 class NeuralGraphMap:
     """Online neural graph mapping on one device.
 
@@ -394,6 +513,24 @@ class NeuralGraphMap:
             ),
         )
         self._num_train_fields = int(c.get("num_train_fields", 32))
+        self._eval_near = float(c.get("eval_near_distance", 0.0))
+        self._eval_far = float(c.get("eval_far_distance", 8.0))
+        # eval sample spacing = the train-time depth-guided spacing
+        # (2 * range / guided samples), else the coarse field-diameter one
+        if self._rcfg.num_samples_depth_guided > 0:
+            self._sample_spacing = (
+                2 * self._rcfg.range_depth_guided / self._rcfg.num_samples_depth_guided
+            )
+        else:
+            self._sample_spacing = 2 * self._field_radius / self._rcfg.num_samples_coarse
+        self._eval_num_samples = int(
+            c.get("eval_num_samples", (self._eval_far - self._eval_near) / self._sample_spacing)
+        )
+        # samples per ray of the span-restricted render path
+        self._eval_span_samples = int(
+            min(self._eval_num_samples, int(c.get("eval_span_samples", 512)))
+        )
+        self._pixel_block_size = int(c.get("pixel_block_size", 8192))
         self._seed = int(c.get("seed", 0))
         if int(c.get("num_field_shards", 1)) > 1:
             raise NotImplementedError("field-axis sharding is not ported yet")
@@ -707,3 +844,54 @@ class NeuralGraphMap:
             range(self._num_fields, self._num_fields + n_new)
         )
         self._num_fields += n_new
+
+    # -- rendering ---------------------------------------------------------------
+
+    def render_block_size(self) -> int:
+        """Rays per render block: ``pixel_block_size``, shrunk in proportion
+        for spans above 512 samples so a block's sample count stays put."""
+        block = self._pixel_block_size
+        if self._eval_span_samples > 512:
+            block = max(1024, int(block * 512 / self._eval_span_samples))
+        return block
+
+    def render_image(self, c2w, camera, capacity_per_field: Optional[int] = None):
+        """Render an RGB-D image from pose ``c2w`` (4, 4) with ``camera``
+        through the span-restricted tiled KNN path, block by block
+        -> (rgbd (H, W, 4), depth_vars (H, W)).
+
+        The ray kernel runs when num_knn * eval_span_samples is a power of
+        two, carried coordinates otherwise. The capacity-buffer fallback
+        (fields other than 3D permutohedral with 2 features per level, or an
+        explicit ``capacity_per_field``) is not ported and raises.
+        """
+        if capacity_per_field is not None or not self._fset.supports_tiled_knn():
+            raise NotImplementedError(
+                "render_image: only the tiled KNN path (3D permutohedral fields, no "
+                "capacity_per_field) is ported"
+            )
+        h, w = camera.height, camera.width
+        dev = self._device
+        ii, jj = torch.meshgrid(
+            torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij"
+        )
+        ijs_all = torch.stack([ii, jj], dim=-1).reshape(-1, 2).to(torch.float32)
+        c2w = self._to_device(c2w).to(torch.float32)
+        ks = self._fset.num_knn * self._eval_span_samples
+        use_ray_kernel = (ks & (ks - 1)) == 0
+        allocated = self._allocated_mask()
+
+        def model(ijs, offset=0):
+            rgbd, dv, _ = render_block_tiled(
+                self._fset, camera, self._rcfg, self._eval_span_samples, self._eval_near,
+                self._eval_far, self._params, self._map_arrays.positions,
+                self._map_arrays.orientations, allocated, ijs, c2w,
+                generator=self._frame_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
+                sample_spacing=float(self._sample_spacing),
+            )
+            return rgbd, dv
+
+        rgbds, depth_vars = chunking.batched_evaluation(
+            model, ijs_all, self.render_block_size(), pass_offset=use_ray_kernel
+        )
+        return rgbds.reshape(h, w, 4), depth_vars.reshape(h, w)

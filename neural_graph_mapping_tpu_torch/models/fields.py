@@ -1,5 +1,6 @@
 """Neural fields: encoding + MLP, and posed multi-field sets (port of
-neural_graph_mapping_tpu.models.fields, training path).
+neural_graph_mapping_tpu.models.fields: the training path and the tiled KNN
+inference path of rendering).
 
 Fields are functional ``nn.Module``s: parameters live in flat dicts whose
 tensors carry a leading field axis, ``(N_cap, ...)``, exactly the JAX
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from neural_graph_mapping_tpu_torch.config import str_to_object
+from neural_graph_mapping_tpu_torch.ops import dispatch, permuto_cuda, topk
 
 Params = Dict[str, torch.Tensor]
 
@@ -112,8 +114,9 @@ class NeuralField(nn.Module):
 
 
 class NeuralFieldSet(nn.Module):
-    """Set of posed neural fields (training path: field-parallel evaluation
-    of gathered field slices)."""
+    """Set of posed neural fields: field-parallel evaluation of gathered
+    field slices (training) and KNN-blended evaluation through the
+    tile-sorted MoE dispatch (rendering)."""
 
     def __init__(
         self,
@@ -183,3 +186,148 @@ class NeuralFieldSet(nn.Module):
         """Field-parallel evaluation: world coords (3 x (F, P)) -> (F, dim_out, P)."""
         local = self.world_to_local_soa(coords, field_positions, field_orientations)
         return self.prototype.apply_fm_soa(vmap_params, local)
+
+    def supports_tiled_knn(self) -> bool:
+        """True when the tiled MoE inference path applies: 3D permutohedral
+        encoding with 2 features per level (the MoE kernels' shape) and no
+        concatenated points."""
+        from neural_graph_mapping_tpu_torch.ops.encodings import PermutohedralEncoding
+
+        enc = self.prototype.encoding
+        return (
+            isinstance(enc, PermutohedralEncoding)
+            and enc.pos_dim == 3
+            and enc.nr_feat_per_level == 2
+            and not enc.concat_points
+            and self.dim_points == 3
+        )
+
+    def _coord_scale_shift(self):
+        if self.scale_mode == "unit_cube":
+            return 1.0 / (2.0 * self.field_radius), 0.5
+        if self.scale_mode == "unit_ball":
+            return 1.0 / self.field_radius, 0.0
+        return 1.0, 0.0
+
+    def apply_knn_tiled(
+        self,
+        stacked_params: Params,
+        query_points: torch.Tensor,  # (P, 3) world
+        field_positions: torch.Tensor,  # (N, 3)
+        field_orientations: torch.Tensor,  # (N, 4) wxyz
+        field_valid: torch.Tensor,  # (N,) bool
+        ray_ctx: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """KNN-blended evaluation through the tile-sorted MoE dispatch
+        (fields.apply_knn_tiled) -> (P, dim_out).
+
+        Every valid (point, neighbour) pair is sorted by field into
+        TILE-pair tiles that each belong to one field, encoded by one MoE
+        kernel launch, pushed through the MLP with per-tile weights, and put
+        back in pair order. Points whose nearest field is beyond the radius
+        get ``outside_value``. No per-field capacity, no dropped pairs.
+
+        Routing, as the JAX package at its defaults: k = 2 runs the
+        ``topk2_fields`` kernel and keeps pairs k-major (pair i of rank kk
+        at kk * P + i); other k run :func:`dispatch.topk_fields` with k-minor
+        pairs. ``ray_ctx`` (render blocks whose k * samples is a power of
+        two) = {"dist": (P,) span distances, "ray_params": (16,),
+        "block_offset": int, "log2_ks": int, "width": int}: the encode then
+        rebuilds each sample point in the kernel (``encode_fwd_moe_rays``)
+        instead of carrying coordinates through the sort
+        (``encode_fwd_moe``). No host sync: the live-tile count stays on the
+        device.
+        """
+        radius, k = self.field_radius, self.num_knn
+        n = stacked_params["enc.table"].shape[0]
+        p = query_points.shape[0]
+        tile = permuto_cuda.TILE
+        enc = self.prototype.encoding
+        m = p * k
+
+        k_major = k == 2
+        if k_major:
+            d_fm, i_fm = topk.topk2_fields(
+                query_points.T.contiguous(), field_positions.contiguous(), field_valid
+            )  # (2, P)
+            inside = d_fm[0] < radius
+            valid_fm = torch.isfinite(d_fm) & inside[None, :]
+            pair_ids = i_fm.reshape(-1)
+            pair_valid = valid_fm.reshape(-1)
+        else:
+            knn_dists, knn_idx = dispatch.topk_fields(query_points, field_positions, field_valid, k)
+            inside = knn_dists[:, 0] < radius
+            pair_ids = knn_idx.reshape(-1)
+            pair_valid = torch.repeat_interleave(inside, k) & torch.isfinite(knn_dists.reshape(-1))
+
+        def pairs_of(x):  # (P,) point payload -> (M,) in pair order
+            return x.repeat(k) if k_major else torch.repeat_interleave(x, k)
+
+        if ray_ctx is not None:
+            payloads = (pairs_of(ray_ctx["dist"]),)
+        else:
+            payloads = tuple(pairs_of(query_points[:, i]) for i in range(3))
+        (
+            sorted_payloads, sorted_orig, tile_src, tile_expert, tile_count, num_live, num_tiles,
+        ) = dispatch.tiled_dispatch_sorted(pair_ids, pair_valid, payloads, n, tile)
+
+        # per-tile contiguous slices of the (one-tile padded) sorted arrays
+        lane = torch.arange(tile, device=query_points.device)
+        src = tile_src.long()[:, None] + lane[None, :]  # (tiles, TILE)
+
+        def tile_buffer(x):
+            return torch.cat([x, x.new_zeros(tile)])[src]
+
+        buf_orig = tile_buffer(sorted_orig)
+        te = tile_expert.long()
+        consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+        table = stacked_params["enc.table"]
+        if ray_ctx is not None:
+            # the ray kernel derives the ray from a k-MINOR pair index
+            kern_orig = (buf_orig % p) * k + buf_orig // p if k_major else buf_orig
+            cs, csh = self._coord_scale_shift()
+            field_poses = torch.cat([field_positions, field_orientations], dim=-1).contiguous()
+            feats = permuto_cuda.encode_fwd_moe_rays(
+                table, kern_orig.contiguous(), tile_buffer(sorted_payloads[0]), tile_expert,
+                ray_ctx["ray_params"], field_poses, ray_ctx["block_offset"], *consts,
+                log2_ks=ray_ctx["log2_ks"], width=ray_ctx["width"], coord_scale=cs,
+                coord_shift=csh, num_live_tiles=num_live,
+            )  # (tiles, 2L, TILE)
+        else:
+            bx, by, bz = (tile_buffer(c) for c in sorted_payloads)
+            local = self.world_to_local_soa((bx, by, bz), field_positions[te], field_orientations[te])
+            feats = permuto_cuda.encode_fwd_moe(
+                table, torch.stack(local, dim=1).contiguous(), tile_expert, *consts,
+                num_live_tiles=num_live,
+            )
+
+        mlp_params = {key: v[te] for key, v in stacked_params.items() if not key.startswith("enc.")}
+        outs = self.prototype.mlp_fm(mlp_params, feats)  # (tiles, dim_out, TILE)
+        dim_out = self.prototype.dim_out
+        # back to pair order: one scatter by the carried pair index (real
+        # lanes' keys are unique; padding lanes all land in the dump slot m)
+        bkey = torch.where(lane[None, :] < tile_count[:, None], buf_orig, m).long().reshape(-1)
+        flat_fm = outs.permute(1, 0, 2).reshape(dim_out, num_tiles * tile)
+        pair_outs = outs.new_empty((dim_out, m + 1)).index_copy_(1, bkey, flat_fm)[:, :m]
+
+        if k_major:
+            # feature-major softmax blend over the (k, P) kernel outputs;
+            # invalid pairs get weight 0 by SELECT (dead tiles may hold NaN)
+            logits = torch.where(valid_fm, -self.distance_factor * d_fm, -torch.inf)
+            mx = torch.amax(logits, dim=0)
+            e = torch.exp(logits - torch.where(torch.isfinite(mx), mx, 0.0)[None, :])
+            e = torch.where(valid_fm, e, 0.0)
+            w = e / torch.clamp(torch.sum(e, dim=0), min=1e-38)[None, :]  # (k, P)
+            per_rank = pair_outs.reshape(dim_out, k, p)
+            blended = sum(
+                torch.where(valid_fm[kk][None, :], per_rank[:, kk] * w[kk][None, :], 0.0)
+                for kk in range(k)
+            ).T  # (P, dim_out)
+        else:
+            pair_outs = torch.where(pair_valid[None, :], pair_outs, 0.0)
+            logits = -self.distance_factor * knn_dists
+            logits = torch.where(torch.isfinite(knn_dists) & inside[:, None], logits, -torch.inf)
+            safe_logits = torch.where(inside[:, None], logits, 0.0)
+            weights = torch.softmax(safe_logits, dim=-1)  # (P, k)
+            blended = torch.einsum("cpk,pk->pc", pair_outs.reshape(dim_out, p, k), weights)
+        return torch.where(inside[:, None], blended, self.outside_value)

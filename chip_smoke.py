@@ -14,7 +14,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    started together) and prints the build seconds.
 3. kernels (training): each training kernel against its plain PyTorch
    version on the card, at the training path's shapes, with the stated
-   tolerance; median times of 20 runs (CUDA events) after warm-up.
+   tolerance; median times of 20 runs (CUDA events) after warm-up; then the
+   fused pair ``encode_mlp_fwd`` / ``encode_mlp_bwd`` at the same shapes and
+   production widths (D = 32, H = 32, O = 4), beside the unfused route's time
+   for the same work.
 4. slice: the port's ``NeuralGraphMap.process_frame`` over 12 frames of the
    synthetic scene (160x120) at the production configuration
    (config/neural_graph_map.yaml + config/synthetic.yaml, written out below);
@@ -22,6 +25,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    kernel launched once per optimization iteration; then one optimization
    iteration at the same width on the card against the same iteration on
    the CPU (plain versions), same weights and draws.
+   slice_fused_mlp: a fresh map with ``fused_mlp: true`` over the same
+   frames: only the fused pair trains (once per iteration each), steady ms a
+   frame beside the unfused slice's; one iteration against the CPU and
+   against the unfused route on the card.
 5. kernels (render): the three render kernels against their plain versions
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
@@ -38,19 +45,34 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    CPU (plain versions), same state and jitter, max abs <= 1e-4; the card's
    block runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
    sync inside it fails the run.
+9. field2d: a 2D permutohedral field set at the production encoding widths
+   (32 fields x 12,288 points) through ``apply_vmap``, the gather route:
+   forward and backward on the card against the CPU, ``gather_pairs`` and
+   ``table_grad`` against their plain versions at the shapes it gave them
+   (``kernel`` lines), five Adam steps of a fit that must lower its loss.
+10. geometry_gradients: one trained field at 4,096 points, card against CPU.
 
     python3 chip_smoke.py --profile PATH
 
 adds a phase after the slice: a fresh map runs the same 12 frames with
 torch.profiler over frames 7-12 and prints the device kernel count, the
 device-busy time and the largest device items; PATH gets the full
-``key_averages()`` table. It also profiles one 160x120 render of the
+``key_averages()`` table. The same for a fresh ``fused_mlp`` map after the
+fused slice (PATH with ``.fused`` added), and for one 160x120 render of the
 trained map (PATH with ``.render`` added). The timed phases never run under
 the profiler.
 
-The line before the last is a JSON summary of the six kernels (launches
+    python3 chip_smoke.py --ab ROUNDS
+
+adds a phase after the fused slice: fresh maps over the same 12 frames on
+the two training routes in turns, ROUNDS x (unfused, fused, fused,
+unfused), each run's steady median ms a frame, and in how many of the
+2 x ROUNDS pairs the fused route was faster.
+
+The line before the last is a JSON summary of the ten kernels (launches
 from the path that runs each: training kernels from the 12 frames, the
-render kernels from one render of their route); the last line is
+fused pair from the fused slice, the render kernels from one render of
+their route, the gather route's pair from the 2D fit); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -258,16 +280,96 @@ def check_kernels(torch, permuto_cuda, enc):
     return report_rows(rows, shapes, bounds, library)
 
 
-def report_rows(rows, shapes, bounds, library):
-    """Print one kernel phase line per row; -> {name: measurements}."""
+def report_rows(rows, shapes, bounds, library, extra=None):
+    """Print one kernel phase line per row; -> {name: measurements}.
+    ``extra`` adds keys to a row (the unfused route's time of a fused kernel)."""
     out = {}
     for name, err, tol, ms, plain_ms in rows:
         bound_ms, bound_by = bounds[name]
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library.get(name))
+                   bound_by=bound_by, library_ms=library.get(name), **(extra or {}).get(name, {}))
         phase("kernel", name=name, tolerance=tol, shape=shapes[name], **row)
         out[name] = row
     return out
+
+
+def max_err(torch, got, want, relative=False):
+    """max |got - want|, or that over max |want| with ``relative``."""
+    err = float((got - want).abs().max())
+    return err / max(float(want.abs().max()), 1e-30) if relative else err
+
+
+def check_fused_kernels(torch, permuto_cuda, enc):
+    """Kernels 9-10, the fused encode + MLP pair, against their plain
+    versions at the frame step's shapes and production widths (D = 32,
+    H = 32, O = 4); beside each, the unfused route's time for the same work
+    (encode_fwd + the bmm MLP; the MLP's autograd + encode_bwd_table)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(4242)
+    b, p = 32, 512 * 24
+    n_levels, t = enc.nr_levels, enc.capacity
+    d, h, o = 2 * n_levels, 32, 4
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    table = uniform((b, 2, n_levels, t), 1.0)
+    coords = torch.rand((b, 3, p), generator=gen, device=dev) * 1.5 - 0.25
+    w0, b0 = uniform((b, d, h), d ** -0.5), uniform((b, h), d ** -0.5)  # nn.Linear's init
+    w1, b1 = uniform((b, h, o), h ** -0.5), uniform((b, o), h ** -0.5)
+    g = torch.randn((b, o, p), generator=gen, device=dev)
+    weights = (w0, b0, w1, b1)
+
+    out, feats = permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts)
+    ref_out, ref_feats = permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts)
+    err = max(max_err(torch, out, ref_out), max_err(torch, feats, ref_feats))
+    if not err <= 1e-5:
+        raise AssertionError(f"encode_mlp_fwd max abs err {err} > 1e-5")
+    rows = [("encode_mlp_fwd", err, "max abs <= 1e-5 (outputs and residual)",
+             time_ms(torch, lambda: permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts)),
+             time_ms(torch, lambda: permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts)))]
+
+    bwd_args = (coords, feats, g, w0, b0, w1, *consts)
+    got = permuto_cuda.encode_mlp_bwd(*bwd_args)
+    want = permuto_cuda.encode_mlp_bwd_plain(*bwd_args)
+    errs = [max_err(torch, a, w, relative=True) for a, w in zip(got, want)]
+    if not (errs[0] <= 1e-4 and max(errs[1:]) <= 1e-4):
+        raise AssertionError(f"encode_mlp_bwd relative errors {errs} > 1e-4")
+    rows.append(("encode_mlp_bwd", max_err(torch, got[0], want[0]),
+                 "table gradient max abs <= 1e-4 * max|plain| (atomics); weight gradients "
+                 f"<= 1e-4 relative (got {max(errs[1:]):.2e})",
+                 time_ms(torch, lambda: permuto_cuda.encode_mlp_bwd(*bwd_args)),
+                 time_ms(torch, lambda: permuto_cuda.encode_mlp_bwd_plain(*bwd_args))))
+
+    # the unfused route on the same inputs: encode_fwd + the bmm MLP, and
+    # the MLP's autograd (from a kept graph, as training has) + encode_bwd_table
+    def unfused_fwd():
+        return permuto_cuda.mlp_plain(permuto_cuda.encode_fwd(table, coords, *consts), *weights)
+
+    leaves = [x.detach().requires_grad_(True) for x in (ref_feats, *weights)]
+    with torch.enable_grad():
+        mlp_out = permuto_cuda.mlp_plain(*leaves)
+
+    def unfused_bwd():
+        dfeats = torch.autograd.grad(mlp_out, leaves, g, retain_graph=True)[0]
+        return permuto_cuda.encode_bwd_table(coords, dfeats, *consts)
+
+    unfused = {"encode_mlp_fwd": {"unfused_ms": time_ms(torch, unfused_fwd)},
+               "encode_mlp_bwd": {"unfused_ms": time_ms(torch, unfused_bwd)}}
+    f32 = 4
+    mlp_ops = 2 * (d * h + h * o)
+    weight_bytes = (d * h + h + h * o + o) * b * f32
+    stream = b * p * (3 + d + o) * f32  # coordinates, residual, outputs or cotangent
+    table_bytes = table.numel() * f32
+    bounds = {
+        "encode_mlp_fwd": bound(table_bytes + weight_bytes + stream, b * p * (n_levels * LATTICE_OPS + mlp_ops)),
+        # recomputed pre-activations, dh, dw1, dw0, dL/df; the lattice and its scatter
+        "encode_mlp_bwd": bound(table_bytes + weight_bytes + stream,
+                                b * p * (n_levels * (LATTICE_OPS + 16) + 6 * d * h + 4 * h * o)),
+    }
+    shapes = {name: {"fields": b, "points": p, "D": d, "H": h, "O": o} for name in bounds}
+    return report_rows(rows, shapes, bounds, {}, unfused)
 
 
 def to_cpu(x):
@@ -298,9 +400,12 @@ def clone(x):
     return x
 
 
-def check_iteration_against_cpu(torch, engine, ngm):
+def check_iteration_against_cpu(torch, engine, ngm, against_unfused=False):
     """One optimization iteration at production width on the card and on
-    the CPU (plain versions), from the same state and the same draws."""
+    the CPU (plain versions), from the same state and the same draws ->
+    (worst relative loss difference, losses). With ``against_unfused`` (a
+    fused-route map) the same iteration also runs on the card through the
+    unfused route -> (worst vs CPU, worst vs unfused, losses)."""
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(99)
     n = ngm.capacity
@@ -329,18 +434,30 @@ def check_iteration_against_cpu(torch, engine, ngm):
         )[3]
 
     gpu = run(ngm._fset, clone(state), draws)
+    if against_unfused:
+        unfused_fset = copy.deepcopy(ngm._fset)
+        unfused_fset.prototype.fused_mlp = False
+        worst_unfused = compare_losses(gpu, run(unfused_fset, clone(state), draws), "unfused")
     cpu_fset = copy.deepcopy(ngm._fset).to("cpu")
-    cpu = run(cpu_fset, to_cpu(state), to_cpu(draws))
+    worst = compare_losses(gpu, run(cpu_fset, to_cpu(state), to_cpu(draws)), "cpu")
+    losses = {k: v.item() for k, v in gpu.items()}
+    if against_unfused:
+        return worst, worst_unfused, losses
+    return worst, losses
+
+
+def compare_losses(gpu, other, name: str) -> float:
+    """Worst relative difference of two loss dicts; raises above 1e-3."""
     worst = 0.0
     for k, v in gpu.items():
-        a, b = v.item(), cpu[k].item()
+        a, b = v.item(), other[k].item()
         if not (math.isfinite(a) and math.isfinite(b)):
-            raise AssertionError(f"non-finite loss {k}: gpu {a}, cpu {b}")
+            raise AssertionError(f"non-finite loss {k}: gpu {a}, {name} {b}")
         rel = abs(a - b) / max(abs(b), 1e-6)
         worst = max(worst, rel)
         if rel > 1e-3:
-            raise AssertionError(f"loss {k}: gpu {a} vs cpu {b} (rel {rel:.2e} > 1e-3)")
-    return worst, {k: v.item() for k, v in gpu.items()}
+            raise AssertionError(f"loss {k}: gpu {a} vs {name} {b} (rel {rel:.2e} > 1e-3)")
+    return worst
 
 
 def profiled(torch, fn):
@@ -386,9 +503,11 @@ def top_items(prof, busy_ms, out_path: pathlib.Path, n: int = 12):
     ]
 
 
-def profile_slice(torch, engine, ds, frames, steady_ms, out_path: pathlib.Path) -> None:
-    """--profile: torch.profiler over the steady frames of a fresh map."""
-    ngm = engine.NeuralGraphMap(CONFIG, device="cuda")
+def profile_slice(torch, engine, ds, frames, steady_ms, out_path: pathlib.Path,
+                  config=None, name: str = "profile") -> None:
+    """--profile: torch.profiler over the steady frames of a fresh map
+    (``config``, CONFIG by default)."""
+    ngm = engine.NeuralGraphMap(config or CONFIG, device="cuda")
     for fid in range(STEADY_FROM + 1):
         ngm.process_frame(ds, fid, frames[fid])
     later = frames[STEADY_FROM + 1:]
@@ -400,7 +519,7 @@ def profile_slice(torch, engine, ds, frames, steady_ms, out_path: pathlib.Path) 
     prof, wall_ms, events, busy_ms = profiled(torch, run)
     n = len(later)
     phase(
-        "profile", frames=[STEADY_FROM + 2, NUM_FRAMES], device_events=events,
+        name, frames=[STEADY_FROM + 2, NUM_FRAMES], device_events=events,
         device_events_per_frame=events / n, device_busy_ms=busy_ms,
         device_busy_ms_per_frame=busy_ms / n, profiled_wall_ms=wall_ms,
         idle_share_profiled=1.0 - busy_ms / wall_ms,
@@ -424,22 +543,32 @@ def profile_render(torch, ngm, ds, render_ms, out_path: pathlib.Path) -> None:
 
 def capture_call(module, name: str, fn):
     """Run fn() with ``module.name`` wrapped -> (args, kwargs) of its first call."""
-    orig = getattr(module, name)
-    seen = []
+    return capture_calls(module, (name,), fn)[name]
 
-    def spy(*args, **kwargs):
-        if not seen:
-            seen.append((args, kwargs))
-        return orig(*args, **kwargs)
 
-    setattr(module, name, spy)
+def capture_calls(module, names, fn):
+    """Run fn() with each ``module.name`` wrapped -> {name: (args, kwargs)
+    of its first call}."""
+    origs = {name: getattr(module, name) for name in names}
+    seen = {}
+
+    def spy_for(name):
+        def spy(*args, **kwargs):
+            seen.setdefault(name, (args, kwargs))
+            return origs[name](*args, **kwargs)
+        return spy
+
+    for name in names:
+        setattr(module, name, spy_for(name))
     try:
         fn()
     finally:
-        setattr(module, name, orig)
-    if not seen:
-        raise AssertionError(f"{name} was not called")
-    return seen[0]
+        for name, orig in origs.items():
+            setattr(module, name, orig)
+    missing = [name for name in names if name not in seen]
+    if missing:
+        raise AssertionError(f"{missing} not called")
+    return seen
 
 
 def block_call(torch, ngm, camera, c2w, offset: int, rays: int, u):
@@ -639,10 +768,224 @@ def check_render_block_against_cpu(torch, engine, ngm, ds):
           host_syncs_in_block=0)
 
 
+def run_frames(torch, ngm, ds, frames):
+    """process_frame over ``frames`` -> (trained frames, seconds a frame,
+    the trained frames' loss dicts)."""
+    trained, frame_s, all_losses = 0, [], []
+    for fid, rgbd in enumerate(frames):
+        t0 = time.perf_counter()
+        losses = ngm.process_frame(ds, fid, rgbd)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        if losses:
+            trained += 1
+            all_losses.append(losses)
+    if ngm.num_fields < CONFIG["num_train_fields"]:
+        raise AssertionError(f"only {ngm.num_fields} fields allocated")
+    bad = [(i, k, v) for i, d in enumerate(all_losses) for k, v in d.items() if not math.isfinite(v)]
+    if bad or not all_losses:
+        raise AssertionError(f"non-finite or missing losses: {bad[:5]}")
+    return trained, frame_s, all_losses
+
+
+def check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi):
+    """Phase slice_fused_mlp: a fresh map with ``fused_mlp: true`` over the
+    same frames; every iteration through encode_mlp_fwd / encode_mlp_bwd and
+    never the unfused encodes; steady ms a frame beside the unfused slice's
+    (``unfused``: its median and mean); then one production-width iteration
+    against the CPU and against the unfused route on the card -> (launches,
+    steady mean ms a frame)."""
+    ngm = engine.NeuralGraphMap(dict(CONFIG, fused_mlp=True), device="cuda")
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    trained, frame_s, all_losses = run_frames(torch, ngm, ds, frames)
+    names = ("encode_mlp_fwd", "encode_mlp_bwd", "encode_fwd", "encode_bwd_table")
+    launches = {k: permuto_cuda.LAUNCHES[k] for k in names}
+    want = CONFIG["num_iterations_per_frame"] * trained
+    if launches != {"encode_mlp_fwd": want, "encode_mlp_bwd": want, "encode_fwd": 0, "encode_bwd_table": 0}:
+        raise AssertionError(f"fused slice launches {launches}, expected {want} fused and 0 unfused")
+    steady = frame_s[STEADY_FROM:]
+    phase(
+        "slice_fused_mlp", frames=NUM_FRAMES, trained_frames=trained, fields=ngm.num_fields,
+        launches=launches, frame_ms=[round(x * 1e3, 3) for x in frame_s],
+        steady_ms_per_frame_median=statistics.median(steady) * 1e3,
+        steady_ms_per_frame_mean=statistics.mean(steady) * 1e3,
+        unfused_steady_ms_per_frame_median=unfused[0], unfused_steady_ms_per_frame_mean=unfused[1],
+        last_losses=all_losses[-1], card=smi,
+    )
+    worst_cpu, worst_unfused, losses = check_iteration_against_cpu(torch, engine, ngm, against_unfused=True)
+    phase("fused_iteration_vs_cpu", max_rel_diff_cpu=worst_cpu, max_rel_diff_unfused_card=worst_unfused,
+          tolerance="rel <= 1e-3", losses=losses)
+    return {k: launches[k] for k in names[:2]}, statistics.mean(steady) * 1e3
+
+
+def ab_training_routes(torch, engine, ds, frames, rounds: int, smi) -> None:
+    """--ab: steady median ms a frame of fresh maps on the two training
+    routes in turns (unfused, fused, fused, unfused) x rounds, one process,
+    one card; pairs are (first unfused, first fused) and (second, second)
+    of each round."""
+    configs = {"unfused": CONFIG, "fused": dict(CONFIG, fused_mlp=True)}
+    runs = {"unfused": [], "fused": []}
+    for _ in range(rounds):
+        for name in ("unfused", "fused", "fused", "unfused"):
+            ngm = engine.NeuralGraphMap(configs[name], device="cuda")
+            frame_s = run_frames(torch, ngm, ds, frames)[1]
+            runs[name].append(statistics.median(frame_s[STEADY_FROM:]) * 1e3)
+    firsts = {k: v[0::2] for k, v in runs.items()}
+    seconds = {"unfused": runs["unfused"][1::2], "fused": runs["fused"][1::2]}
+    pairs = list(zip(firsts["unfused"], firsts["fused"])) + list(zip(seconds["unfused"], seconds["fused"]))
+    phase(
+        "ab_training_routes", rounds=rounds, order="unfused, fused, fused, unfused",
+        steady_median_ms=runs, pairs=len(pairs), fused_faster_in=sum(f < u for u, f in pairs),
+        median_unfused=statistics.median(runs["unfused"]), median_fused=statistics.median(runs["fused"]),
+        quartiles_unfused=statistics.quantiles(runs["unfused"], n=4),
+        quartiles_fused=statistics.quantiles(runs["fused"], n=4), card=smi,
+    )
+
+
+def field2d_kwargs():
+    """A 2D permutohedral field set at the production encoding widths
+    (L = 16, T = 2^12, 2 features a level), one hidden layer, 3 outputs."""
+    model = CONFIG["model_kwargs"]
+    field = dict(model["field_kwargs"], dim_out=3, neus_initial_sd=None)
+    field["encoding_kwargs"] = dict(field["encoding_kwargs"], pos_dim=2)
+    return dict(model, dim_points=2, field_kwargs=field)
+
+
+def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
+    """Phases kernel (gather_pairs, table_grad) and field2d: a 2D field set
+    of 32 fields x 12,288 points through apply_vmap (the gather route), its
+    forward and backward on the card against the CPU, the two kernels
+    against their plain versions at the captured shapes, and five Adam
+    steps of a fit to a smooth target -> (launches, kernel rows)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(2024)
+    fset = NeuralFieldSet(**field2d_kwargs()).to(dev)
+    n, p = 32, 512 * 24
+    params = fset.init_fields(n, gen, dev)
+    params["enc.table"] = torch.rand(params["enc.table"].shape, generator=gen, device=dev) * 2 - 1
+    theta = torch.rand((n,), generator=gen, device=dev) * 2 * math.pi
+    ori = torch.stack([torch.cos(theta), torch.sin(theta)], -1)
+    pos = torch.randn((n, 2), generator=gen, device=dev)
+    pts = pos[:, None, :] + torch.rand((n, p, 2), generator=gen, device=dev) * 2 - 1
+    x, y = pts.unbind(-1)
+    target = 0.5 * torch.stack([torch.sin(2 * x) * torch.cos(y), torch.cos(3 * y), torch.sin(x + y)], -1)
+
+    def loss_and_grads(fs, prm, points, po, oo, tgt):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in prm.items()}
+        out = fs.apply_vmap(leaves, points, po, oo)
+        loss = torch.mean((out - tgt) ** 2)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return out.detach(), loss.detach(), dict(zip(leaves, grads))
+
+    first = []
+    calls = capture_calls(permuto_cuda, ("gather_pairs", "table_grad"),
+                          lambda: first.append(loss_and_grads(fset, params, pts, pos, ori, target)))
+    out, _, grads = first[0]
+    cpu = loss_and_grads(copy.deepcopy(fset).to("cpu"), *to_cpu((params, pts, pos, ori, target)))
+    out_err = max_err(torch, out.cpu(), cpu[0])
+    grad_errs = {k: max_err(torch, g.cpu(), cpu[2][k], relative=True) for k, g in grads.items()}
+    if not (out_err <= 1e-5 and max(grad_errs.values()) <= 1e-4):
+        raise AssertionError(f"2D field set card vs CPU: outputs {out_err}, gradients {grad_errs}")
+
+    # kernels 7-8 at the captured shapes
+    (table, idx), _ = calls["gather_pairs"]
+    (t_idx, gv, t_size), _ = calls["table_grad"]
+    got = permuto_cuda.gather_pairs(table, idx)
+    if not torch.equal(got, permuto_cuda.gather_pairs_plain(table, idx)):
+        raise AssertionError("gather_pairs differs from torch.gather")
+    got = permuto_cuda.table_grad(t_idx, gv, t_size)
+    ref = permuto_cuda.table_grad_plain(t_idx, gv, t_size)
+    tg_err = max_err(torch, got, ref)
+    if not tg_err <= 1e-4 * float(ref.abs().max()):
+        raise AssertionError(f"table_grad max abs err {tg_err} > 1e-4 * max|plain|")
+    idx_full = idx.unsqueeze(-2).expand(idx.shape[:-1] + (2, idx.shape[-1]))
+    rows_f = gv.shape[:-1].numel()
+    flat = (torch.arange(rows_f, device=dev).reshape(gv.shape[:-1] + (1,)) * t_size + t_idx.unsqueeze(-2)).reshape(-1)
+    gvf = gv.reshape(-1)
+    hist = torch.zeros(rows_f * t_size, device=dev)
+    library = {"gather_pairs": time_ms(torch, lambda: torch.gather(table, -1, idx_full)),
+               "table_grad": time_ms(torch, lambda: hist.index_add_(0, flat, gvf))}
+    rows = [
+        ("gather_pairs", 0.0, "exact",
+         time_ms(torch, lambda: permuto_cuda.gather_pairs(table, idx)),
+         time_ms(torch, lambda: permuto_cuda.gather_pairs_plain(table, idx))),
+        ("table_grad", tg_err, "max abs <= 1e-4 * max|plain| (atomics)",
+         time_ms(torch, lambda: permuto_cuda.table_grad(t_idx, gv, t_size)),
+         time_ms(torch, lambda: permuto_cuda.table_grad_plain(t_idx, gv, t_size))),
+    ]
+    f32, pairs = 4, idx.numel()
+    bounds = {
+        # indices in, both features of every pair out, the tables read once
+        "gather_pairs": bound(table.numel() * f32 + pairs * (8 + 2 * f32), 0),
+        # indices and two values a pair in, the histogram out; two adds a pair
+        "table_grad": bound(pairs * (8 + 2 * f32) + rows_f * t_size * f32, 2 * pairs),
+    }
+    shapes = {name: {"rows": int(idx.shape[:-1].numel()), "pairs_per_row": idx.shape[-1],
+                     "table": t_size} for name in bounds}
+    kernel_rows = report_rows(rows, shapes, bounds, library)
+
+    # five Adam steps of the fit, on the card
+    fit = clone(params)
+    adam = optimizer.init_adam_state(fit)
+    ids = torch.arange(n, device=dev)
+    valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    cfg = optimizer.AdamConfig(learning_rate=1e-2)
+    permuto_cuda.reset_launch_counts()
+    losses = []
+    for _ in range(5):
+        sub = {k: v.index_select(0, ids) for k, v in fit.items()}
+        _, loss, step_grads = loss_and_grads(fset, sub, pts, pos, ori, target)
+        losses.append(loss)
+        optimizer.adam_slice_update(cfg, fit, adam, ids, valid, step_grads, sub)
+    torch.cuda.synchronize()
+    launches = {k: permuto_cuda.LAUNCHES[k] for k in ("gather_pairs", "table_grad")}
+    with torch.no_grad():
+        final = torch.mean((fset.apply_vmap(fit, pts, pos, ori) - target) ** 2).item()
+    losses = [v.item() for v in losses] + [final]
+    if not (all(math.isfinite(v) for v in losses) and final < losses[0]):
+        raise AssertionError(f"the 2D fit did not lower its loss: {losses}")
+    if min(launches.values()) < 5:
+        raise AssertionError(f"gather-route launches {launches} over 5 steps, expected >= 1 a step")
+    phase("field2d", fields=n, points=p, levels=fset.prototype.encoding.nr_levels,
+          table=fset.prototype.encoding.capacity, max_abs_out_vs_cpu=out_err,
+          max_rel_grad_vs_cpu=max(grad_errs.values()),
+          tolerance="outputs max abs <= 1e-5; gradients <= 1e-4 * max|cpu|",
+          fit_losses=losses, launches_5_steps=launches, card=smi)
+    return launches, kernel_rows
+
+
+def check_geometry_gradients(torch, permuto_cuda, losses, ngm):
+    """Phase geometry_gradients: one field of the trained map at 4,096
+    field-local points, on the card against the CPU."""
+    dev = torch.device("cuda")
+    trained = ngm._map_arrays.training_iterations[: ngm.num_fields]
+    fid = int(torch.argmax(trained))
+    params = {k: v[fid] for k, v in ngm._params.items()}
+    pts = torch.rand((4096, 3), generator=torch.Generator(dev).manual_seed(5), device=dev)
+    field = ngm._fset.prototype
+    permuto_cuda.reset_launch_counts()
+    grads = field.geometry_gradients(params, pts)
+    torch.cuda.synchronize()
+    launches = permuto_cuda.LAUNCHES["gather_pairs"]
+    want = copy.deepcopy(field).to("cpu").geometry_gradients(to_cpu(params), pts.cpu())
+    err = max_err(torch, grads.cpu(), want, relative=True)
+    peak = float(want.abs().max())
+    eikonal = losses.eikonal_term(grads).item()
+    if not (err <= 1e-4 and peak > 0.0 and launches >= 1 and math.isfinite(eikonal)):
+        raise AssertionError(f"geometry_gradients: rel err {err}, max |grad| {peak}, "
+                             f"gather_pairs launches {launches}, eikonal {eikonal}")
+    phase("geometry_gradients", field=fid, training_iterations=int(trained[fid]), points=4096,
+          max_rel_err_vs_cpu=err, tolerance="max abs <= 1e-4 * max|cpu|", max_abs_grad=peak,
+          eikonal=eikonal, gather_pairs_launches=launches)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=pathlib.Path, default=None, metavar="PATH",
                         help="also profile the steady frames; write the table to PATH")
+    parser.add_argument("--ab", type=int, default=0, metavar="ROUNDS",
+                        help="also time the two training routes in turns, ROUNDS x (unfused, fused, fused, unfused)")
     args = parser.parse_args()
     import torch
 
@@ -662,8 +1005,10 @@ def main() -> None:
 
     from neural_graph_mapping_tpu_torch.config import str_to_object
     from neural_graph_mapping_tpu_torch.eval import render_metrics
-    from neural_graph_mapping_tpu_torch.mapping import engine
+    from neural_graph_mapping_tpu_torch.mapping import engine, optimizer
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
     from neural_graph_mapping_tpu_torch.ops import cuda_build, permuto_cuda, topk
+    from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
     from neural_graph_mapping_tpu_torch.ops.encodings import PermutohedralEncoding
 
     # -- 2. build (every source, one nvcc each, in parallel) -----------------
@@ -679,6 +1024,7 @@ def main() -> None:
     enc_kwargs = CONFIG["model_kwargs"]["field_kwargs"]["encoding_kwargs"]
     enc = PermutohedralEncoding(**enc_kwargs)
     kernel_rows = check_kernels(torch, permuto_cuda, enc)
+    kernel_rows.update(check_fused_kernels(torch, permuto_cuda, enc))
 
     # -- 4. the slice ---------------------------------------------------------
     ds = str_to_object(CONFIG["dataset_type"])(CONFIG["dataset_config"])
@@ -688,26 +1034,13 @@ def main() -> None:
     torch.cuda.synchronize()
     permuto_cuda.reset_launch_counts()
     topk.reset_launch_counts()
-    trained, frame_s, all_losses = 0, [], []
-    for fid, rgbd in enumerate(frames):
-        t0 = time.perf_counter()
-        losses = ngm.process_frame(ds, fid, rgbd)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
-        if losses:
-            trained += 1
-            all_losses.append(losses)
+    trained, frame_s, all_losses = run_frames(torch, ngm, ds, frames)
     launches = {k: permuto_cuda.LAUNCHES[k] for k in ("encode_fwd", "encode_bwd_table", "batched_gather")}
-    render_launches = render_kernel_launches(permuto_cuda, topk)
-    if any(render_launches.values()):
-        raise AssertionError(f"the frame step launched render kernels: {render_launches}")
+    others = {k: v for k, v in permuto_cuda.LAUNCHES.items() if k not in launches and v}
+    if others or topk.LAUNCHES["topk2_fields"]:
+        raise AssertionError(f"the frame step launched other kernels: {others}, {topk.LAUNCHES}")
 
     iters = CONFIG["num_iterations_per_frame"]
-    if ngm.num_fields < CONFIG["num_train_fields"]:
-        raise AssertionError(f"only {ngm.num_fields} fields allocated")
-    bad = [(i, k, v) for i, d in enumerate(all_losses) for k, v in d.items() if not math.isfinite(v)]
-    if bad or not all_losses:
-        raise AssertionError(f"non-finite or missing losses: {bad[:5]}")
     ti_sum = int(ngm._map_arrays.training_iterations.sum().item())
     if ti_sum <= 0:
         raise AssertionError("no field was trained")
@@ -730,6 +1063,14 @@ def main() -> None:
     phase("iteration_vs_cpu", max_rel_diff=worst, tolerance="rel <= 1e-3", losses=losses)
     if args.profile is not None:
         profile_slice(torch, engine, ds, frames, statistics.mean(steady) * 1e3, args.profile)
+    unfused = (statistics.median(steady) * 1e3, statistics.mean(steady) * 1e3)
+    fused_launches, fused_mean_ms = check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi)
+    launches.update(fused_launches)
+    if args.profile is not None:
+        profile_slice(torch, engine, ds, frames, fused_mean_ms, args.profile.with_name(args.profile.name + ".fused"),
+                      dict(CONFIG, fused_mlp=True), "profile_fused_mlp")
+    if args.ab > 0:
+        ab_training_routes(torch, engine, ds, frames, args.ab, smi)
 
     # -- 5-8. the render path on the trained map ------------------------------
     kernel_rows.update(check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds))
@@ -740,6 +1081,12 @@ def main() -> None:
         profile_render(torch, ngm, ds, render_ms, args.profile.with_name(args.profile.name + ".render"))
     launches.update(ray_launches)
     launches["encode_fwd_moe"] = carried_launches["encode_fwd_moe"]
+
+    # -- 9-10. the gather route: 2D field sets, geometry gradients -------------
+    gather_launches, gather_rows = check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi)
+    launches.update(gather_launches)
+    kernel_rows.update(gather_rows)
+    check_geometry_gradients(torch, permuto_cuda, losses_mod, ngm)
 
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) kernels for the permutohedral hash encoding (training
-// encode and table gradient, and the render path's tile-sorted MoE encodes)
-// and the keyframe-visibility lookup, with a plain C interface for ctypes.
+// encode and table gradient, the fused encode + MLP pair, the gather route's
+// lookup and histogram, and the render path's tile-sorted MoE encodes) and
+// the keyframe-visibility lookup, with a plain C interface for ctypes.
 //
 // Build (neural_graph_mapping_tpu_torch/ops/cuda_build.py does this at first
 // use):
@@ -26,6 +27,7 @@ constexpr int kMaxLevels = 32;
 constexpr int kDim = 3;             // lattice dimension d (points are 3D)
 constexpr int kCorners = kDim + 1;  // simplex corners per level
 constexpr int kThreads = 256;
+constexpr int kMaxGridY = 65535;  // the card's limit on gridDim.y
 
 // Per-level lattice constants. Passed by value as a kernel parameter: the
 // card keeps kernel parameters in its constant bank (__constant__ memory),
@@ -337,6 +339,303 @@ __global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
                out + (size_t)t * 2 * L * kTile, kTile, lane);
 }
 
+// -- gather route: per-(row, pair) lookups and their histogram ----------------
+//
+// A "row" is one (field, level): a (2, T) feature-major table slice and M
+// hash indices (K corners x P points, flattened). gather_blend in
+// ops/permuto.py takes this route for every shape the fused encode does not
+// take (2D fields, point gradients).
+
+// Replaces permuto_pallas.gather_pairs (_gather_kernel):
+// out[r, f, m] = table[r, f, idx[r, m]], exact.
+//
+// Bound: one random 8-byte table read per pair (both features of an entry
+// are T floats apart, so two 4-byte reads) plus the 8-byte index in and 8
+// bytes out; the tables of a 2D field set at production widths (32 fields x
+// 16 levels x 2 x 4096 f32 = 16 MiB) stay in L2. Design: one thread per
+// (row, m), grid x over m and grid y over rows (a row loop past the grid's
+// y limit), so no thread divides, and consecutive threads on consecutive
+// pairs coalesce the index loads and output stores. The TPU's
+// one-hot(idx>>6) x one-hot(idx&63) matmul existed because the TPU has no
+// fast gather; it is not carried over. Index bounds are the caller's
+// contract, as in JAX.
+__global__ void gather_pairs_kernel(const float* __restrict__ table,
+                                    const int64_t* __restrict__ idx,
+                                    float* __restrict__ out, int T, int M,
+                                    int rows) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float* tab = table + r * 2 * T;
+    const int64_t i = idx[r * M + m];
+    float* o = out + r * 2 * M + m;
+    o[0] = __ldg(tab + i);
+    o[M] = __ldg(tab + T + i);
+  }
+}
+
+// Replaces permuto_pallas.table_grad (_table_grad_kernel): grad[r, f, idx[r, m]]
+// += gv[r, f, m] into a zeroed (rows, 2, T) output.
+//
+// Bound: global atomics, two a pair, served by L2; coarse levels put many
+// pairs of a row on the same entries and serialise there. Design: one thread
+// per (row, m) on the grid of gather_pairs_kernel, plain global atomicAdd as
+// encode_bwd_table_kernel; pairs whose two values are zero add nothing and
+// are skipped. The summation order varies from run to run, so results agree
+// with index_add_ to rounding, not bit for bit.
+__global__ void table_grad_kernel(const int64_t* __restrict__ idx,
+                                  const float* __restrict__ gv,
+                                  float* __restrict__ grad, int T, int M,
+                                  int rows) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float g0 = gv[r * 2 * M + m];
+    const float g1 = gv[r * 2 * M + M + m];
+    if (g0 == 0.0f && g1 == 0.0f) continue;
+    const int64_t i = idx[r * M + m];
+    float* gr = grad + r * 2 * T;
+    atomicAdd(gr + i, g0);
+    atomicAdd(gr + T + i, g1);
+  }
+}
+
+// -- fused encode + MLP (the fused training route) ---------------------------
+//
+// The field MLP of the production shape: D = 2L features -> H hidden units
+// (ReLU) -> O outputs, one hidden layer, no skip. Compile-time maxima (the
+// production widths) keep every per-point vector in registers: loops run
+// over the maxima, fully unrolled, and the shared weights are zero-padded,
+// so padding units add exact zeros. The host entry points refuse larger
+// widths.
+constexpr int kMlpMaxLevels = 16;
+constexpr int kMlpMaxD = 2 * kMlpMaxLevels;
+constexpr int kMlpMaxH = 32;
+constexpr int kMlpMaxO = 4;
+constexpr int kMlpThreads = 128;
+constexpr int kMlpPad = kMlpThreads + 1;  // shared row stride: no bank conflicts
+
+// One field's weights, zero-padded to the maxima, into shared memory:
+// sw0[d][j] (w0 is (D, H)), sb0[j], sw1[j][q] (w1 is (H, O)).
+__device__ __forceinline__ void load_mlp_weights(
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, int D, int H, int O,
+    float (*sw0)[kMlpMaxH], float* sb0, float (*sw1)[kMlpMaxO]) {
+  for (int e = threadIdx.x; e < kMlpMaxD * kMlpMaxH; e += blockDim.x) {
+    const int d = e / kMlpMaxH;
+    const int j = e - d * kMlpMaxH;
+    sw0[d][j] = (d < D && j < H) ? w0[d * H + j] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < kMlpMaxH * kMlpMaxO; e += blockDim.x) {
+    const int j = e / kMlpMaxO;
+    const int q = e - j * kMlpMaxO;
+    sw1[j][q] = (j < H && q < O) ? w1[j * O + q] : 0.0f;
+  }
+  for (int j = threadIdx.x; j < kMlpMaxH; j += blockDim.x) sb0[j] = j < H ? b0[j] : 0.0f;
+}
+
+// Replaces permuto_pallas.encode_mlp_fwd (_encode_mlp_fwd_kernel):
+// out[b, :, p] = w1^T relu(w0^T f + b0) + b1 with f = the encode of
+// encode_fwd_kernel, and f written once as the (B, D, P) residual.
+//
+// Bound: the encode's random table gathers (as encode_fwd_kernel) plus the
+// residual and outputs streamed once; the MLP's 2 x (D x H + H x O) f32
+// operations a point are a few percent of the card's f32 rate at the
+// training shape. Design: one thread per (field, point), grid y = field; the
+// field's weights in shared memory (read as broadcasts), the D features and
+// H hidden units in registers; plain fmaf products, no tensor cores. The
+// TPU kernel's slab relayouts and ones-row bias folding are not carried
+// over: the biases are added directly.
+__global__ void __launch_bounds__(kMlpThreads) encode_mlp_fwd_kernel(
+    const float* __restrict__ table, const float* __restrict__ coords,
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    float* __restrict__ out, float* __restrict__ feats, int P, int T, int H,
+    int O, __grid_constant__ const LevelConsts c) {
+  __shared__ float sw0[kMlpMaxD][kMlpMaxH];
+  __shared__ float sb0[kMlpMaxH];
+  __shared__ float sw1[kMlpMaxH][kMlpMaxO];
+  const int b = blockIdx.y;
+  const int L = c.n_levels;
+  const int D = 2 * L;
+  load_mlp_weights(w0 + (size_t)b * D * H, b0 + (size_t)b * H, w1 + (size_t)b * H * O,
+                   D, H, O, sw0, sb0, sw1);
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const size_t cbase = (size_t)b * kDim * P;
+  const float x = coords[cbase + p];
+  const float y = coords[cbase + P + p];
+  const float z = coords[cbase + 2 * (size_t)P + p];
+  const float* tab = table + (size_t)b * 2 * L * T;
+  float* fo = feats + (size_t)b * D * P;
+  float f[kMlpMaxD];
+#pragma unroll
+  for (int l = 0; l < kMlpMaxLevels; ++l) {
+    float acc0 = 0.0f;
+    float acc1 = 0.0f;
+    if (l < L) {  // the blend of encode_point, kept in registers
+      uint32_t idx[kCorners];
+      float w[kCorners];
+      lattice_level(x, y, z, c, l, idx, w);
+      const float* t0 = tab + (size_t)l * T;
+      const float* t1 = tab + (size_t)(L + l) * T;
+      for (int k = 0; k < kCorners; ++k) {
+        acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
+        acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
+      }
+      fo[(size_t)(2 * l) * P + p] = acc0;
+      fo[(size_t)(2 * l + 1) * P + p] = acc1;
+    }
+    f[2 * l] = acc0;
+    f[2 * l + 1] = acc1;
+  }
+  float o[kMlpMaxO];
+#pragma unroll
+  for (int q = 0; q < kMlpMaxO; ++q) o[q] = q < O ? b1[(size_t)b * O + q] : 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMlpMaxH; ++j) {
+    float a = sb0[j];
+#pragma unroll
+    for (int d = 0; d < kMlpMaxD; ++d) a = fmaf(sw0[d][j], f[d], a);
+    a = fmaxf(a, 0.0f);
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) o[q] = fmaf(sw1[j][q], a, o[q]);
+  }
+  float* ob = out + (size_t)b * O * P;
+#pragma unroll
+  for (int q = 0; q < kMlpMaxO; ++q) {
+    if (q < O) ob[(size_t)q * P + p] = o[q];
+  }
+}
+
+// Replaces permuto_pallas.encode_mlp_bwd (_encode_mlp_bwd_kernel): the MLP
+// backward from the residual f and the head cotangent g, then the table
+// histogram of encode_bwd_table_kernel driven by dL/df, which stays in
+// registers and never reaches device memory.
+//
+// Bound: the histogram's global atomics (as encode_bwd_table_kernel) after
+// streaming the residual, g and the coordinates once. Design: one thread per
+// (field, point), grid y = field, kMlpThreads points a block. Each thread
+// recomputes its pre-activations, then the block reduces its points' weight
+// gradients in shared memory: the columns h / dL/da0, f and g of its points
+// go to shared memory (row stride kMlpPad, conflict-free), every thread
+// sums a few weight entries over the block's points, and adds each to the
+// zeroed global gradient with one atomicAdd a block. Points past P carry a
+// zero cotangent, so they add nothing, and take no part in the histogram.
+__global__ void __launch_bounds__(kMlpThreads) encode_mlp_bwd_kernel(
+    const float* __restrict__ coords, const float* __restrict__ feats,
+    const float* __restrict__ g, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ w1,
+    float* __restrict__ grad_table, float* __restrict__ dw0,
+    float* __restrict__ db0, float* __restrict__ dw1, float* __restrict__ db1,
+    int P, int T, int H, int O, __grid_constant__ const LevelConsts c) {
+  __shared__ float sw0[kMlpMaxD][kMlpMaxH];
+  __shared__ float sb0[kMlpMaxH];
+  __shared__ float sw1[kMlpMaxH][kMlpMaxO];
+  __shared__ float sF[kMlpMaxD][kMlpPad];  // features of the block's points
+  __shared__ float sA[kMlpMaxH][kMlpPad];  // h, then dL/da0
+  __shared__ float sG[kMlpMaxO][kMlpPad];  // head cotangent
+  const int b = blockIdx.y;
+  const int L = c.n_levels;
+  const int D = 2 * L;
+  const int t = threadIdx.x;
+  const int n = blockDim.x;
+  load_mlp_weights(w0 + (size_t)b * D * H, b0 + (size_t)b * H, w1 + (size_t)b * H * O,
+                   D, H, O, sw0, sb0, sw1);
+  const int p = blockIdx.x * blockDim.x + t;
+  const bool live = p < P;
+  const float* fb = feats + (size_t)b * D * P;
+  const float* gb = g + (size_t)b * O * P;
+  float f[kMlpMaxD];
+#pragma unroll
+  for (int d = 0; d < kMlpMaxD; ++d) {
+    f[d] = (live && d < D) ? fb[(size_t)d * P + p] : 0.0f;
+    sF[d][t] = f[d];
+  }
+  float gg[kMlpMaxO];
+#pragma unroll
+  for (int q = 0; q < kMlpMaxO; ++q) {
+    gg[q] = (live && q < O) ? gb[(size_t)q * P + p] : 0.0f;
+    sG[q][t] = gg[q];
+  }
+  __syncthreads();  // the weights are in shared memory
+  float a0[kMlpMaxH];
+#pragma unroll
+  for (int j = 0; j < kMlpMaxH; ++j) {
+    float a = sb0[j];
+#pragma unroll
+    for (int d = 0; d < kMlpMaxD; ++d) a = fmaf(sw0[d][j], f[d], a);
+    a0[j] = a;
+    sA[j][t] = fmaxf(a, 0.0f);
+  }
+  __syncthreads();
+  // dw1[j][q] = sum_points h[j] g[q]; db1[q] = sum_points g[q]
+  for (int e = t; e < (H + 1) * O; e += n) {
+    const int j = e / O;
+    const int q = e - j * O;
+    float s = 0.0f;
+    if (j < H) {
+      for (int u = 0; u < n; ++u) s = fmaf(sA[j][u], sG[q][u], s);
+      atomicAdd(dw1 + (size_t)b * H * O + j * O + q, s);
+    } else {
+      for (int u = 0; u < n; ++u) s = s + sG[q][u];
+      atomicAdd(db1 + (size_t)b * O + q, s);
+    }
+  }
+  __syncthreads();  // every thread is done reading h
+#pragma unroll
+  for (int j = 0; j < kMlpMaxH; ++j) {
+    float dh = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) dh = fmaf(sw1[j][q], gg[q], dh);
+    a0[j] = a0[j] > 0.0f ? dh : 0.0f;  // now dL/da0
+    sA[j][t] = a0[j];
+  }
+  __syncthreads();
+  // dw0[d][j] = sum_points f[d] da0[j]; db0[j] = sum_points da0[j]
+  for (int e = t; e < (D + 1) * H; e += n) {
+    const int d = e / H;
+    const int j = e - d * H;
+    float s = 0.0f;
+    if (d < D) {
+      for (int u = 0; u < n; ++u) s = fmaf(sF[d][u], sA[j][u], s);
+      atomicAdd(dw0 + (size_t)b * D * H + d * H + j, s);
+    } else {
+      for (int u = 0; u < n; ++u) s = s + sA[j][u];
+      atomicAdd(db0 + (size_t)b * H + j, s);
+    }
+  }
+  if (!live) return;
+  const size_t cbase = (size_t)b * kDim * P;
+  const float x = coords[cbase + p];
+  const float y = coords[cbase + P + p];
+  const float z = coords[cbase + 2 * (size_t)P + p];
+  float* gr = grad_table + (size_t)b * 2 * L * T;
+#pragma unroll
+  for (int l = 0; l < kMlpMaxLevels; ++l) {
+    if (l < L) {
+      float g0 = 0.0f;  // dL/df of the level's two features
+      float g1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kMlpMaxH; ++j) {
+        g0 = fmaf(sw0[2 * l][j], a0[j], g0);
+        g1 = fmaf(sw0[2 * l + 1][j], a0[j], g1);
+      }
+      if (g0 == 0.0f && g1 == 0.0f) continue;  // nothing to add
+      uint32_t idx[kCorners];
+      float w[kCorners];
+      lattice_level(x, y, z, c, l, idx, w);
+      float* r0 = gr + (size_t)l * T;
+      float* r1 = gr + (size_t)(L + l) * T;
+      for (int k = 0; k < kCorners; ++k) {
+        atomicAdd(r0 + idx[k], w[k] * g0);
+        atomicAdd(r1 + idx[k], w[k] * g1);
+      }
+    }
+  }
+}
+
 int fill_consts(LevelConsts* c, int L, const float* scales, const float* shifts,
                 const float* elev, const int* caps) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
@@ -348,6 +647,10 @@ int fill_consts(LevelConsts* c, int L, const float* scales, const float* shifts,
   }
   for (int i = 0; i < kDim; ++i) c->elev[i] = elev[i];
   return 0;
+}
+
+bool mlp_widths_ok(int L, int H, int O) {
+  return L >= 1 && L <= kMlpMaxLevels && H >= 1 && H <= kMlpMaxH && O >= 1 && O <= kMlpMaxO;
 }
 
 }  // namespace
@@ -423,6 +726,59 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
   const dim3 grid(tiles, kTile / kThreads);
   encode_fwd_moe_rays_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, rc, c);
+  return (int)cudaGetLastError();
+}
+
+// table (rows, 2, T), idx (rows, M) int64 -> out (rows, 2, M).
+int ngm_gather_pairs(const float* table, const int64_t* idx, float* out, int rows,
+                     int T, int M, void* stream) {
+  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+  gather_pairs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(table, idx, out, T, M,
+                                                                  rows);
+  return (int)cudaGetLastError();
+}
+
+// idx (rows, M) int64, gv (rows, 2, M) -> grad (rows, 2, T), zeroed by the caller.
+int ngm_table_grad(const int64_t* idx, const float* gv, float* grad, int rows, int T,
+                   int M, void* stream) {
+  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+  table_grad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(idx, gv, grad, T, M, rows);
+  return (int)cudaGetLastError();
+}
+
+// table (B, 2, L, T), coords (B, 3, P), w0 (B, 2L, H), b0 (B, H), w1 (B, H, O),
+// b1 (B, O) -> out (B, O, P), feats (B, 2L, P).
+int ngm_encode_mlp_fwd(const float* table, const float* coords, const float* w0,
+                       const float* b0, const float* w1, const float* b1, float* out,
+                       float* feats, int B, int P, int L, int T, int H, int O,
+                       const float* scales, const float* shifts, const float* elev,
+                       const int* caps, void* stream) {
+  if (!mlp_widths_ok(L, H, O)) return (int)cudaErrorInvalidValue;
+  LevelConsts c;
+  const int err = fill_consts(&c, L, scales, shifts, elev, caps);
+  if (err) return err;
+  const dim3 grid((P + kMlpThreads - 1) / kMlpThreads, B);
+  encode_mlp_fwd_kernel<<<grid, kMlpThreads, 0, (cudaStream_t)stream>>>(
+      table, coords, w0, b0, w1, b1, out, feats, P, T, H, O, c);
+  return (int)cudaGetLastError();
+}
+
+// coords (B, 3, P), feats (B, 2L, P), g (B, O, P), w0, b0, w1 as above ->
+// grad_table (B, 2, L, T), dw0 (B, 2L, H), db0 (B, H), dw1 (B, H, O),
+// db1 (B, O), every output zeroed by the caller.
+int ngm_encode_mlp_bwd(const float* coords, const float* feats, const float* g,
+                       const float* w0, const float* b0, const float* w1,
+                       float* grad_table, float* dw0, float* db0, float* dw1,
+                       float* db1, int B, int P, int L, int T, int H, int O,
+                       const float* scales, const float* shifts, const float* elev,
+                       const int* caps, void* stream) {
+  if (!mlp_widths_ok(L, H, O)) return (int)cudaErrorInvalidValue;
+  LevelConsts c;
+  const int err = fill_consts(&c, L, scales, shifts, elev, caps);
+  if (err) return err;
+  const dim3 grid((P + kMlpThreads - 1) / kMlpThreads, B);
+  encode_mlp_bwd_kernel<<<grid, kMlpThreads, 0, (cudaStream_t)stream>>>(
+      coords, feats, g, w0, b0, w1, grad_table, dw0, db0, dw1, db1, P, T, H, O, c);
   return (int)cudaGetLastError();
 }
 

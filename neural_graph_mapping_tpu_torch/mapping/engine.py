@@ -451,14 +451,20 @@ def render_block_tiled(
 class NeuralGraphMap:
     """Online neural graph mapping on one device.
 
-    Construct from a config dict and the device that holds the map, and
-    drive :meth:`process_frame` per frame.
+    Construct from a config dict, and drive :meth:`process_frame` per frame.
+    The map lives on ``device``: the card unless the caller asks for the
+    CPU; without CUDA the default raises, it never falls back to the CPU.
     """
 
-    def __init__(self, config: dict, device) -> None:
+    def __init__(self, config: dict, device="cuda") -> None:
         if device is None:
-            raise ValueError("NeuralGraphMap needs an explicit device, e.g. 'cuda' or 'cpu'")
+            raise ValueError("NeuralGraphMap needs a device: 'cuda' (the default) or 'cpu'")
         self._device = torch.device(device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"NeuralGraphMap runs on {self._device} unless device='cpu' is given, "
+                "and CUDA is not available"
+            )
         self._read_config(config)
         self._init_model()
         self._init_state()
@@ -532,11 +538,18 @@ class NeuralGraphMap:
         )
         self._pixel_block_size = int(c.get("pixel_block_size", 8192))
         self._seed = int(c.get("seed", 0))
+        # the fused encode + MLP training route (JAX: NGM_FUSED_MLP=1); a
+        # top-level key, so one config file still drives both packages
+        self._fused_mlp = c.get("fused_mlp", False)
+        if not isinstance(self._fused_mlp, bool):
+            raise ValueError(f"fused_mlp must be true or false, got {self._fused_mlp!r}")
         if int(c.get("num_field_shards", 1)) > 1:
             raise NotImplementedError("field-axis sharding is not ported yet")
 
     def _init_model(self) -> None:
-        self._fset = NeuralFieldSet(**self._model_kwargs).to(self._device)
+        kwargs = dict(self._model_kwargs)
+        kwargs["field_kwargs"] = {**kwargs["field_kwargs"], "fused_mlp": self._fused_mlp}
+        self._fset = NeuralFieldSet(**kwargs).to(self._device)
         # two streams of draws, as the JAX engine has two keys: one for
         # parameter init, one for the per-frame programs
         self._init_gen = torch.Generator(self._device).manual_seed(self._seed)

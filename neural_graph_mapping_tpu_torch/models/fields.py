@@ -1,6 +1,7 @@
 """Neural fields: encoding + MLP, and posed multi-field sets (port of
-neural_graph_mapping_tpu.models.fields: the training path and the tiled KNN
-inference path of rendering).
+neural_graph_mapping_tpu.models.fields: the training path, its fused
+encode + MLP route, the point-differentiable ``apply`` / geometry gradients,
+2D and 3D field sets, and the tiled KNN inference path of rendering).
 
 Fields are functional ``nn.Module``s: parameters live in flat dicts whose
 tensors carry a leading field axis, ``(N_cap, ...)``, exactly the JAX
@@ -19,7 +20,8 @@ import torch
 from torch import nn
 
 from neural_graph_mapping_tpu_torch.config import str_to_object
-from neural_graph_mapping_tpu_torch.ops import dispatch, permuto_cuda, topk
+from neural_graph_mapping_tpu_torch.ops import dispatch, permuto, permuto_cuda, topk
+from neural_graph_mapping_tpu_torch.utils import transforms
 
 Params = Dict[str, torch.Tensor]
 
@@ -28,6 +30,11 @@ class NeuralField(nn.Module):
     """Positional encoding followed by a small MLP.
 
     Skip modes: "no", "add", "concat", "rezero", as in the JAX package.
+
+    ``fused_mlp`` trains through the fused encode + MLP kernel pair
+    (:func:`permuto.encode_mlp_fused`); the JAX package's ``NGM_FUSED_MLP``.
+    Unlike JAX, which falls back silently, a field the kernels cannot take
+    (:meth:`_supports_fused_mlp`) raises ``ValueError``.
     """
 
     def __init__(
@@ -40,6 +47,7 @@ class NeuralField(nn.Module):
         skip_mode: str = "no",
         initial_geometry_bias: float = 0.0,
         neus_initial_sd: Optional[float] = None,
+        fused_mlp: bool = False,
     ) -> None:
         super().__init__()
         if skip_mode is False:  # YAML 1.1 parses bare `no` as boolean
@@ -61,6 +69,32 @@ class NeuralField(nn.Module):
             self.dim_mlp_in = self.dim_mlp_out + self.dim_encoding
         self.dims_in = [self.dim_encoding] + [self.dim_mlp_in] * self.num_layers
         self.dims_out = [self.dim_mlp_out] * self.num_layers + [self.dim_out]
+        self.fused_mlp = bool(fused_mlp)
+        if self.fused_mlp and not self._supports_fused_mlp():
+            raise ValueError(
+                "fused_mlp needs a 3D permutohedral encoding with 2 features a level and no "
+                "concatenated points, one hidden layer, skip_mode 'no', and at most "
+                f"{permuto_cuda.MLP_MAX_LEVELS} levels, {permuto_cuda.MLP_MAX_HIDDEN} hidden "
+                f"units and {permuto_cuda.MLP_MAX_OUT} outputs"
+            )
+
+    def _supports_fused_mlp(self) -> bool:
+        """The shape the fused encode + MLP kernels take (fields.py's JAX
+        check, plus the kernels' compile-time widths)."""
+        from neural_graph_mapping_tpu_torch.ops.encodings import PermutohedralEncoding
+
+        enc = self.encoding
+        return (
+            isinstance(enc, PermutohedralEncoding)
+            and enc.pos_dim == 3
+            and enc.nr_feat_per_level == 2
+            and not enc.concat_points
+            and self.num_layers == 1
+            and self.skip_mode == "no"
+            and enc.nr_levels <= permuto_cuda.MLP_MAX_LEVELS
+            and self.dim_mlp_out <= permuto_cuda.MLP_MAX_HIDDEN
+            and self.dim_out <= permuto_cuda.MLP_MAX_OUT
+        )
 
     def init(self, num: int, generator: Optional[torch.Generator] = None, device=None) -> Params:
         """Stacked parameters for ``num`` independent fields. Linears follow
@@ -81,11 +115,22 @@ class NeuralField(nn.Module):
             params["neus_sd"] = torch.full((num,), float(self.neus_initial_sd), device=device)
         return params
 
+    @staticmethod
+    def _enc_params(params: Params) -> Params:
+        return {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("enc.")}
+
     def apply_fm_soa(self, params: Params, coords) -> torch.Tensor:
         """Feature-major evaluate from SoA local coords (d tensors of (..., P))
-        -> (..., dim_out, P); params may carry the same leading dims."""
-        enc_params = {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("enc.")}
-        return self.mlp_fm(params, self.encoding.apply_fm_soa(enc_params, coords))
+        -> (..., dim_out, P); params may carry the same leading dims. With
+        ``fused_mlp`` the encode and the MLP are one kernel each way."""
+        if self.fused_mlp:
+            enc = self.encoding
+            stacked = torch.stack(coords, dim=-2).contiguous()  # (..., 3, P)
+            return permuto.encode_mlp_fused(
+                params["enc.table"], params["w0"], params["b0"], params["w1"], params["b1"],
+                stacked, enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities,
+            )
+        return self.mlp_fm(params, self.encoding.apply_fm_soa(self._enc_params(params), coords))
 
     def mlp_fm(self, params: Params, outs_encoding: torch.Tensor) -> torch.Tensor:
         """Feature-major MLP (..., dim_encoding, P) -> (..., dim_out, P).
@@ -112,6 +157,47 @@ class NeuralField(nn.Module):
                     outs = rz * outs + prev_outs
         return outs
 
+    def apply(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """Evaluate at local-frame points (..., pos_dim) -> (..., dim_out),
+        through the encoding's point-differentiable gather route. Params
+        with leading field dims (B...) take points (B..., ..., pos_dim)."""
+        outs_encoding = outs = self.encoding.apply(self._enc_params(params), points)
+        n_lead = params["w0"].ndim - 2
+        shape = outs.shape
+        # (B..., M, channels): one batched product a layer
+        outs_encoding = outs = outs.reshape(shape[:n_lead] + (-1, shape[-1]))
+        d_enc = self.dim_encoding
+        for i in range(len(self.dims_in)):
+            prev_outs = outs
+            outs = torch.matmul(outs, params[f"w{i}"]) + params[f"b{i}"].unsqueeze(-2)
+            if i == self.num_layers:
+                break
+            outs = torch.relu(outs)
+            if self.skip_mode == "concat":
+                outs = torch.cat([outs, outs_encoding], dim=-1)
+            elif self.skip_mode == "add":
+                outs = torch.cat([outs[..., :d_enc] + outs_encoding, outs[..., d_enc:]], dim=-1)
+            elif self.skip_mode == "rezero":
+                rz = params["rezero"][..., i, None, None]
+                if i == 0:
+                    outs = torch.cat([rz * outs[..., :d_enc] + prev_outs, rz * outs[..., d_enc:]], dim=-1)
+                else:
+                    outs = rz * outs + prev_outs
+        return outs.reshape(shape[:-1] + (self.dim_out,))
+
+    def geometry_gradients(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """Spatial gradient of the geometry channel (output ``dim_out - 1``)
+        w.r.t. local points (..., pos_dim) -> (..., pos_dim), by autograd
+        through :meth:`apply` (the gather route, whose point gradient is
+        real). Feed it to ``ops.losses.eikonal_term``. Each output depends on
+        its own point only, so the gradient of the summed outputs is every
+        point's own gradient."""
+        pts = points.detach().requires_grad_(True)
+        with torch.enable_grad():
+            geometry = self.apply(params, pts)[..., -1]
+            (grads,) = torch.autograd.grad(geometry.sum(), pts)
+        return grads
+
 
 class NeuralFieldSet(nn.Module):
     """Set of posed neural fields: field-parallel evaluation of gathered
@@ -134,9 +220,15 @@ class NeuralFieldSet(nn.Module):
             raise NotImplementedError(f"{scale_mode=} is not available.")
         if scale_mode != "no" and field_radius is None:
             raise ValueError(f"{scale_mode=} requires field_radius to be specified.")
-        if dim_points != 3:
-            raise NotImplementedError("The port supports 3D fields only.")
+        if dim_points not in (2, 3):
+            raise NotImplementedError("Only 2D and 3D spaces are supported.")
         self.dim_points = int(dim_points)
+        if dim_points == 2:  # orientations are real-first complex rotations
+            self._orientation_apply = transforms.complex_apply
+            self._orientation_invert = transforms.complex_invert
+        else:  # wxyz quaternions
+            self._orientation_apply = transforms.quaternion_apply
+            self._orientation_invert = transforms.quaternion_invert
         field_cls = str_to_object(field_type) if isinstance(field_type, str) else field_type
         self.prototype = field_cls(**field_kwargs)
         self.num_knn = int(num_knn)
@@ -154,6 +246,36 @@ class NeuralFieldSet(nn.Module):
     def gather_fields(self, stacked_params: Params, field_ids: torch.Tensor) -> Params:
         """Slice out a subset of fields (a gather along the field axis)."""
         return {k: v.index_select(0, field_ids) for k, v in stacked_params.items()}
+
+    def _scale_local_points(self, local_points: torch.Tensor) -> torch.Tensor:
+        if self.scale_mode == "unit_cube":
+            return local_points / (2.0 * self.field_radius) + 0.5
+        if self.scale_mode == "unit_ball":
+            return local_points / self.field_radius
+        return local_points
+
+    def world_to_local(self, query_points, field_positions, field_orientations):
+        """World -> field-local (+ scale), 2D or 3D; broadcasts over points."""
+        local = query_points - field_positions
+        local = self._orientation_apply(self._orientation_invert(field_orientations), local)
+        return self._scale_local_points(local)
+
+    def apply_vmap(
+        self,
+        vmap_params: Params,
+        query_points: torch.Tensor,  # (F, P, dim_points) world (local if no pose)
+        field_positions: Optional[torch.Tensor] = None,  # (F, dim_points)
+        field_orientations: Optional[torch.Tensor] = None,  # (F, 2 or 4)
+    ) -> torch.Tensor:
+        """Field-parallel evaluation through :meth:`NeuralField.apply` (the
+        gather route) -> (F, P, dim_out)."""
+        if field_positions is not None:
+            local = self.world_to_local(
+                query_points, field_positions[:, None, :], field_orientations[:, None, :]
+            )
+        else:
+            local = self._scale_local_points(query_points)
+        return self.prototype.apply(vmap_params, local)
 
     def world_to_local_soa(self, coords, field_positions, field_orientations):
         """SoA world -> field-local (+ scale) on (F, P) per-coordinate tensors:

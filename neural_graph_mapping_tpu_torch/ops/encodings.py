@@ -109,23 +109,49 @@ class PermutohedralEncoding(nn.Module):
         -> (..., out_dim, P); ``params["table"]`` is (..., F, L, T).
 
         3D with 2 features per level (the production shape) runs the fused
-        encode kernels, whose coordinate gradient is zero; other shapes run
-        the plain lattice + gather, differentiable in the points.
+        encode kernels, whose coordinate gradient is zero; other shapes take
+        the gather route (:meth:`gather_fm_soa`).
         """
-        table = params["table"]
-        if self._uses_fused():
-            stacked = torch.stack(coords, dim=-2).contiguous()  # (..., 3, P)
-            out = permuto.encode_fused(
-                table, stacked, self._scales_t, self._shifts_t, self._elev_t,
-                self.level_capacities,
-            )
-        else:
-            idx, w = permuto.lattice_keys_and_weights_soa(
-                coords, self.scales, self.shifts, self.elev_scale, self.level_capacities
-            )
-            out = permuto.gather_blend(table, idx, w)
-        if self.concat_points:
-            out = torch.cat(
-                [out] + [self.concat_points_scaling * c[..., None, :] for c in coords], dim=-2
-            )
-        return out
+        if not self._uses_fused():
+            return self.gather_fm_soa(params, coords)
+        stacked = torch.stack(coords, dim=-2).contiguous()  # (..., 3, P)
+        out = permuto.encode_fused(
+            params["table"], stacked, self._scales_t, self._shifts_t, self._elev_t,
+            self.level_capacities,
+        )
+        return self._concat_points(out, coords)
+
+    def gather_fm_soa(self, params: Params, coords) -> torch.Tensor:
+        """The gather route, for every shape: the plain lattice, then
+        :func:`permuto.gather_blend` (the ``gather_pairs`` / ``table_grad``
+        kernels on the card). Differentiable in the points."""
+        idx, w = permuto.lattice_keys_and_weights_soa(
+            coords, self.scales, self.shifts, self.elev_scale, self.level_capacities
+        )
+        return self._concat_points(permuto.gather_blend(params["table"], idx, w), coords)
+
+    def _concat_points(self, out: torch.Tensor, coords) -> torch.Tensor:
+        if not self.concat_points:
+            return out
+        return torch.cat(
+            [out] + [self.concat_points_scaling * c[..., None, :] for c in coords], dim=-2
+        )
+
+    def apply_fm(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """Feature-major encode: points (..., P, d) -> (..., out_dim, P)."""
+        return self.apply_fm_soa(params, points.unbind(-1))
+
+    def apply(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """Channels-last encode on the gather route, differentiable in the
+        points: points (..., d) -> (..., out_dim). A table with leading
+        field dims (B..., F, L, T) takes points (B..., ..., d).
+
+        The JAX package's ``apply`` goes through ``apply_fm_soa``, which on
+        a TPU takes the fused kernels and drops the point gradient; this
+        always takes the gather route, the JAX CPU semantics.
+        """
+        n_lead = params["table"].ndim - 3
+        lead = points.shape[:-1]
+        flat = points.reshape(lead[:n_lead] + (-1, self.pos_dim))
+        out = self.gather_fm_soa(params, flat.unbind(-1))  # (B..., out_dim, M)
+        return out.transpose(-1, -2).reshape(lead + (self.get_out_dim(),))

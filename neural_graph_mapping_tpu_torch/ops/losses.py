@@ -93,3 +93,10 @@ def tsdf_loss(
     """Truncated-SDF loss near the surface: g * trunc ~= gt - sample distance."""
     residual = sample_geometries * truncation_distance - deltas
     return masked_mean(residual**2, mask)
+
+
+def eikonal_term(gradients: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Squared deviation of the SDF gradient norm from 1, from precomputed
+    spatial gradients (..., d) (``NeuralField.geometry_gradients``)."""
+    norms = torch.linalg.norm(gradients, dim=-1)
+    return masked_mean((norms - 1.0) ** 2, mask)

@@ -5,12 +5,19 @@ Points-minor layout throughout: per-level tensors are (..., L, d+1, P) and
 hash tables are feature-major (F, L, T), exactly as in the JAX package, so
 tables, indices and outputs compare element for element.
 
-- :func:`lattice_keys_and_weights_soa` and :func:`gather_blend` are the
-  plain PyTorch encode, differentiable by autograd (point gradients flow).
+- :func:`lattice_keys_and_weights_soa` plus :func:`gather_blend` is the
+  gather route: the lattice is plain PyTorch, differentiable in the points
+  (point gradients flow through the weights), and ``gather_blend`` is an
+  autograd function whose lookup and table gradient are the
+  ``gather_pairs`` / ``table_grad`` kernels of
+  :mod:`neural_graph_mapping_tpu_torch.ops.permuto_cuda`.
+  :func:`gather_blend_plain` is the same blend by plain autograd.
 - :func:`encode_fused` is the training encode: forward and table gradient
-  are the ``encode_fwd`` / ``encode_bwd_table`` kernels of
-  :mod:`neural_graph_mapping_tpu_torch.ops.permuto_cuda`, and, like the JAX
+  are the ``encode_fwd`` / ``encode_bwd_table`` kernels, and, like the JAX
   ``encode_fused``, it returns a ZERO coordinate gradient.
+- :func:`encode_mlp_fused` is the fused training route of the production
+  field (encode + one-hidden-layer MLP): ``encode_mlp_fwd`` /
+  ``encode_mlp_bwd``, also with a zero coordinate gradient.
 
 uint32 hashing is emulated in int64 masked to 32 bits; the products are
 split into 16-bit halves so no int64 product overflows.
@@ -172,7 +179,7 @@ def lattice_keys_and_weights_soa(
     return idx, w
 
 
-def gather_blend(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gather_blend_plain(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """out[..., l*F + f, p] = sum_k table[..., f, l, idx[..., l, k, p]] * w[..., l, k, p].
 
     Args:
@@ -193,8 +200,9 @@ def gather_blend(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> tor
 
 
 def _table_grad_fallback(idx: torch.Tensor, gv: torch.Tensor, table_size: int) -> torch.Tensor:
-    """Scatter-add table gradient: idx (..., L, K, P), gv (..., L, F, K*P)
-    -> (..., L, F, T), by one ``index_add_`` over the flattened table."""
+    """Scatter-add table gradient: idx (..., L, K, P) or (..., L, K*P), gv
+    (..., L, F, K*P) -> (..., L, F, T), by one ``index_add_`` over the
+    flattened table."""
     f, m = gv.shape[-2:]
     lead_l = gv.shape[:-2]  # (..., L)
     n_rows = math.prod(lead_l) * f
@@ -233,3 +241,90 @@ def encode_fused(table, coords, scales, shifts, elev, t_size):
     are Python tuples: the kernels take them as launch constants.
     """
     return _EncodeFused.apply(table, coords, (scales, shifts, elev, t_size))
+
+
+class _GatherBlend(torch.autograd.Function):
+    """gather_blend on the gather route (permuto.gather_blend's custom VJP):
+    the lookup is the ``gather_pairs`` kernel on the (..., L, F, T)-swapped
+    table, the weight gradient is exact (gathered features . g), the table
+    gradient is the ``table_grad`` kernel, and ``idx`` gets none."""
+
+    @staticmethod
+    def _feats(table, idx):
+        """(..., L, F, K, P) corner features."""
+        from neural_graph_mapping_tpu_torch.ops import permuto_cuda
+
+        lead = idx.shape[:-3]
+        l, k, p = idx.shape[-3:]
+        swapped = table.transpose(-3, -2).contiguous()  # (..., L, F, T)
+        feats = permuto_cuda.gather_pairs(swapped, idx.reshape(lead + (l, k * p)))
+        return feats.reshape(lead + (l, table.shape[-3], k, p))
+
+    @staticmethod
+    def forward(ctx, table, idx, w):
+        ctx.save_for_backward(table, idx, w)
+        feats = _GatherBlend._feats(table, idx)
+        out = torch.sum(feats * w.unsqueeze(-3), dim=-2)  # (..., L, F, P)
+        return out.reshape(out.shape[:-3] + (-1, out.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        from neural_graph_mapping_tpu_torch.ops import permuto_cuda
+
+        table, idx, w = ctx.saved_tensors
+        f, t = table.shape[-3], table.shape[-1]
+        lead = idx.shape[:-3]
+        l, k, p = idx.shape[-3:]
+        g_r = g.reshape(lead + (l, f, 1, p))
+        grad_table = grad_w = None
+        if ctx.needs_input_grad[2]:
+            # recomputed, as JAX does: cheaper than keeping (..., L, F, K, P)
+            grad_w = torch.sum(_GatherBlend._feats(table, idx) * g_r, dim=-3)
+        if ctx.needs_input_grad[0]:
+            gv = (w.unsqueeze(-3) * g_r).reshape(lead + (l, f, k * p))
+            grad_lf = permuto_cuda.table_grad(idx.reshape(lead + (l, k * p)), gv.contiguous(), t)
+            grad_table = grad_lf.transpose(-3, -2)  # (..., F, L, T)
+        return grad_table, None, grad_w
+
+
+def gather_blend(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[..., l*F + f, p] = sum_k table[..., f, l, idx[..., l, k, p]] * w[..., l, k, p].
+
+    The gather route (permuto.gather_blend): ``table`` (..., F, L, T)
+    feature-major, ``idx`` (..., L, K, P) int64, ``w`` (..., L, K, P) ->
+    (..., L*F, P). Differentiable in ``table`` and ``w``; on the card the
+    kernels take 2 features per level.
+    """
+    return _GatherBlend.apply(table, idx, w)
+
+
+class _EncodeMlpFused(torch.autograd.Function):
+    """Forward: encode_mlp_fwd kernel, saving the feature residual. Backward:
+    encode_mlp_bwd kernel for the table and the four weights, zero for the
+    coordinates (sample positions are not trained)."""
+
+    @staticmethod
+    def forward(ctx, table, w0, b0, w1, b1, coords, consts):
+        from neural_graph_mapping_tpu_torch.ops import permuto_cuda
+
+        out, feats = permuto_cuda.encode_mlp_fwd(table, w0, b0, w1, b1, coords, *consts)
+        ctx.save_for_backward(coords, feats, w0, b0, w1)
+        ctx.consts = consts
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from neural_graph_mapping_tpu_torch.ops import permuto_cuda
+
+        coords, feats, w0, b0, w1 = ctx.saved_tensors
+        grads = permuto_cuda.encode_mlp_bwd(coords, feats, g.contiguous(), w0, b0, w1, *ctx.consts)
+        return (*grads, torch.zeros_like(coords), None)
+
+
+def encode_mlp_fused(table, w0, b0, w1, b1, coords, scales, shifts, elev, t_size):
+    """table (..., 2, L, T), w0 (..., 2L, H), b0 (..., H), w1 (..., H, O),
+    b1 (..., O), coords (..., 3, P) -> (..., O, P): the encode and the field's
+    one-hidden-layer ReLU MLP in one kernel each way (permuto.encode_mlp_fused).
+    The lattice constants are Python tuples, as for :func:`encode_fused`.
+    """
+    return _EncodeMlpFused.apply(table, w0, b0, w1, b1, coords, (scales, shifts, elev, t_size))

@@ -1,7 +1,7 @@
 """CUDA kernels of the permutohedral encoding, with their plain PyTorch versions.
 
-Counterpart of ``neural_graph_mapping_tpu/ops/permuto_pallas.py`` for the
-five Pallas kernels the port's paths reach:
+Counterpart of ``neural_graph_mapping_tpu/ops/permuto_pallas.py`` for its
+nine Pallas kernels:
 
 =============================  ============================================
 wrapper here                   replaces (JAX package)
@@ -11,6 +11,10 @@ wrapper here                   replaces (JAX package)
 :func:`batched_gather`         ``permuto_pallas.batched_gather``
 :func:`encode_fwd_moe`         ``permuto_pallas.encode_fwd_moe``
 :func:`encode_fwd_moe_rays`    ``permuto_pallas.encode_fwd_moe_rays``
+:func:`gather_pairs`           ``permuto_pallas.gather_pairs``
+:func:`table_grad`             ``permuto_pallas.table_grad``
+:func:`encode_mlp_fwd`         ``permuto_pallas.encode_mlp_fwd``
+:func:`encode_mlp_bwd`         ``permuto_pallas.encode_mlp_bwd``
 =============================  ============================================
 
 The kernels live in ``csrc/permuto.cu``. They are compiled with ``nvcc`` for
@@ -38,8 +42,12 @@ _PLAIN_TILES = 64
 
 LAUNCHES: Dict[str, int] = {
     "encode_fwd": 0, "encode_bwd_table": 0, "batched_gather": 0,
-    "encode_fwd_moe": 0, "encode_fwd_moe_rays": 0,
+    "encode_fwd_moe": 0, "encode_fwd_moe_rays": 0, "gather_pairs": 0, "table_grad": 0,
+    "encode_mlp_fwd": 0, "encode_mlp_bwd": 0,
 }
+# widest field MLP the fused kernels take (kMlpMax* in permuto.cu): 16 levels
+# (D = 32 features), 32 hidden units, 4 outputs
+MLP_MAX_LEVELS, MLP_MAX_HIDDEN, MLP_MAX_OUT = 16, 32, 4
 
 
 def reset_launch_counts() -> None:
@@ -63,8 +71,13 @@ def load_library() -> cuda_build.Library:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         *consts, ptr,
     ]
+    lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.ngm_encode_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [*consts, ptr]
+    lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [*consts, ptr]
     for fn in (lib.ngm_encode_fwd, lib.ngm_encode_bwd_table, lib.ngm_batched_gather,
-               lib.ngm_encode_fwd_moe, lib.ngm_encode_fwd_moe_rays):
+               lib.ngm_encode_fwd_moe, lib.ngm_encode_fwd_moe_rays, lib.ngm_gather_pairs,
+               lib.ngm_table_grad, lib.ngm_encode_mlp_fwd, lib.ngm_encode_mlp_bwd):
         fn.restype = i32
     return library
 
@@ -104,7 +117,7 @@ def encode_fwd_plain(table, coords, scales, shifts, elev, t_size) -> torch.Tenso
     """Plain PyTorch encode: table (..., 2, L, T), coords (..., 3, P) -> (..., 2L, P)."""
     s, sh, el = _const_tensors(scales, shifts, elev, coords.device)
     idx, w = permuto.lattice_keys_and_weights_soa(coords.unbind(-2), s, sh, el, t_size)
-    return permuto.gather_blend(table, idx, w)
+    return permuto.gather_blend_plain(table, idx, w)
 
 
 def encode_fwd(table, coords, scales, shifts, elev, t_size) -> torch.Tensor:
@@ -395,6 +408,217 @@ def encode_fwd_moe_rays(
     return out
 
 
+# -- gather_pairs / table_grad (the gather route of gather_blend) -------------
+
+
+def _rows_check(idx: torch.Tensor, lead) -> None:
+    if idx.dtype != torch.int64 or not idx.is_contiguous():
+        raise TypeError("idx must be contiguous int64")
+    if idx.shape[:-1] != lead:
+        raise ValueError(f"idx leading dims {tuple(idx.shape[:-1])} differ from {tuple(lead)}")
+
+
+def _features_check(n_features: int) -> None:
+    if n_features != 2:
+        raise ValueError(f"the gather-route kernels take 2 features per level, got {n_features}")
+
+
+def gather_pairs_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """feats[..., f, m] = table[..., f, idx[..., m]]."""
+    f = table.shape[-2]
+    return torch.gather(table, -1, idx.unsqueeze(-2).expand(idx.shape[:-1] + (f, idx.shape[-1])))
+
+
+def gather_pairs(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched hash-table lookup (permuto_pallas.gather_pairs): table
+    (..., 2, T) f32, idx (..., M) int64 in [0, T) -> (..., 2, M), exact."""
+    _check_f32("table", table)
+    _rows_check(idx, table.shape[:-2])
+    if cuda_build.route(table, idx) == "cpu":
+        return gather_pairs_plain(table, idx)
+    _features_check(table.shape[-2])
+    t, m = table.shape[-1], idx.shape[-1]
+    rows = int(torch.Size(idx.shape[:-1]).numel())
+    out = torch.empty(idx.shape[:-1] + (2, m), dtype=torch.float32, device=table.device)
+    if rows * m == 0:
+        return out
+    lib = load_library().lib
+    rc = lib.ngm_gather_pairs(table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, t, m,
+                              cuda_build.stream(table))
+    cuda_build.check(rc, "gather_pairs")
+    LAUNCHES["gather_pairs"] += 1
+    return out
+
+
+def table_grad_plain(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Scatter-add of gvals (..., F, M) at idx (..., M) into (..., F, T),
+    by one ``index_add_`` over the flattened tables."""
+    return permuto._table_grad_fallback(idx, gvals, table_size)
+
+
+def table_grad(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Histogram of per-pair gradients into feature-major tables
+    (permuto_pallas.table_grad): idx (..., M) int64 in [0, table_size),
+    gvals (..., 2, M) f32 -> (..., 2, table_size)."""
+    _check_f32("gvals", gvals)
+    _rows_check(idx, gvals.shape[:-2])
+    if gvals.shape[-1] != idx.shape[-1]:
+        raise ValueError(f"shapes idx {tuple(idx.shape)} / gvals {tuple(gvals.shape)}")
+    if cuda_build.route(idx, gvals) == "cpu":
+        return table_grad_plain(idx, gvals, table_size)
+    _features_check(gvals.shape[-2])
+    m = idx.shape[-1]
+    rows = int(torch.Size(idx.shape[:-1]).numel())
+    grad = torch.zeros(idx.shape[:-1] + (2, table_size), dtype=torch.float32, device=idx.device)
+    if rows * m == 0:
+        return grad
+    lib = load_library().lib
+    rc = lib.ngm_table_grad(idx.data_ptr(), gvals.data_ptr(), grad.data_ptr(), rows,
+                            int(table_size), m, cuda_build.stream(idx))
+    cuda_build.check(rc, "table_grad")
+    LAUNCHES["table_grad"] += 1
+    return grad
+
+
+# -- encode_mlp_fwd / encode_mlp_bwd (the fused training route) ---------------
+
+
+def _mlp_check(lead, n_levels: int, w0, b0, w1) -> Tuple[int, int]:
+    """Shapes of the field MLP's weights -> (hidden, outputs)."""
+    h, o = w0.shape[-1], w1.shape[-1]
+    want = {"w0": lead + (2 * n_levels, h), "b0": lead + (h,), "w1": lead + (h, o)}
+    for name, t in (("w0", w0), ("b0", b0), ("w1", w1)):
+        _check_f32(name, t)
+        if t.shape != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
+    return h, o
+
+
+def _mlp_widths_check(n_levels: int, h: int, o: int) -> None:
+    if n_levels > MLP_MAX_LEVELS or h > MLP_MAX_HIDDEN or o > MLP_MAX_OUT:
+        raise ValueError(
+            f"the fused encode+MLP kernels take at most {MLP_MAX_LEVELS} levels, "
+            f"{MLP_MAX_HIDDEN} hidden units and {MLP_MAX_OUT} outputs; got {n_levels}, {h}, {o}"
+        )
+
+
+def mlp_plain(feats, w0, b0, w1, b1) -> torch.Tensor:
+    """The field MLP on feature-major (..., D, P) features -> (..., O, P)."""
+    h = torch.relu(torch.matmul(w0.transpose(-1, -2), feats) + b0[..., None])
+    return torch.matmul(w1.transpose(-1, -2), h) + b1[..., None]
+
+
+def encode_mlp_fwd_plain(
+    table, w0, b0, w1, b1, coords, scales, shifts, elev, t_size
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fused forward: :func:`encode_fwd_plain` then the MLP ->
+    (out (..., O, P), feats (..., 2L, P))."""
+    feats = encode_fwd_plain(table, coords, scales, shifts, elev, t_size)
+    return mlp_plain(feats, w0, b0, w1, b1), feats
+
+
+def encode_mlp_fwd(
+    table, w0, b0, w1, b1, coords, scales, shifts, elev, t_size
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused encode + one-hidden-layer ReLU MLP (permuto_pallas.encode_mlp_fwd).
+
+    table (..., 2, L, T), w0 (..., 2L, H), b0 (..., H), w1 (..., H, O),
+    b1 (..., O), coords (..., 3, P) -> (out (..., O, P), feats (..., 2L, P));
+    ``feats`` is the backward's residual in the canonical feature-major
+    layout."""
+    lead = coords.shape[:-2]
+    if coords.shape[-2] != 3 or table.shape[:-3] != lead or table.shape[-3] != 2:
+        raise ValueError(f"shapes table {tuple(table.shape)} / coords {tuple(coords.shape)}")
+    _check_f32("table", table)
+    _check_f32("coords", coords)
+    n_levels, t = table.shape[-2], table.shape[-1]
+    h, o = _mlp_check(lead, n_levels, w0, b0, w1)
+    _check_f32("b1", b1)
+    if b1.shape != lead + (o,):
+        raise ValueError(f"b1 has shape {tuple(b1.shape)}, expected {lead + (o,)}")
+    caps = permuto.normalize_capacities(t_size, n_levels)
+    if max(caps) > t:
+        raise ValueError(f"level capacity {max(caps)} exceeds table size {t}")
+    if cuda_build.route(table, coords, w0, b0, w1, b1) == "cpu":
+        return encode_mlp_fwd_plain(table, w0, b0, w1, b1, coords, scales, shifts, elev, caps)
+    _mlp_widths_check(n_levels, h, o)
+    p = coords.shape[-1]
+    b = int(torch.Size(lead).numel())
+    out = torch.empty(lead + (o, p), dtype=torch.float32, device=coords.device)
+    feats = torch.empty(lead + (2 * n_levels, p), dtype=torch.float32, device=coords.device)
+    if b * p == 0:
+        return out, feats
+    lib = load_library().lib
+    rc = lib.ngm_encode_mlp_fwd(
+        table.data_ptr(), coords.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), out.data_ptr(), feats.data_ptr(), b, p, n_levels, t, h, o,
+        *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(coords),
+    )
+    cuda_build.check(rc, "encode_mlp_fwd")
+    LAUNCHES["encode_mlp_fwd"] += 1
+    return out, feats
+
+
+def encode_mlp_bwd_plain(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):
+    """Plain fused backward: autograd of the plain MLP on the residual, then
+    :func:`encode_bwd_table_plain` of dL/dfeatures -> (grad_table, dw0, db0,
+    dw1, db1)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (feats, w0, b0, w1)]
+        b1 = torch.zeros(w1.shape[:-2] + w1.shape[-1:], dtype=g.dtype, device=g.device,
+                         requires_grad=True)
+        out = mlp_plain(*leaves, b1)
+        dfeats, dw0, db0, dw1, db1 = torch.autograd.grad(out, leaves + [b1], g)
+    caps = permuto.normalize_capacities(t_size, len(scales))
+    grad_table = encode_bwd_table_plain(coords, dfeats, scales, shifts, elev, caps, max(caps))
+    return grad_table, dw0, db0, dw1, db1
+
+
+def encode_mlp_bwd(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):
+    """Backward of :func:`encode_mlp_fwd` (permuto_pallas.encode_mlp_bwd):
+    coords (..., 3, P), the residual feats (..., 2L, P), the head cotangent
+    g (..., O, P) and the weights -> (grad_table (..., 2, L, T), dw0, db0,
+    dw1, db1), T = max(t_size). The bias b1 does not enter the backward."""
+    lead = coords.shape[:-2]
+    n_levels = len(scales)
+    p = coords.shape[-1]
+    if coords.shape[-2] != 3 or feats.shape != lead + (2 * n_levels, p):
+        raise ValueError(f"shapes coords {tuple(coords.shape)} / feats {tuple(feats.shape)}")
+    _check_f32("coords", coords)
+    _check_f32("feats", feats)
+    h, o = _mlp_check(lead, n_levels, w0, b0, w1)
+    _check_f32("g", g)
+    if g.shape != lead + (o, p):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected {lead + (o, p)}")
+    caps = permuto.normalize_capacities(t_size, n_levels)
+    t = max(caps)
+    if cuda_build.route(coords, feats, g, w0, b0, w1) == "cpu":
+        return encode_mlp_bwd_plain(coords, feats, g, w0, b0, w1, scales, shifts, elev, caps)
+    _mlp_widths_check(n_levels, h, o)
+    b = int(torch.Size(lead).numel())
+    d = 2 * n_levels
+    grad_table = torch.zeros(lead + (2, n_levels, t), dtype=torch.float32, device=coords.device)
+    # the four weight gradients as views of one zeroed buffer: one memset
+    flat = torch.zeros(b * (d * h + h + h * o + o), dtype=torch.float32, device=coords.device)
+    dw0, db0, dw1, db1 = (
+        part.view(lead + shape)
+        for part, shape in zip(flat.split([b * d * h, b * h, b * h * o, b * o]),
+                               ((d, h), (h,), (h, o), (o,)))
+    )
+    if b * p == 0:
+        return grad_table, dw0, db0, dw1, db1
+    lib = load_library().lib
+    rc = lib.ngm_encode_mlp_bwd(
+        coords.data_ptr(), feats.data_ptr(), g.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w1.data_ptr(), grad_table.data_ptr(), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), b, p, n_levels, t, h, o,
+        *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(coords),
+    )
+    cuda_build.check(rc, "encode_mlp_bwd")
+    LAUNCHES["encode_mlp_bwd"] += 1
+    return grad_table, dw0, db0, dw1, db1
+
+
 KERNELS: Tuple[Tuple[str, str, str], ...] = (
     # (wrapper, source, TPU kernel it replaces)
     ("encode_fwd", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
@@ -407,4 +631,12 @@ KERNELS: Tuple[Tuple[str, str, str], ...] = (
      "neural_graph_mapping_tpu/ops/permuto_pallas.py:522"),
     ("encode_fwd_moe", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
      "neural_graph_mapping_tpu/ops/permuto_pallas.py:353"),
+    ("gather_pairs", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
+     "neural_graph_mapping_tpu/ops/permuto_pallas.py:878"),
+    ("table_grad", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
+     "neural_graph_mapping_tpu/ops/permuto_pallas.py:961"),
+    ("encode_mlp_fwd", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
+     "neural_graph_mapping_tpu/ops/permuto_pallas.py:1197"),
+    ("encode_mlp_bwd", "neural_graph_mapping_tpu_torch/csrc/permuto.cu",
+     "neural_graph_mapping_tpu/ops/permuto_pallas.py:1303"),
 )

@@ -40,6 +40,24 @@ def quaternion_apply(q: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     return point + w * t + torch.linalg.cross(v, t)
 
 
+def complex_invert(c: torch.Tensor) -> torch.Tensor:
+    """Conjugate of real-first complex numbers (..., 2): the inverse of a
+    unit-modulus 2D rotation."""
+    return c * torch.tensor([1.0, -1.0], dtype=c.dtype, device=c.device)
+
+
+def complex_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of real-first complex numbers (..., 2); broadcasts."""
+    ar, ai = a.unbind(-1)
+    br, bi = b.unbind(-1)
+    return torch.stack([ar * br - ai * bi, ar * bi + br * ai], dim=-1)
+
+
+def complex_apply(c: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
+    """Rotate 2D points (..., 2) by complex rotations (..., 2); broadcasts."""
+    return complex_multiply(c, point)
+
+
 def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
     """Convert rotation matrices (..., 3, 3) to real-first unit quaternions
     (branch-free: all four candidates, pick the best-conditioned one)."""

@@ -23,6 +23,7 @@ from neural_graph_mapping_tpu_torch import interop
 from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
 from neural_graph_mapping_tpu_torch.mapping import engine, sampling
 from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
+from neural_graph_mapping_tpu_torch.ops import permuto
 
 
 def tiny_config(**overrides):
@@ -143,7 +144,31 @@ def _replayed_draws(key, n_cap, f, r, s, sc, sg):
 def test_one_iteration_matches_jax(iteration_state):
     """Losses within 1e-4 relative and every parameter gradient within
     1e-5, on identical weights, the same target and JAX's own draws."""
-    st = iteration_state
+    _check_iteration_against_jax(iteration_state, iteration_state["tfs"])
+
+
+def test_fused_mlp_iteration_matches_jax(iteration_state):
+    """With ``fused_mlp: true`` the port trains through encode_mlp_fused
+    (the plain versions on the CPU); JAX's CPU iteration, which takes the
+    unfused route there, is the reference: the same tolerances."""
+    tfs = engine.NeuralGraphMap(tiny_config(fused_mlp=True), "cpu")._fset
+    assert tfs.prototype.fused_mlp
+    calls = []
+    orig = permuto.encode_mlp_fused
+
+    def spy(*args):
+        calls.append(1)
+        return orig(*args)
+
+    permuto.encode_mlp_fused = spy
+    try:
+        _check_iteration_against_jax(iteration_state, tfs)
+    finally:
+        permuto.encode_mlp_fused = orig
+    assert calls  # the iteration went through the fused route
+
+
+def _check_iteration_against_jax(st, tfs):
     cfg = st["cfg"]
     f, r, cap = cfg["num_train_fields"], cfg["num_rays_per_field"], st["params"]["w0"].shape[0]
     s = st["cache_c2w"].shape[0]
@@ -173,7 +198,7 @@ def test_one_iteration_matches_jax(iteration_state):
 
     ti = torch.zeros((cap,), dtype=torch.int32)
     _, _, got_ti, got_losses = engine.optimization_iteration(
-        st["tfs"], st["ds"].camera, trcfg, tocfg, tlcfg, f, tp, optimizer.init_adam_state(tp),
+        tfs, st["ds"].camera, trcfg, tocfg, tlcfg, f, tp, optimizer.init_adam_state(tp),
         ti, *tmaps, *tcache, draws=draws,
     )
     assert set(got_losses) == set(want_losses)
@@ -209,9 +234,9 @@ def test_one_iteration_matches_jax(iteration_state):
     # the iteration above stepped tp in place: take the gradient at the
     # weights JAX took it at
     tp = interop.params_from_jax(st["params"], "cpu")
-    t_sub = st["tfs"].gather_fields(tp, t_target.field_ids)
+    t_sub = tfs.gather_fields(tp, t_target.field_ids)
     _, got_grads = engine.loss_and_grads(
-        st["tfs"], st["ds"].camera, trcfg, tlcfg, t_sub, tmaps[0][t_target.field_ids],
+        tfs, st["ds"].camera, trcfg, tlcfg, t_sub, tmaps[0][t_target.field_ids],
         tmaps[1][t_target.field_ids], t_target, draws,
     )
     assert set(got_grads) == set(want_grads)
@@ -285,6 +310,36 @@ def test_str_to_object_maps_the_jax_prefix():
         tconfig.str_to_object("neural_graph_mapping_tpu.nope.Missing")
 
 
+def test_fused_mlp_key_defaults_off_and_is_validated():
+    assert not engine.NeuralGraphMap(tiny_config(), "cpu")._fset.prototype.fused_mlp
+    with pytest.raises(ValueError, match="true or false"):
+        engine.NeuralGraphMap(tiny_config(fused_mlp="yes"), "cpu")
+
+
+def _with_field(cfg, **field_overrides):
+    mk = dict(cfg["model_kwargs"])
+    fk = dict(mk["field_kwargs"])
+    enc = dict(fk["encoding_kwargs"])
+    for key, value in field_overrides.items():
+        (enc if key == "concat_points" else fk)[key] = value
+    fk["encoding_kwargs"] = enc
+    mk["field_kwargs"] = fk
+    return {**cfg, "model_kwargs": mk}
+
+
+@pytest.mark.parametrize(
+    "field", [dict(skip_mode="add"), dict(num_layers=2), dict(concat_points=True),
+              dict(dim_mlp_out=64)],
+    ids=["skip_mode", "two_layers", "concat_points", "hidden_64"],
+)
+def test_fused_mlp_refuses_fields_the_kernels_cannot_take(field):
+    """JAX falls back silently; the port raises at construction."""
+    cfg = _with_field(tiny_config(fused_mlp=True), **field)
+    with pytest.raises(ValueError, match="fused_mlp needs"):
+        engine.NeuralGraphMap(cfg, "cpu")
+    engine.NeuralGraphMap({**cfg, "fused_mlp": False}, "cpu")  # the same field, unfused
+
+
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
         engine.NeuralGraphMap(tiny_config(update_mode="single_view"), "cpu")
@@ -292,8 +347,18 @@ def test_unported_modes_raise():
         engine.NeuralGraphMap(tiny_config(num_field_shards=2), "cpu")
 
 
-def test_map_needs_explicit_device():
-    with pytest.raises(TypeError):
+def test_map_needs_explicit_device(monkeypatch):
+    """The map runs on the card unless the caller passes 'cpu': without
+    CUDA the default raises instead of falling back; None raises too."""
+    import inspect
+
+    assert inspect.signature(engine.NeuralGraphMap).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         engine.NeuralGraphMap(tiny_config())
-    with pytest.raises(ValueError, match="explicit device"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.NeuralGraphMap(tiny_config(), "cuda:0")
+    with pytest.raises(ValueError, match="needs a device"):
         engine.NeuralGraphMap(tiny_config(), None)
+    ngm = engine.NeuralGraphMap(tiny_config(), "cpu")
+    assert ngm._params["w0"].device.type == "cpu"

@@ -174,3 +174,146 @@ def test_dispatch_and_blend_on_card_match_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
     assert dispatch.topk_fields(pts[:10], pos, valid, 3)[0].is_cuda
     assert set(cuda_build.load_all()) == set(cuda_build.SOURCES)
+
+
+# -- the gather route (gather_pairs, table_grad) --------------------------------
+
+
+@pytest.mark.parametrize("lead,t,m", [((3,), 256, 700), ((2, 4), 128, 300), ((32, 16), 4096, 36864)])
+def test_gather_pairs_matches_plain_exactly(cuda, lead, t, m):
+    gen = torch.Generator(cuda).manual_seed(9)
+    table = torch.randn(lead + (2, t), generator=gen, device=cuda)
+    idx = torch.randint(0, t, lead + (m,), generator=gen, device=cuda)
+    before = permuto_cuda.LAUNCHES["gather_pairs"]
+    got = permuto_cuda.gather_pairs(table, idx)
+    assert permuto_cuda.LAUNCHES["gather_pairs"] == before + 1
+    assert torch.equal(got, permuto_cuda.gather_pairs_plain(table, idx))
+
+
+@pytest.mark.parametrize("lead,t,m", [((2,), 128, 500), ((32, 16), 4096, 36864)])
+def test_table_grad_matches_plain(cuda, lead, t, m):
+    """Atomics change the summation order: max abs <= 1e-4 * max|plain|;
+    an all-zero gradient stays exactly zero."""
+    gen = torch.Generator(cuda).manual_seed(10)
+    idx = torch.randint(0, t, lead + (m,), generator=gen, device=cuda)
+    gv = torch.randn(lead + (2, m), generator=gen, device=cuda)
+    got = permuto_cuda.table_grad(idx, gv, t)
+    want = permuto_cuda.table_grad_plain(idx, gv, t)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert float(permuto_cuda.table_grad(idx, torch.zeros_like(gv), t).abs().max()) == 0.0
+
+
+def test_gather_blend_on_card_matches_cpu(cuda):
+    """gather_blend's value and table / weight gradients on the card (both
+    kernels) against the CPU (plain versions), 3D lattice at production
+    constants."""
+    enc = PermutohedralEncoding(**PRODUCTION).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(11)
+    table = (torch.rand((4, 2, 16, 4096), generator=gen, device=cuda) * 2 - 1).requires_grad_(True)
+    coords = torch.rand((4, 3, 999), generator=gen, device=cuda).requires_grad_(True)
+    out = enc.gather_fm_soa({"table": table}, coords.unbind(-2))
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    before = dict(permuto_cuda.LAUNCHES)
+    out.backward(g)
+    assert permuto_cuda.LAUNCHES["table_grad"] == before["table_grad"] + 1
+    assert permuto_cuda.LAUNCHES["gather_pairs"] == before["gather_pairs"] + 1
+    cpu_t = table.detach().cpu().requires_grad_(True)
+    cpu_c = coords.detach().cpu().requires_grad_(True)
+    want = enc.to("cpu").gather_fm_soa({"table": cpu_t}, cpu_c.unbind(-2))
+    want.backward(g.cpu())
+    assert float((out.detach().cpu() - want.detach()).abs().max()) <= 1e-5
+    assert float((table.grad.cpu() - cpu_t.grad).abs().max()) <= 1e-4 * float(cpu_t.grad.abs().max())
+    assert float((coords.grad.cpu() - cpu_c.grad).abs().max()) <= 1e-4 * float(cpu_c.grad.abs().max())
+
+
+# -- the fused training route (encode_mlp_fwd, encode_mlp_bwd) ------------------
+
+SMALL = dict(
+    pos_dim=3, log2_hashmap_size=8, nr_levels=4, nr_feat_per_level=2,
+    coarsest_scale=1.0, finest_scale=0.01, init_scale=1e-2,
+)
+
+
+def _mlp_inputs(dev, b, p, seed, widths=PRODUCTION, h=32, o=4):
+    enc = PermutohedralEncoding(**widths)
+    gen = torch.Generator(dev).manual_seed(seed)
+    n_levels, t = enc.nr_levels, enc.capacity
+    d = 2 * n_levels
+    table = torch.rand((b, 2, n_levels, t), generator=gen, device=dev) * 2 - 1
+    coords = torch.rand((b, 3, p), generator=gen, device=dev) * 1.5 - 0.25
+    w0 = (torch.rand((b, d, h), generator=gen, device=dev) * 2 - 1) / d**0.5
+    b0 = (torch.rand((b, h), generator=gen, device=dev) * 2 - 1) / d**0.5
+    w1 = (torch.rand((b, h, o), generator=gen, device=dev) * 2 - 1) / h**0.5
+    b1 = (torch.rand((b, o), generator=gen, device=dev) * 2 - 1) / h**0.5
+    g = torch.randn((b, o, p), generator=gen, device=dev)
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    return (table, w0, b0, w1, b1, coords), g, consts
+
+
+@pytest.mark.parametrize("b,p,small", [(1, 1, False), (3, 1000, True), (32, 12288, False)])
+def test_encode_mlp_fwd_and_bwd_match_plain(cuda, b, p, small):
+    """Forward max abs <= 1e-5 (outputs and residual); backward: table
+    gradient <= 1e-4 * max|plain| (atomics), weight gradients <= 1e-4
+    relative to their largest entry."""
+    kw = dict(widths=SMALL, h=8) if small else {}
+    args, g, consts = _mlp_inputs(cuda, b, p, 12, **kw)
+    before = dict(permuto_cuda.LAUNCHES)
+    out, feats = permuto_cuda.encode_mlp_fwd(*args, *consts)
+    want_out, want_feats = permuto_cuda.encode_mlp_fwd_plain(*args, *consts)
+    torch.cuda.synchronize()
+    assert float((out - want_out).abs().max()) <= 1e-5
+    assert float((feats - want_feats).abs().max()) <= 1e-5
+    table, w0, b0, w1, b1, coords = args
+    got = permuto_cuda.encode_mlp_bwd(coords, feats, g, w0, b0, w1, *consts)
+    want = permuto_cuda.encode_mlp_bwd_plain(coords, feats, g, w0, b0, w1, *consts)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("table", "w0", "b0", "w1", "b1"), got, want):
+        assert a.shape == w.shape, name
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+    assert permuto_cuda.LAUNCHES["encode_mlp_fwd"] == before["encode_mlp_fwd"] + 1
+    assert permuto_cuda.LAUNCHES["encode_mlp_bwd"] == before["encode_mlp_bwd"] + 1
+
+
+def test_encode_mlp_fused_autograd_on_card(cuda):
+    """The autograd function on the card: value and every gradient against
+    the unfused route (encode_fused + the bmm MLP) on the same inputs; the
+    coordinates get a zero gradient."""
+    args, g, consts = _mlp_inputs(cuda, 4, 777, 13)
+    fused = [a.clone().requires_grad_(True) for a in args]
+    unfused = [a.clone().requires_grad_(True) for a in args]
+    out = permuto.encode_mlp_fused(*fused, *consts)
+    out.backward(g)
+    table, w0, b0, w1, b1, coords = unfused
+    feats = permuto.encode_fused(table, coords, *consts)
+    want = torch.matmul(w1.transpose(-1, -2), torch.relu(torch.matmul(w0.transpose(-1, -2), feats) + b0[..., None])) + b1[..., None]
+    want.backward(g)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-5
+    for a, w in zip(fused[:5], unfused[:5]):
+        assert float((a.grad - w.grad).abs().max()) <= 1e-4 * float(w.grad.abs().max())
+    assert torch.count_nonzero(fused[5].grad) == 0
+
+
+def test_new_wrappers_never_take_the_plain_path(cuda):
+    """Mixed devices raise; shapes the kernels do not take raise on the card
+    instead of falling back."""
+    args, g, consts = _mlp_inputs(cuda, 1, 10, 14)
+    table, w0, b0, w1, b1, coords = args
+    with pytest.raises(ValueError):
+        permuto_cuda.encode_mlp_fwd(table, w0.cpu(), b0, w1, b1, coords, *consts)
+    out, feats = permuto_cuda.encode_mlp_fwd(*args, *consts)
+    with pytest.raises(ValueError):
+        permuto_cuda.encode_mlp_bwd(coords, feats, g.cpu(), w0, b0, w1, *consts)
+    wide = _mlp_inputs(cuda, 1, 10, 15, h=64)[0]
+    with pytest.raises(ValueError, match="at most"):
+        permuto_cuda.encode_mlp_fwd(*wide, *consts)
+    idx = torch.zeros((2, 5), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        permuto_cuda.gather_pairs(torch.zeros((2, 2, 8), device=cuda), idx.cpu())
+    with pytest.raises(ValueError, match="2 features"):
+        permuto_cuda.gather_pairs(torch.zeros((2, 3, 8), device=cuda), idx)
+    with pytest.raises(ValueError, match="2 features"):
+        permuto_cuda.table_grad(idx, torch.zeros((2, 3, 5), device=cuda), 8)
+    with pytest.raises(ValueError):
+        permuto_cuda.table_grad(idx, torch.zeros((2, 2, 5)), 8)

@@ -14,10 +14,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    started together) and prints the build seconds.
 3. kernels (training): each training kernel against its plain PyTorch
    version on the card, at the training path's shapes, with the stated
-   tolerance; median times of 20 runs (CUDA events) after warm-up; then the
-   fused pair ``encode_mlp_fwd`` / ``encode_mlp_bwd`` at the same shapes and
-   production widths (D = 32, H = 32, O = 4), beside the unfused route's time
-   for the same work.
+   tolerance, and timed (see "Kernel times" below); then the fused pair
+   ``encode_mlp_fwd`` / ``encode_mlp_bwd`` at the same shapes and production
+   widths (D = 32, H = 32, O = 4), beside the unfused route's time for the
+   same work.
 4. slice: the port's ``NeuralGraphMap.process_frame`` over 12 frames of the
    synthetic scene (160x120) at the production configuration
    (config/neural_graph_map.yaml + config/synthetic.yaml, written out below);
@@ -33,7 +33,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
    all 4,194,304 points, the two MoE encodes within 1e-5 on 256 live tiles
-   (tables U(-1, 1)); medians of 20 timed runs.
+   (tables U(-1, 1)), timed.
 6. render: ``NeuralGraphMap.render_image`` of frame 11's pose on the trained
    map at 160x120 (PSNR and depth-L1 against the frame, median ms of 5
    renders, each render kernel launched once per block) and at 640x480
@@ -49,8 +49,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (32 fields x 12,288 points) through ``apply_vmap``, the gather route:
    forward and backward on the card against the CPU, ``gather_pairs`` and
    ``table_grad`` against their plain versions at the shapes it gave them
-   (``kernel`` lines), five Adam steps of a fit that must lower its loss.
+   (``kernel`` lines; ``gather_pairs`` takes its staged variant there), the
+   direct variant of ``gather_pairs`` at that shape with an unaligned table
+   and at T = 16,384 (``kernel_variant`` lines),
+   five Adam steps of a fit that must lower its loss.
 10. geometry_gradients: one trained field at 4,096 points, card against CPU.
+
+Kernel times: ``ms`` is device time a launch, with the host's issue hidden:
+a device-side delay long enough for the host to queue 20 launches, then
+CUDA events around them (``time_ms``; it raises if the delay did not cover
+the issue). ``host_us`` is the wrapper's host cost a call (a host clock over
+20 calls with no sync in between). The kernel and, where one exists, the
+one PyTorch call of the same function (``library_ms``) are timed in turns,
+library, kernel, kernel, library; ``ms`` and ``library_ms`` are the means
+of the two turns. Plain versions that issue thousands of launches a call
+cannot be queued behind a delay: their ``plain_ms`` is an event window
+from an idle device (``plain_timing`` says which).
 
     python3 chip_smoke.py --profile PATH
 
@@ -195,21 +209,102 @@ def phase(phase_name: str, **fields) -> None:
     print(json.dumps({"phase": phase_name, **fields}), flush=True)
 
 
-def time_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each run."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
+_MS_PER_SLEEP_CYCLE = []
+
+
+def ms_per_sleep_cycle(torch) -> float:
+    """Device ms of one cycle of ``torch.cuda._sleep``, from one event-timed
+    sleep of 10M cycles (measured once)."""
+    if not _MS_PER_SLEEP_CYCLE:
+        torch.cuda._sleep(1000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        torch.cuda._sleep(10_000_000)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        _MS_PER_SLEEP_CYCLE.append(start.elapsed_time(end) / 10_000_000)
+    return _MS_PER_SLEEP_CYCLE[0]
+
+
+def time_ms(torch, fn, runs: int = 20, warmup: int = 3):
+    """(device ms a call, host us a call) of fn over ``runs`` calls.
+
+    Host: a host clock over the runs issued back to back, one synchronize
+    after the window. Device: a device-side delay (``torch.cuda._sleep``)
+    twice as long as that issue plus 1 ms, then CUDA events around the runs,
+    so the device finds every call queued and elapsed / runs is device time
+    alone. Raises if the delay did not cover the issue (the start event was
+    reached before the last call was issued, or the issue outlasted the
+    delay), after two retries with a four times longer delay."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    delay_ms = 2.0 * host_ms + 1.0
+    for _ in range(3):
+        torch.cuda._sleep(int(delay_ms / ms_per_sleep_cycle(torch)))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        reached = start.query()
+        end.record()
+        end.synchronize()
+        if not reached and issue_ms < delay_ms:
+            return start.elapsed_time(end) / runs, host_ms * 1e3 / runs
+        delay_ms *= 4.0
+    raise AssertionError(f"a {delay_ms / 4.0:.3f} ms device-side delay did not cover the host's "
+                         f"issue of {runs} calls ({issue_ms:.3f} ms)")
+
+
+def window_ms(torch, fn, runs: int = 3, warmup: int = 1) -> float:
+    """Device ms a call of a plain version that issues more launches than the
+    launch queue holds, so that no delay can hide its issue: CUDA events
+    around ``runs`` calls from an idle device (the host's issue is inside the
+    window wherever the device waits for it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def measure(torch, kernel, plain, library=None, plain_window: bool = False) -> dict:
+    """A kernel row's times: the kernel and, where there is one, the one
+    PyTorch call of the same function, by :func:`time_ms` in turns
+    (library, kernel, kernel, library); then the plain version, by
+    :func:`time_ms` or, for a plain version that issues thousands of
+    launches (``plain_window``), by :func:`window_ms`."""
+    lib, ker = [], []
+    if library is not None:
+        lib.append(time_ms(torch, library))
+    ker += [time_ms(torch, kernel), time_ms(torch, kernel)]
+    if library is not None:
+        lib.append(time_ms(torch, library))
+    row = dict(ms=statistics.mean(t[0] for t in ker), ms_turns=[t[0] for t in ker],
+               host_us=statistics.mean(t[1] for t in ker), library_ms=None)
+    if lib:
+        row.update(library_ms=statistics.mean(t[0] for t in lib), library_turns=[t[0] for t in lib],
+                   library_host_us=statistics.mean(t[1] for t in lib))
+    if plain_window:
+        row.update(plain_ms=window_ms(torch, plain), plain_timing="window, host issue included")
+    else:
+        row.update(plain_ms=time_ms(torch, plain)[0], plain_timing="device, host issue hidden")
+    return row
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -247,8 +342,6 @@ def check_kernels(torch, permuto_cuda, enc):
         # per lookup: an 8-byte index and the 4-byte value it needs in, 4 out
         "batched_gather": bound(idx.numel() * (8 + 4 + 4), 0),
     }
-    library = {"batched_gather": time_ms(torch, lambda: torch.gather(values, 1, idx))}
-
     rows = []
     out = permuto_cuda.encode_fwd(table, coords, *consts)
     ref = permuto_cuda.encode_fwd_plain(table, coords, *consts)
@@ -256,8 +349,8 @@ def check_kernels(torch, permuto_cuda, enc):
     if not err <= 1e-5:
         raise AssertionError(f"encode_fwd max abs err {err} > 1e-5")
     rows.append(("encode_fwd", err, "max abs <= 1e-5",
-                 time_ms(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts)),
-                 time_ms(torch, lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts))))
+                 measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
+                         lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)))
 
     out = permuto_cuda.encode_bwd_table(coords, g, *consts)
     ref = permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t)
@@ -266,28 +359,29 @@ def check_kernels(torch, permuto_cuda, enc):
     if not err <= limit:
         raise AssertionError(f"encode_bwd_table max abs err {err} > {limit}")
     rows.append(("encode_bwd_table", err, "max abs <= 1e-4 * max|plain|",
-                 time_ms(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts)),
-                 time_ms(torch, lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t))))
+                 measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
+                         lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t), plain_window=True)))
 
     out = permuto_cuda.batched_gather(values, idx)
     ref = permuto_cuda.batched_gather_plain(values, idx)
     if not torch.equal(out, ref):
         raise AssertionError("batched_gather differs from torch.gather")
     rows.append(("batched_gather", (out - ref).abs().max().item(), "exact",
-                 time_ms(torch, lambda: permuto_cuda.batched_gather(values, idx)),
-                 time_ms(torch, lambda: permuto_cuda.batched_gather_plain(values, idx))))
+                 measure(torch, lambda: permuto_cuda.batched_gather(values, idx),
+                         lambda: permuto_cuda.batched_gather_plain(values, idx),
+                         library=lambda: torch.gather(values, 1, idx))))
     shapes = {"encode_fwd": [b, p], "encode_bwd_table": [b, p], "batched_gather": [slots, hw, m]}
-    return report_rows(rows, shapes, bounds, library)
+    return report_rows(rows, shapes, bounds)
 
 
-def report_rows(rows, shapes, bounds, library, extra=None):
+def report_rows(rows, shapes, bounds, extra=None):
     """Print one kernel phase line per row; -> {name: measurements}.
     ``extra`` adds keys to a row (the unfused route's time of a fused kernel)."""
     out = {}
-    for name, err, tol, ms, plain_ms in rows:
+    for name, err, tol, timing in rows:
         bound_ms, bound_by = bounds[name]
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library.get(name), **(extra or {}).get(name, {}))
+        row = dict(max_abs_err=err, **timing, bound_ms=bound_ms, bound_by=bound_by,
+                   **(extra or {}).get(name, {}))
         phase("kernel", name=name, tolerance=tol, shape=shapes[name], **row)
         out[name] = row
     return out
@@ -327,8 +421,9 @@ def check_fused_kernels(torch, permuto_cuda, enc):
     if not err <= 1e-5:
         raise AssertionError(f"encode_mlp_fwd max abs err {err} > 1e-5")
     rows = [("encode_mlp_fwd", err, "max abs <= 1e-5 (outputs and residual)",
-             time_ms(torch, lambda: permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts)),
-             time_ms(torch, lambda: permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts)))]
+             measure(torch, lambda: permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts),
+                     lambda: permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts),
+                     plain_window=True))]
 
     bwd_args = (coords, feats, g, w0, b0, w1, *consts)
     got = permuto_cuda.encode_mlp_bwd(*bwd_args)
@@ -339,8 +434,8 @@ def check_fused_kernels(torch, permuto_cuda, enc):
     rows.append(("encode_mlp_bwd", max_err(torch, got[0], want[0]),
                  "table gradient max abs <= 1e-4 * max|plain| (atomics); weight gradients "
                  f"<= 1e-4 relative (got {max(errs[1:]):.2e})",
-                 time_ms(torch, lambda: permuto_cuda.encode_mlp_bwd(*bwd_args)),
-                 time_ms(torch, lambda: permuto_cuda.encode_mlp_bwd_plain(*bwd_args))))
+                 measure(torch, lambda: permuto_cuda.encode_mlp_bwd(*bwd_args),
+                         lambda: permuto_cuda.encode_mlp_bwd_plain(*bwd_args), plain_window=True)))
 
     # the unfused route on the same inputs: encode_fwd + the bmm MLP, and
     # the MLP's autograd (from a kept graph, as training has) + encode_bwd_table
@@ -355,8 +450,8 @@ def check_fused_kernels(torch, permuto_cuda, enc):
         dfeats = torch.autograd.grad(mlp_out, leaves, g, retain_graph=True)[0]
         return permuto_cuda.encode_bwd_table(coords, dfeats, *consts)
 
-    unfused = {"encode_mlp_fwd": {"unfused_ms": time_ms(torch, unfused_fwd)},
-               "encode_mlp_bwd": {"unfused_ms": time_ms(torch, unfused_bwd)}}
+    unfused = {"encode_mlp_fwd": {"unfused_ms": time_ms(torch, unfused_fwd)[0]},
+               "encode_mlp_bwd": {"unfused_ms": time_ms(torch, unfused_bwd, runs=10)[0]}}
     f32 = 4
     mlp_ops = 2 * (d * h + h * o)
     weight_bytes = (d * h + h + h * o + o) * b * f32
@@ -369,7 +464,7 @@ def check_fused_kernels(torch, permuto_cuda, enc):
                                 b * p * (n_levels * (LATTICE_OPS + 16) + 6 * d * h + 4 * h * o)),
     }
     shapes = {name: {"fields": b, "points": p, "D": d, "H": h, "O": o} for name in bounds}
-    return report_rows(rows, shapes, bounds, {}, unfused)
+    return report_rows(rows, shapes, bounds, unfused)
 
 
 def to_cpu(x):
@@ -612,8 +707,8 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
         raise AssertionError("topk2_fields differs from its plain version")
     n_pts, n_cen, n_valid = pts.shape[1], cen.shape[0], int(valid.sum())
     rows.append(("topk2_fields", 0.0, "exact (distances and indices)",
-                 time_ms(torch, lambda: topk.topk2_fields(pts, cen, valid)),
-                 time_ms(torch, lambda: topk.topk2_fields_plain(pts, cen, valid))))
+                 measure(torch, lambda: topk.topk2_fields(pts, cen, valid),
+                         lambda: topk.topk2_fields_plain(pts, cen, valid), plain_window=True)))
     shapes["topk2_fields"] = {"points": n_pts, "centres": n_cen, "valid_centres": n_valid}
     # points + centres (xyz, valid) in, 2 distances + 2 indices out; 8 f32
     # operations per (point, valid centre)
@@ -639,8 +734,8 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
         if not err <= 1e-5:
             raise AssertionError(f"{name} max abs err {err} > 1e-5 on {sel.numel()} live tiles")
         rows.append((name, err, f"max abs <= 1e-5 on {sel.numel()} live tiles",
-                     time_ms(torch, lambda: kernel(*c_args, **c_kw)),
-                     time_ms(torch, lambda: plain(*c_args, **c_kw))))
+                     measure(torch, lambda: kernel(*c_args, **c_kw),
+                             lambda: plain(*c_args, **c_kw), plain_window=True)))
         te = c_args[3] if name == "encode_fwd_moe_rays" else c_args[2]
         experts = int(torch.unique(te[:live]).numel())
         pairs = live * permuto_cuda.TILE
@@ -651,7 +746,7 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
                              pairs * (levels * LATTICE_OPS + rebuild_ops))
         shapes[name] = {"tiles": n_tiles, "live_tiles": live, "pairs": pts.shape[1] * 2,
                         "live_fields": experts}
-    return report_rows(rows, shapes, bounds, {})
+    return report_rows(rows, shapes, bounds)
 
 
 def render_kernel_launches(permuto_cuda, topk):
@@ -852,6 +947,35 @@ def field2d_kwargs():
     return dict(model, dim_points=2, field_kwargs=field)
 
 
+def check_gather_pairs_direct(torch, permuto_cuda, gen, table, idx) -> None:
+    """Phases kernel_variant: gather_pairs' direct variant, exact against its
+    plain version and timed as the rows are, (1) at the 2D field set's shape
+    with the table 4 bytes off 16-byte alignment (the bulk copy cannot take
+    it), the design the kernel had before it staged tables, and (2) at a
+    table above the staged maximum (32 rows, T = 16,384, 128 KB a row)."""
+    dev = torch.device("cuda")
+    off = torch.empty(table.numel() + 1, device=dev)[1:].view(table.shape)
+    off.copy_(table)
+    big_t = 16384
+    big = torch.rand((32, 2, big_t), generator=gen, device=dev) * 2 - 1
+    big_idx = torch.randint(0, big_t, (32, idx.shape[-1]), generator=gen, device=dev)
+    for case, tab, ids in (("unaligned table", off, idx), ("table above the staged maximum", big, big_idx)):
+        variant = permuto_cuda.gather_pairs_variant(tab, ids)
+        if variant != "direct":
+            raise AssertionError(f"gather_pairs took the {variant} variant for the {case}")
+        if not torch.equal(permuto_cuda.gather_pairs(tab, ids), permuto_cuda.gather_pairs_plain(tab, ids)):
+            raise AssertionError(f"gather_pairs (direct variant, {case}) differs from torch.gather")
+        ids_full = ids.unsqueeze(-2).expand(ids.shape[:-1] + (2, ids.shape[-1]))
+        timing = measure(torch, lambda: permuto_cuda.gather_pairs(tab, ids),
+                         lambda: permuto_cuda.gather_pairs_plain(tab, ids),
+                         library=lambda: torch.gather(tab, -1, ids_full))
+        bound_ms, bound_by = bound(tab.numel() * 4 + ids.numel() * (8 + 2 * 4), 0)
+        phase("kernel_variant", name="gather_pairs", variant=variant, case=case, tolerance="exact",
+              max_abs_err=0.0, shape={"rows": int(ids.shape[:-1].numel()), "pairs_per_row": ids.shape[-1],
+                                      "table": tab.shape[-1]},
+              **timing, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     """Phases kernel (gather_pairs, table_grad) and field2d: a 2D field set
     of 32 fields x 12,288 points through apply_vmap (the gather route), its
@@ -894,6 +1018,9 @@ def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     got = permuto_cuda.gather_pairs(table, idx)
     if not torch.equal(got, permuto_cuda.gather_pairs_plain(table, idx)):
         raise AssertionError("gather_pairs differs from torch.gather")
+    variant = permuto_cuda.gather_pairs_variant(table, idx)
+    if variant != "staged":
+        raise AssertionError(f"gather_pairs took the {variant} variant at T = {t_size}")
     got = permuto_cuda.table_grad(t_idx, gv, t_size)
     ref = permuto_cuda.table_grad_plain(t_idx, gv, t_size)
     tg_err = max_err(torch, got, ref)
@@ -904,15 +1031,15 @@ def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     flat = (torch.arange(rows_f, device=dev).reshape(gv.shape[:-1] + (1,)) * t_size + t_idx.unsqueeze(-2)).reshape(-1)
     gvf = gv.reshape(-1)
     hist = torch.zeros(rows_f * t_size, device=dev)
-    library = {"gather_pairs": time_ms(torch, lambda: torch.gather(table, -1, idx_full)),
-               "table_grad": time_ms(torch, lambda: hist.index_add_(0, flat, gvf))}
     rows = [
         ("gather_pairs", 0.0, "exact",
-         time_ms(torch, lambda: permuto_cuda.gather_pairs(table, idx)),
-         time_ms(torch, lambda: permuto_cuda.gather_pairs_plain(table, idx))),
+         measure(torch, lambda: permuto_cuda.gather_pairs(table, idx),
+                 lambda: permuto_cuda.gather_pairs_plain(table, idx),
+                 library=lambda: torch.gather(table, -1, idx_full))),
         ("table_grad", tg_err, "max abs <= 1e-4 * max|plain| (atomics)",
-         time_ms(torch, lambda: permuto_cuda.table_grad(t_idx, gv, t_size)),
-         time_ms(torch, lambda: permuto_cuda.table_grad_plain(t_idx, gv, t_size))),
+         measure(torch, lambda: permuto_cuda.table_grad(t_idx, gv, t_size),
+                 lambda: permuto_cuda.table_grad_plain(t_idx, gv, t_size),
+                 library=lambda: hist.index_add_(0, flat, gvf))),
     ]
     f32, pairs = 4, idx.numel()
     bounds = {
@@ -923,7 +1050,9 @@ def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     }
     shapes = {name: {"rows": int(idx.shape[:-1].numel()), "pairs_per_row": idx.shape[-1],
                      "table": t_size} for name in bounds}
-    kernel_rows = report_rows(rows, shapes, bounds, library)
+    shapes["gather_pairs"]["variant"] = variant
+    kernel_rows = report_rows(rows, shapes, bounds)
+    check_gather_pairs_direct(torch, permuto_cuda, gen, table, idx)
 
     # five Adam steps of the fit, on the card
     fit = clone(params)

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kMaxLevels = 32;
@@ -213,22 +215,69 @@ __global__ void encode_bwd_table_kernel(const float* __restrict__ coords,
   }
 }
 
+// Loads and stores that stream: read or written once, evict first, so they
+// do not push the scattered reads' sectors out of L2.
+__device__ __forceinline__ int64_t load_index(const int64_t* p) {
+  return (int64_t)__ldcs(reinterpret_cast<const long long*>(p));
+}
+
+__device__ __forceinline__ longlong2 load_index_pair(const int64_t* p) {
+  return __ldcs(reinterpret_cast<const longlong2*>(p));
+}
+
+constexpr int kLookups = 4;  // lookups a thread of the gather kernels takes at once
+
 // Replaces permuto_pallas.batched_gather (_batched_gather_kernel):
 // out[b, m] = values[b, idx[b, m]], exact (no max-pooling).
 //
-// Bound: launch latency at the training shape (1000 keyframe slots x 640
-// lookups, 2.5 MB of indices and outputs); each lookup is one scattered
-// 4-byte read. Design: one thread per output element, coalesced index loads
-// and output stores. Index bounds are the caller's contract, as in JAX.
-// The TPU's lane-gather chunk sweep is not carried over.
+// Bound: DRAM latency of scattered reads. At the training shape (1000
+// keyframe slots x 19,200 pixels of depth, 76.8 MB, more than the 50 MB L2;
+// 640 lookups a slot) each lookup is one dependent 4-byte read that moves a
+// whole 32-byte sector, so the least traffic is 640k sectors (20.5 MB) plus
+// 7.7 MB of indices and outputs, ~8.4 us at 3.35 TB/s; the byte bound of 4
+// useful bytes a lookup (3.1 us) is out of reach. What limits a simple
+// kernel is how few reads it has in flight. Design: grid y = slot (a slot
+// loop past the 65,535 limit of gridDim.y), grid x = groups of kLookups
+// lookups, so no thread divides; each thread loads its four indices as two
+// 16-byte streaming loads, issues all four scattered reads before it uses
+// the first, and writes one 16-byte streaming store. Rows whose base is not
+// 16-byte aligned (M % 4 != 0, or unaligned pointers) take the scalar
+// variant, which also takes a short last group. Index bounds are the
+// caller's contract, as in JAX. The TPU's lane-gather chunk sweep is not
+// carried over.
+template <bool kVec>
 __global__ void batched_gather_kernel(const float* __restrict__ values,
                                       const int64_t* __restrict__ idx,
-                                      float* __restrict__ out, int N, int M,
-                                      int64_t total) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int64_t b = e / M;
-  out[e] = __ldg(values + b * N + idx[e]);
+                                      float* __restrict__ out, int B, int N, int M) {
+  const int m = (blockIdx.x * blockDim.x + threadIdx.x) * kLookups;
+  if (m >= M) return;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* vals = values + (size_t)b * N;
+    const int64_t* ib = idx + (size_t)b * M + m;
+    float* ob = out + (size_t)b * M + m;
+    if (kVec) {
+      const longlong2 i01 = load_index_pair(ib);
+      const longlong2 i23 = load_index_pair(ib + 2);
+      float4 v;
+      v.x = __ldg(vals + i01.x);
+      v.y = __ldg(vals + i01.y);
+      v.z = __ldg(vals + i23.x);
+      v.w = __ldg(vals + i23.y);
+      __stcs(reinterpret_cast<float4*>(ob), v);
+    } else {
+      const int n = min(kLookups, M - m);
+      int64_t i[kLookups];
+      float v[kLookups];
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) i[k] = k < n ? load_index(ib + k) : 0;
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) v[k] = k < n ? __ldg(vals + i[k]) : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) {
+        if (k < n) __stcs(ob + k, v[k]);
+      }
+    }
+  }
 }
 
 // -- render path: tile-sorted mixture-of-experts encodes ---------------------
@@ -347,22 +396,135 @@ __global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
 // take (2D fields, point gradients).
 
 // Replaces permuto_pallas.gather_pairs (_gather_kernel):
-// out[r, f, m] = table[r, f, idx[r, m]], exact.
+// out[r, f, m] = table[r, f, idx[r, m]], exact (a pure copy).
 //
-// Bound: one random 8-byte table read per pair (both features of an entry
-// are T floats apart, so two 4-byte reads) plus the 8-byte index in and 8
-// bytes out; the tables of a 2D field set at production widths (32 fields x
-// 16 levels x 2 x 4096 f32 = 16 MiB) stay in L2. Design: one thread per
-// (row, m), grid x over m and grid y over rows (a row loop past the grid's
-// y limit), so no thread divides, and consecutive threads on consecutive
-// pairs coalesce the index loads and output stores. The TPU's
+// Bound: bytes. Each pair streams an 8-byte index in and two 4-byte
+// features out; at the 2D field set's shape (512 rows x 36,864 pairs,
+// T = 4096) that is 302 MB, against 16 MB of tables, so the least time is
+// the streams at the memory rate (0.095 ms at 3.35 TB/s). Reading the table
+// through L2 costs two 32-byte sectors a pair (37.7M sector reads, ~1.2 GB
+// of L2 traffic), and the tables compete in L2 with the streams. Design, as
+// the TPU kernel stages each row's table in VMEM: a block serves one (row,
+// chunk of at least kStagedPairs pairs); one thread copies the row's
+// contiguous (2, T) table into shared memory with one bulk asynchronous
+// copy completing on an mbarrier, while every thread loads its first
+// indices; then every lookup reads shared memory. Each thread takes
+// kLookups pairs a step: two 16-byte streaming index loads, the next step's
+// indices loaded before this step's lookups, and one 16-byte streaming
+// store into each feature row. Rows with M % 4 != 0 take the scalar
+// variant. Index bounds are the caller's contract, as in JAX; the TPU's
 // one-hot(idx>>6) x one-hot(idx&63) matmul existed because the TPU has no
-// fast gather; it is not carried over. Index bounds are the caller's
-// contract, as in JAX.
-__global__ void gather_pairs_kernel(const float* __restrict__ table,
-                                    const int64_t* __restrict__ idx,
-                                    float* __restrict__ out, int T, int M,
-                                    int rows) {
+// fast gather and is not carried over.
+//
+// The direct variant (gather_pairs_direct_kernel) reads the table through
+// L2 and is the kernel's design for shapes where staging does not pay or
+// does not fit: a table above kMaxStagedBytes (T > 12,288), an odd T or an
+// unaligned table (the bulk copy moves 16-byte multiples between 16-byte
+// aligned addresses), or rows so short that copying the table moves more
+// bytes than the pairs' sectors would (T >= 8 M). The C entry point chooses
+// by shape (gather_pairs_staged below).
+constexpr int kStagedPairs = 8192;          // least pairs a staged block serves
+constexpr int kMaxStagedBytes = 96 * 1024;  // (2, T) f32 tables up to T = 12,288
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Indices of one step of kLookups pairs at m (those at or past end read 0).
+template <bool kVec>
+__device__ __forceinline__ void load_step(const int64_t* ib, int m, int end,
+                                          int64_t i[kLookups]) {
+  if (kVec) {
+    if (m < end) {
+      const longlong2 a = load_index_pair(ib + m);
+      const longlong2 b = load_index_pair(ib + m + 2);
+      i[0] = a.x;
+      i[1] = a.y;
+      i[2] = b.x;
+      i[3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) i[k] = m + k < end ? load_index(ib + m + k) : 0;
+  }
+}
+
+// Dynamic shared memory: the (2, T) table, then the mbarrier (8T is a
+// multiple of 16, so the barrier is 8-byte aligned).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) gather_pairs_staged_kernel(
+    const float* __restrict__ table, const int64_t* __restrict__ idx,
+    float* __restrict__ out, int T, int M, int chunk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* stab = reinterpret_cast<const float*>(smem);
+  const uint32_t bytes = 8u * (uint32_t)T;
+  const uint32_t bar = smem_addr(smem + bytes);
+  const int64_t r = blockIdx.x;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(smem)), "l"(table + r * 2 * T), "r"(bytes), "r"(bar) : "memory");
+  }
+  const int begin = blockIdx.y * chunk;
+  const int end = min(M, begin + chunk);
+  const int step = blockDim.x * kLookups;
+  const int64_t* ib = idx + r * M;
+  float* o0 = out + r * 2 * M;
+  float* o1 = o0 + M;
+  int m = begin + threadIdx.x * kLookups;
+  int64_t i[kLookups] = {0, 0, 0, 0};
+  load_step<kVec>(ib, m, end, i);  // while the table is in flight
+  __syncthreads();                 // the barrier is initialised
+  mbarrier_wait(bar, 0);
+  for (; m < end; m += step) {
+    int64_t next[kLookups] = {0, 0, 0, 0};
+    load_step<kVec>(ib, m + step, end, next);
+    float f0[kLookups];
+    float f1[kLookups];
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      f0[k] = stab[i[k]];
+      f1[k] = stab[T + i[k]];
+    }
+    if (kVec) {
+      __stcs(reinterpret_cast<float4*>(o0 + m), make_float4(f0[0], f0[1], f0[2], f0[3]));
+      __stcs(reinterpret_cast<float4*>(o1 + m), make_float4(f1[0], f1[1], f1[2], f1[3]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) {
+        if (m + k < end) {
+          __stcs(o0 + m + k, f0[k]);
+          __stcs(o1 + m + k, f1[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) i[k] = next[k];
+  }
+}
+
+// The direct variant: one thread per (row, m), grid x over m and grid y
+// over rows (a row loop past the grid's y limit), both features read
+// through L2.
+__global__ void gather_pairs_direct_kernel(const float* __restrict__ table,
+                                           const int64_t* __restrict__ idx,
+                                           float* __restrict__ out, int T, int M,
+                                           int rows) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
@@ -372,6 +534,13 @@ __global__ void gather_pairs_kernel(const float* __restrict__ table,
     o[0] = __ldg(tab + i);
     o[M] = __ldg(tab + T + i);
   }
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+bool gather_pairs_staged(const float* table, int T, int M) {
+  return T > 0 && T % 2 == 0 && 8LL * T <= kMaxStagedBytes && (int64_t)T < 8LL * M &&
+         aligned16(table);
 }
 
 // Replaces permuto_pallas.table_grad (_table_grad_kernel): grad[r, f, idx[r, m]]
@@ -682,12 +851,33 @@ int ngm_encode_bwd_table(const float* coords, const float* g, float* grad, int B
   return (int)cudaGetLastError();
 }
 
+// Once, after the library is loaded: lets the staged gather_pairs variant
+// use more than 48 KB of dynamic shared memory.
+int ngm_permuto_init() {
+  const int bytes = kMaxStagedBytes + 16;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<true>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&gather_pairs_staged_kernel<false>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  return (int)err;
+}
+
+// values (B, N) f32, idx (B, M) int64 -> out (B, M).
 int ngm_batched_gather(const float* values, const int64_t* idx, float* out, int B,
                        int N, int M, void* stream) {
-  const int64_t total = (int64_t)B * M;
-  const int blocks = (int)((total + kThreads - 1) / kThreads);
-  batched_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      values, idx, out, N, M, total);
+  const int groups = (M + kLookups - 1) / kLookups;
+  const int threads = std::min(kThreads, (groups + 31) / 32 * 32);  // no empty warps at short M
+  const dim3 grid((groups + threads - 1) / threads, B < kMaxGridY ? B : kMaxGridY);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (M % kLookups == 0 && aligned16(idx) && aligned16(out)) {
+    batched_gather_kernel<true><<<grid, threads, 0, s>>>(values, idx, out, B, N, M);
+  } else {
+    batched_gather_kernel<false><<<grid, threads, 0, s>>>(values, idx, out, B, N, M);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -729,12 +919,31 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
   return (int)cudaGetLastError();
 }
 
+// 1 if ngm_gather_pairs takes the staged variant for this table, else 0.
+int ngm_gather_pairs_staged(const float* table, int T, int M) {
+  return gather_pairs_staged(table, T, M) ? 1 : 0;
+}
+
 // table (rows, 2, T), idx (rows, M) int64 -> out (rows, 2, M).
 int ngm_gather_pairs(const float* table, const int64_t* idx, float* out, int rows,
                      int T, int M, void* stream) {
-  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
-  gather_pairs_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(table, idx, out, T, M,
-                                                                  rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gather_pairs_staged(table, T, M)) {
+    // grid x = rows (up to 2^31 - 1), y = chunks of at least kStagedPairs
+    // pairs, a multiple of kLookups
+    const int chunks = std::max(1, std::min(kMaxGridY, M / kStagedPairs));
+    const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
+    const dim3 grid(rows, (M + chunk - 1) / chunk);
+    const size_t smem = 8 * (size_t)T + 16;
+    if (M % kLookups == 0 && aligned16(idx) && aligned16(out)) {
+      gather_pairs_staged_kernel<true><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+    } else {
+      gather_pairs_staged_kernel<false><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+    }
+  } else {
+    const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+    gather_pairs_direct_kernel<<<grid, kThreads, 0, s>>>(table, idx, out, T, M, rows);
+  }
   return (int)cudaGetLastError();
 }
 

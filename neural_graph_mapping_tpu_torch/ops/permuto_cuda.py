@@ -55,14 +55,23 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+_LIBRARY: Optional[cuda_build.Library] = None
+
+
 def load_library() -> cuda_build.Library:
-    """Build (once) and load ``csrc/permuto.cu``."""
+    """Build (once) and load ``csrc/permuto.cu``. The first call sets the
+    functions' ctypes signatures and runs ``ngm_permuto_init``; later calls
+    return the bound library from the cache."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
     library = cuda_build.load("permuto")["permuto"]
     lib = library.lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     c_int_p, c_float_p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
     consts = [c_float_p, c_float_p, c_float_p, c_int_p]
     enc_args = [ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr]
+    lib.ngm_permuto_init.argtypes = []
     lib.ngm_encode_fwd.argtypes = enc_args
     lib.ngm_encode_bwd_table.argtypes = enc_args
     lib.ngm_batched_gather.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
@@ -71,14 +80,18 @@ def load_library() -> cuda_build.Library:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         *consts, ptr,
     ]
+    lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32]
     lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_encode_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [*consts, ptr]
     lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [*consts, ptr]
-    for fn in (lib.ngm_encode_fwd, lib.ngm_encode_bwd_table, lib.ngm_batched_gather,
-               lib.ngm_encode_fwd_moe, lib.ngm_encode_fwd_moe_rays, lib.ngm_gather_pairs,
-               lib.ngm_table_grad, lib.ngm_encode_mlp_fwd, lib.ngm_encode_mlp_bwd):
+    for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd, lib.ngm_encode_bwd_table,
+               lib.ngm_batched_gather, lib.ngm_encode_fwd_moe, lib.ngm_encode_fwd_moe_rays,
+               lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs, lib.ngm_table_grad,
+               lib.ngm_encode_mlp_fwd, lib.ngm_encode_mlp_bwd):
         fn.restype = i32
+    cuda_build.check(lib.ngm_permuto_init(), "permuto init")
+    _LIBRARY = library
     return library
 
 
@@ -448,6 +461,13 @@ def gather_pairs(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cuda_build.check(rc, "gather_pairs")
     LAUNCHES["gather_pairs"] += 1
     return out
+
+
+def gather_pairs_variant(table: torch.Tensor, idx: torch.Tensor) -> str:
+    """'staged' or 'direct': the design the kernel takes for these CUDA
+    tensors (the C entry point chooses by shape; ``csrc/permuto.cu``)."""
+    staged = load_library().lib.ngm_gather_pairs_staged(table.data_ptr(), table.shape[-1], idx.shape[-1])
+    return "staged" if staged else "direct"
 
 
 def table_grad_plain(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> torch.Tensor:

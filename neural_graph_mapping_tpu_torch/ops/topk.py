@@ -13,7 +13,7 @@ rounding (1e-4 m in the tests). ``LAUNCHES`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,13 +36,20 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+_LIBRARY: Optional[cuda_build.Library] = None
+
+
 def load_library() -> cuda_build.Library:
-    """Build (once) and load ``csrc/topk.cu``."""
-    lib = cuda_build.load("topk")["topk"]
-    ptr = ctypes.c_void_p
-    lib.lib.ngm_topk2_fields.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
-    lib.lib.ngm_topk2_fields.restype = ctypes.c_int
-    return lib
+    """Build (once) and load ``csrc/topk.cu``; the first call sets the
+    function's ctypes signature, later calls return the cached library."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        library = cuda_build.load("topk")["topk"]
+        ptr = ctypes.c_void_p
+        library.lib.ngm_topk2_fields.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
+        library.lib.ngm_topk2_fields.restype = ctypes.c_int
+        _LIBRARY = library
+    return _LIBRARY
 
 
 def topk2_fields_plain(points_fm: torch.Tensor, centers: torch.Tensor, valid: torch.Tensor):

@@ -12,7 +12,7 @@ from neural_graph_mapping_tpu.ops import permuto_pallas
 from neural_graph_mapping_tpu_torch.ops import permuto_cuda
 
 
-@pytest.mark.parametrize("b,n,m", [(3, 4800, 640), (2, 128, 50), (1, 300, 1024)])
+@pytest.mark.parametrize("b,n,m", [(3, 4800, 640), (2, 128, 50), (1, 300, 1024), (2, 4800, 641), (3, 128, 1)])
 def test_matches_pallas_interpret_and_indexing(b, n, m):
     """Exact (tolerance 0): a gather moves values, it computes nothing."""
     rng = np.random.default_rng(b * 1000 + m)

@@ -42,7 +42,9 @@ def _enc_kwargs(pos_dim):
 # -- gather_pairs / table_grad against the Pallas kernels ----------------------
 
 
-@pytest.mark.parametrize("lead,t,m", [((3,), 256, 700), ((2, 4), 128, 300), ((1,), 256, 2048)])
+@pytest.mark.parametrize("lead,t,m", [
+    ((3,), 256, 700), ((2, 4), 128, 300), ((1,), 256, 2048), ((2,), 256, 701), ((3,), 128, 1),
+])
 def test_gather_pairs_matches_pallas(lead, t, m):
     """Exact: a lookup moves values, it computes nothing."""
     rng = np.random.default_rng(0)

@@ -61,10 +61,16 @@ def test_encode_bwd_table_matches_plain(cuda, b, p):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
-def test_batched_gather_exact(cuda):
+@pytest.mark.parametrize("b,n,m", [
+    (1000, 19200, 640),  # the main path's shape: 16-byte groups of four lookups
+    (1000, 19200, 641),  # M % 4 != 0: the scalar variant, a short last group
+    (7, 100, 1),
+    (70_000, 64, 5),  # more slots than gridDim.y holds: the slot loop
+])
+def test_batched_gather_exact(cuda, b, n, m):
     gen = torch.Generator(cuda).manual_seed(2)
-    values = torch.rand((1000, 19200), generator=gen, device=cuda)
-    idx = torch.randint(0, 19200, (1000, 640), generator=gen, device=cuda)
+    values = torch.rand((b, n), generator=gen, device=cuda)
+    idx = torch.randint(0, n, (b, m), generator=gen, device=cuda)
     assert torch.equal(permuto_cuda.batched_gather(values, idx), torch.gather(values, 1, idx))
 
 
@@ -188,6 +194,76 @@ def test_gather_pairs_matches_plain_exactly(cuda, lead, t, m):
     got = permuto_cuda.gather_pairs(table, idx)
     assert permuto_cuda.LAUNCHES["gather_pairs"] == before + 1
     assert torch.equal(got, permuto_cuda.gather_pairs_plain(table, idx))
+
+
+@pytest.mark.parametrize("rows,t,m,offset,variant", [
+    (512, 4096, 36864, 0, "staged"),  # the 2D field set's shape
+    (3, 4096, 4099, 0, "staged"),  # M % 4 != 0: the scalar variant of the staged kernel
+    (4, 12288, 9000, 0, "staged"),  # the largest staged table, 96 KB
+    (4, 16384, 1001, 0, "direct"),  # a table above the staged maximum
+    (3, 4096, 500, 0, "direct"),  # T >= 8 M: staging would move more bytes than the pairs
+    (3, 4096, 36864, 1, "direct"),  # a table 4 bytes off 16-byte alignment: no bulk copy
+    (70_000, 16, 7, 0, "staged"),  # more rows than gridDim.y holds (rows on grid x)
+    (70_000, 16, 1, 0, "direct"),  # the direct variant's row loop
+])
+def test_gather_pairs_variants_exact(cuda, rows, t, m, offset, variant):
+    gen = torch.Generator(cuda).manual_seed(16)
+    storage = torch.randn((offset + rows * 2 * t,), generator=gen, device=cuda)
+    table = storage[offset:].view(rows, 2, t)
+    idx = torch.randint(0, t, (rows, m), generator=gen, device=cuda)
+    assert permuto_cuda.gather_pairs_variant(table, idx) == variant
+    assert torch.equal(permuto_cuda.gather_pairs(table, idx), permuto_cuda.gather_pairs_plain(table, idx))
+
+
+def _wrapper_calls(dev):
+    """{wrapper name: a call of it on small CUDA inputs}, all ten kernels."""
+    table, coords, g, consts = _inputs(dev, 2, 300, 18)
+    gen = torch.Generator(dev).manual_seed(18)
+    values = torch.rand((4, 50), generator=gen, device=dev)
+    vidx = torch.randint(0, 50, (4, 9), generator=gen, device=dev)
+    rows_t = torch.randn((5, 2, 256), generator=gen, device=dev)
+    ridx = torch.randint(0, 256, (5, 300), generator=gen, device=dev)
+    gv = torch.randn((5, 2, 300), generator=gen, device=dev)
+    _, tables, experts, mconsts = _moe_inputs(dev, 3, 2, 18)
+    mcoords = torch.rand((3, 3, 1024), generator=gen, device=dev)
+    orig = torch.randint(0, 1 << 20, (3, 1024), generator=gen, device=dev, dtype=torch.int32)
+    dist = torch.rand((3, 1024), generator=gen, device=dev) + 0.5
+    rayp = torch.cat([torch.eye(3, device=dev).reshape(-1),
+                      torch.tensor([0.0, 0.0, 0.0, 0.01, 0.01, 8.0, 8.0], device=dev)])
+    poses = torch.tensor([[0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]] * 2, device=dev)
+    margs, mg, _ = _mlp_inputs(dev, 2, 300, 18)
+    mtable, w0, b0, w1, b1, mlp_coords = margs
+    feats = permuto_cuda.encode_mlp_fwd(*margs, *consts)[1]
+    pts = torch.randn((3, 500), generator=gen, device=dev)
+    cen = torch.randn((6, 3), generator=gen, device=dev)
+    valid = torch.ones((6,), dtype=torch.bool, device=dev)
+    return {
+        "encode_fwd": lambda: permuto_cuda.encode_fwd(table, coords, *consts),
+        "encode_bwd_table": lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
+        "batched_gather": lambda: permuto_cuda.batched_gather(values, vidx),
+        "encode_fwd_moe": lambda: permuto_cuda.encode_fwd_moe(tables, mcoords, experts, *mconsts),
+        "encode_fwd_moe_rays": lambda: permuto_cuda.encode_fwd_moe_rays(
+            tables, orig, dist, experts, rayp, poses, 0, *mconsts, log2_ks=10, width=16,
+            coord_scale=0.5, coord_shift=0.5),
+        "gather_pairs": lambda: permuto_cuda.gather_pairs(rows_t, ridx),
+        "table_grad": lambda: permuto_cuda.table_grad(ridx, gv, 256),
+        "encode_mlp_fwd": lambda: permuto_cuda.encode_mlp_fwd(*margs, *consts),
+        "encode_mlp_bwd": lambda: permuto_cuda.encode_mlp_bwd(mlp_coords, feats, mg, w0, b0, w1, *consts),
+        "topk2_fields": lambda: topk.topk2_fields(pts, cen, valid),
+    }
+
+
+def test_each_wrapper_counts_one_launch_per_call(cuda):
+    calls = _wrapper_calls(cuda)
+    names = [name for name, _, _ in permuto_cuda.KERNELS + topk.KERNELS]
+    assert sorted(calls) == sorted(names)
+    for name, call in calls.items():
+        counts = topk.LAUNCHES if name == "topk2_fields" else permuto_cuda.LAUNCHES
+        for _ in range(2):
+            before = dict(counts)
+            call()
+            assert counts == dict(before, **{name: before[name] + 1}), name
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("lead,t,m", [((2,), 128, 500), ((32, 16), 4096, 36864)])

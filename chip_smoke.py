@@ -14,7 +14,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    started together) and prints the build seconds.
 3. kernels (training): each training kernel against its plain PyTorch
    version on the card, at the training path's shapes, with the stated
-   tolerance, and timed (see "Kernel times" below); then the fused pair
+   tolerance, and timed (see "Kernel times" below). ``encode_bwd_table``'s
+   line names its variant and times it with the cotangent on the two
+   coarsest and on the two finest levels only (``contention``); a
+   ``kernel_variant`` line checks and times
+   its direct variant (log2_hashmap_size 14, T = 16,384). Then the fused pair
    ``encode_mlp_fwd`` / ``encode_mlp_bwd`` at the same shapes and production
    widths (D = 32, H = 32, O = 4), beside the unfused route's time for the
    same work.
@@ -24,7 +28,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    checks fields, finite losses, training counts and that every training
    kernel launched once per optimization iteration; then one optimization
    iteration at the same width on the card against the same iteration on
-   the CPU (plain versions), same weights and draws.
+   the CPU (plain versions), same weights and draws. kernel_captured:
+   ``encode_bwd_table`` at the inputs that iteration gave it, against its
+   plain version and timed (``captured_ms`` in its kernel line).
    slice_fused_mlp: a fresh map with ``fused_mlp: true`` over the same
    frames: only the fused pair trains (once per iteration each), steady ms a
    frame beside the unfused slice's; one iteration against the CPU and
@@ -49,9 +55,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (32 fields x 12,288 points) through ``apply_vmap``, the gather route:
    forward and backward on the card against the CPU, ``gather_pairs`` and
    ``table_grad`` against their plain versions at the shapes it gave them
-   (``kernel`` lines; ``gather_pairs`` takes its staged variant there), the
-   direct variant of ``gather_pairs`` at that shape with an unaligned table
-   and at T = 16,384 (``kernel_variant`` lines),
+   (``kernel`` lines; both take their staged variants there), the direct
+   variant of ``gather_pairs`` at that shape with an unaligned table and at
+   T = 16,384, ``table_grad`` with unaligned values (scalar loads) and its
+   direct variant at T = 16,384 (``kernel_variant`` lines),
    five Adam steps of a fit that must lower its loss.
 10. geometry_gradients: one trained field at 4,096 points, card against CPU.
 
@@ -338,7 +345,7 @@ def check_kernels(torch, permuto_cuda, enc):
         # table, coords in; features out
         "encode_fwd": bound(enc_bytes, enc_ops),
         # coords, g in; table gradient out (the same byte count)
-        "encode_bwd_table": bound(enc_bytes, enc_ops + b * p * n_levels * 16),
+        "encode_bwd_table": encode_bwd_table_bound(coords, g, n_levels, t),
         # per lookup: an 8-byte index and the 4-byte value it needs in, 4 out
         "batched_gather": bound(idx.numel() * (8 + 4 + 4), 0),
     }
@@ -352,15 +359,12 @@ def check_kernels(torch, permuto_cuda, enc):
                  measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
                          lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)))
 
-    out = permuto_cuda.encode_bwd_table(coords, g, *consts)
-    ref = permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t)
-    err = (out - ref).abs().max().item()
-    limit = 1e-4 * ref.abs().max().item()
-    if not err <= limit:
-        raise AssertionError(f"encode_bwd_table max abs err {err} > {limit}")
-    rows.append(("encode_bwd_table", err, "max abs <= 1e-4 * max|plain|",
-                 measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
-                         lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t), plain_window=True)))
+    err = check_encode_bwd_table(torch, permuto_cuda, coords, g, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
+                     lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, t), plain_window=True)
+    timing.update(variant=permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3]),
+                  contention=histogram_contention(torch, permuto_cuda, coords, g, consts))
+    rows.append(("encode_bwd_table", err, "max abs <= 1e-4 * max|plain|", timing))
 
     out = permuto_cuda.batched_gather(values, idx)
     ref = permuto_cuda.batched_gather_plain(values, idx)
@@ -371,7 +375,69 @@ def check_kernels(torch, permuto_cuda, enc):
                          lambda: permuto_cuda.batched_gather_plain(values, idx),
                          library=lambda: torch.gather(values, 1, idx))))
     shapes = {"encode_fwd": [b, p], "encode_bwd_table": [b, p], "batched_gather": [slots, hw, m]}
-    return report_rows(rows, shapes, bounds)
+    kernel_rows = report_rows(rows, shapes, bounds)
+    check_encode_bwd_table_direct(torch, permuto_cuda, enc, coords, g)
+    return kernel_rows
+
+
+def encode_bwd_table_bound(coords, g, n_levels: int, t: int):
+    """(least ms, what bounds it) of encode_bwd_table: coordinates and
+    cotangent in, the (B, 2, L, T) gradient out; the lattice and 16 f32
+    operations of adds a point and level with a nonzero cotangent."""
+    b = coords.shape[0]
+    live = int(((g[:, 0::2] != 0) | (g[:, 1::2] != 0)).sum())
+    return bound((coords.numel() + g.numel() + b * 2 * n_levels * t) * 4, live * (LATTICE_OPS + 16))
+
+
+def check_encode_bwd_table_direct(torch, permuto_cuda, enc, coords, g) -> None:
+    """Phase kernel_variant: encode_bwd_table's direct variant (every corner
+    value added into device memory with a global atomic: the first design)
+    at the training shape with log2_hashmap_size 14, levels of up to 16,384
+    entries, whose 128 KB (2, T) histogram is above the staged maximum."""
+    kwargs = dict(CONFIG["model_kwargs"]["field_kwargs"]["encoding_kwargs"], log2_hashmap_size=14)
+    big = type(enc)(**kwargs)
+    consts = (big._scales_t, big._shifts_t, big._elev_t, big.level_capacities)
+    variant = permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3])
+    if variant != "direct":
+        raise AssertionError(f"encode_bwd_table took the {variant} variant at T = {big.capacity}")
+    err = check_encode_bwd_table(torch, permuto_cuda, coords, g, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
+                     lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, big.capacity),
+                     plain_window=True)
+    bound_ms, bound_by = encode_bwd_table_bound(coords, g, big.nr_levels, big.capacity)
+    phase("kernel_variant", name="encode_bwd_table", variant=variant,
+          case=f"histogram above the staged maximum (log2_hashmap_size 14, T = {big.capacity})",
+          tolerance="max abs <= 1e-4 * max|plain|", max_abs_err=err,
+          shape={"fields": coords.shape[0], "points": coords.shape[-1], "table": big.capacity},
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_encode_bwd_table(torch, permuto_cuda, coords, g, consts) -> float:
+    """encode_bwd_table against its plain version -> max abs error; raises
+    above 1e-4 * max|plain| (atomics change the summation order)."""
+    out = permuto_cuda.encode_bwd_table(coords, g, *consts)
+    ref = permuto_cuda.encode_bwd_table_plain(coords, g, *consts, max(consts[3]))
+    err = max_err(torch, out, ref)
+    limit = 1e-4 * float(ref.abs().max())
+    if not err <= limit:
+        raise AssertionError(f"encode_bwd_table max abs err {err} > {limit}")
+    return err
+
+
+def histogram_contention(torch, permuto_cuda, coords, g, consts) -> dict:
+    """Device ms of encode_bwd_table with the cotangent kept on the two
+    coarsest levels only (512 and 1,024 entries: many points a cell) and on
+    the two finest only (4,096: few), each checked against the plain
+    version first."""
+    dev = g.device
+    n_levels = len(consts[0])
+    level = torch.arange(2 * n_levels, device=dev)[:, None] // 2
+    cases = {"coarse_only": g * (level < 2), "fine_only": g * (level >= n_levels - 2)}
+    out = {}
+    for case, gc in cases.items():
+        check_encode_bwd_table(torch, permuto_cuda, coords, gc, consts)
+        out[f"{case}_ms"] = time_ms(torch, lambda: permuto_cuda.encode_bwd_table(coords, gc, *consts))[0]
+    return out
 
 
 def report_rows(rows, shapes, bounds, extra=None):
@@ -539,6 +605,29 @@ def check_iteration_against_cpu(torch, engine, ngm, against_unfused=False):
     if against_unfused:
         return worst, worst_unfused, losses
     return worst, losses
+
+
+def check_captured_encode_bwd_table(torch, permuto_cuda, args) -> dict:
+    """Phase kernel_captured: encode_bwd_table at the inputs one training
+    iteration of the 12-frame map gave it (samples that cluster on rays and
+    surfaces, where the coarse levels' contention lives; the uniform draws
+    of phase 3 spread them) against its plain version, timed -> the fields
+    it adds to the kernel row."""
+    coords, g, *consts = args
+    consts = tuple(consts)
+    err = check_encode_bwd_table(torch, permuto_cuda, coords, g, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
+                     lambda: permuto_cuda.encode_bwd_table_plain(coords, g, *consts, max(consts[3])),
+                     plain_window=True)
+    n_levels = len(consts[0])
+    bound_ms, bound_by = encode_bwd_table_bound(coords, g, n_levels, max(consts[3]))
+    live = float(((g[:, 0::2] != 0) | (g[:, 1::2] != 0)).float().mean())
+    variant = permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3])
+    phase("kernel_captured", name="encode_bwd_table", variant=variant,
+          shape={"fields": coords.shape[0], "points": coords.shape[-1]},
+          nonzero_cotangent_share=live, tolerance="max abs <= 1e-4 * max|plain|", max_abs_err=err,
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
+    return {"captured_ms": timing["ms"], "captured_max_abs_err": err, "captured_bound_ms": bound_ms}
 
 
 def compare_losses(gpu, other, name: str) -> float:
@@ -976,6 +1065,65 @@ def check_gather_pairs_direct(torch, permuto_cuda, gen, table, idx) -> None:
               **timing, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_table_grad(torch, permuto_cuda, idx, gv, t: int) -> float:
+    """table_grad against its plain version -> max abs error; raises above
+    1e-4 * max|plain| (atomics change the summation order)."""
+    got = permuto_cuda.table_grad(idx, gv, t)
+    ref = permuto_cuda.table_grad_plain(idx, gv, t)
+    err = max_err(torch, got, ref)
+    if not err <= 1e-4 * float(ref.abs().max()):
+        raise AssertionError(f"table_grad max abs err {err} > 1e-4 * max|plain|")
+    return err
+
+
+def index_add_call(torch, idx, gv, t: int):
+    """The one PyTorch call that computes table_grad's function on these
+    inputs: index_add_ into a flat (rows * 2 * T) histogram."""
+    n_rows = gv.shape[:-1].numel()
+    flat = (torch.arange(n_rows, device=gv.device).reshape(gv.shape[:-1] + (1,)) * t
+            + idx.unsqueeze(-2)).reshape(-1)
+    gvf = gv.reshape(-1)
+    hist = torch.zeros(n_rows * t, device=gv.device)
+    return lambda: hist.index_add_(0, flat, gvf)
+
+
+def table_grad_bound(idx, t: int):
+    """(least ms, what bounds it) of table_grad: indices and two values a
+    pair in, the (rows, 2, T) histogram out; two adds a pair."""
+    pairs, rows = idx.numel(), idx.shape[:-1].numel()
+    return bound(pairs * (8 + 2 * 4) + rows * 2 * t * 4, 2 * pairs)
+
+
+def check_table_grad_variants(torch, permuto_cuda, gen, idx, gv, t: int) -> None:
+    """Phases kernel_variant: table_grad (1) at the 2D field set's inputs
+    with the values 4 bytes off 16-byte alignment (the staged kernel with
+    scalar loads) and (2) with a table above the staged maximum (32 rows of
+    the set's pair count, T = 16,384: the direct variant, global atomics),
+    each against its plain version and timed beside index_add_."""
+    dev = gv.device
+    off = torch.empty(gv.numel() + 1, device=dev)[1:].view(gv.shape)
+    off.copy_(gv)
+    big_t, m = 16384, idx.shape[-1]
+    big_idx = torch.randint(0, big_t, (32, m), generator=gen, device=dev)
+    big_gv = torch.randn((32, 2, m), generator=gen, device=dev)
+    for case, ii, vv, tt, want in (
+        ("values 4 bytes off 16-byte alignment (scalar loads)", idx, off, t, "staged"),
+        ("table above the staged maximum", big_idx, big_gv, big_t, "direct"),
+    ):
+        variant = permuto_cuda.table_grad_variant(ii, vv, tt)
+        if variant != want:
+            raise AssertionError(f"table_grad took the {variant} variant for the {case}")
+        err = check_table_grad(torch, permuto_cuda, ii, vv, tt)
+        timing = measure(torch, lambda: permuto_cuda.table_grad(ii, vv, tt),
+                         lambda: permuto_cuda.table_grad_plain(ii, vv, tt),
+                         library=index_add_call(torch, ii, vv, tt))
+        bound_ms, bound_by = table_grad_bound(ii, tt)
+        phase("kernel_variant", name="table_grad", variant=variant, case=case,
+              tolerance="max abs <= 1e-4 * max|plain|", max_abs_err=err,
+              shape={"rows": int(ii.shape[:-1].numel()), "pairs_per_row": m, "table": tt},
+              **timing, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     """Phases kernel (gather_pairs, table_grad) and field2d: a 2D field set
     of 32 fields x 12,288 points through apply_vmap (the gather route), its
@@ -1021,38 +1169,31 @@ def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     variant = permuto_cuda.gather_pairs_variant(table, idx)
     if variant != "staged":
         raise AssertionError(f"gather_pairs took the {variant} variant at T = {t_size}")
-    got = permuto_cuda.table_grad(t_idx, gv, t_size)
-    ref = permuto_cuda.table_grad_plain(t_idx, gv, t_size)
-    tg_err = max_err(torch, got, ref)
-    if not tg_err <= 1e-4 * float(ref.abs().max()):
-        raise AssertionError(f"table_grad max abs err {tg_err} > 1e-4 * max|plain|")
+    tg_err = check_table_grad(torch, permuto_cuda, t_idx, gv, t_size)
     idx_full = idx.unsqueeze(-2).expand(idx.shape[:-1] + (2, idx.shape[-1]))
-    rows_f = gv.shape[:-1].numel()
-    flat = (torch.arange(rows_f, device=dev).reshape(gv.shape[:-1] + (1,)) * t_size + t_idx.unsqueeze(-2)).reshape(-1)
-    gvf = gv.reshape(-1)
-    hist = torch.zeros(rows_f * t_size, device=dev)
+    tg_timing = measure(torch, lambda: permuto_cuda.table_grad(t_idx, gv, t_size),
+                        lambda: permuto_cuda.table_grad_plain(t_idx, gv, t_size),
+                        library=index_add_call(torch, t_idx, gv, t_size))
+    tg_timing.update(variant=permuto_cuda.table_grad_variant(t_idx, gv, t_size))
     rows = [
         ("gather_pairs", 0.0, "exact",
          measure(torch, lambda: permuto_cuda.gather_pairs(table, idx),
                  lambda: permuto_cuda.gather_pairs_plain(table, idx),
                  library=lambda: torch.gather(table, -1, idx_full))),
-        ("table_grad", tg_err, "max abs <= 1e-4 * max|plain| (atomics)",
-         measure(torch, lambda: permuto_cuda.table_grad(t_idx, gv, t_size),
-                 lambda: permuto_cuda.table_grad_plain(t_idx, gv, t_size),
-                 library=lambda: hist.index_add_(0, flat, gvf))),
+        ("table_grad", tg_err, "max abs <= 1e-4 * max|plain| (atomics)", tg_timing),
     ]
     f32, pairs = 4, idx.numel()
     bounds = {
         # indices in, both features of every pair out, the tables read once
         "gather_pairs": bound(table.numel() * f32 + pairs * (8 + 2 * f32), 0),
-        # indices and two values a pair in, the histogram out; two adds a pair
-        "table_grad": bound(pairs * (8 + 2 * f32) + rows_f * t_size * f32, 2 * pairs),
+        "table_grad": table_grad_bound(t_idx, t_size),
     }
     shapes = {name: {"rows": int(idx.shape[:-1].numel()), "pairs_per_row": idx.shape[-1],
                      "table": t_size} for name in bounds}
-    shapes["gather_pairs"]["variant"] = variant
+    rows[0][3]["variant"] = variant
     kernel_rows = report_rows(rows, shapes, bounds)
     check_gather_pairs_direct(torch, permuto_cuda, gen, table, idx)
+    check_table_grad_variants(torch, permuto_cuda, gen, t_idx, gv, t_size)
 
     # five Adam steps of the fit, on the card
     fit = clone(params)
@@ -1188,8 +1329,13 @@ def main() -> None:
         steady_rays_per_s=rays_per_frame / statistics.mean(steady),
         last_losses=all_losses[-1], card=smi,
     )
-    worst, losses = check_iteration_against_cpu(torch, engine, ngm)
+    results = []
+    calls = capture_calls(permuto_cuda, ("encode_bwd_table",),
+                          lambda: results.append(check_iteration_against_cpu(torch, engine, ngm)))
+    worst, losses = results[0]
     phase("iteration_vs_cpu", max_rel_diff=worst, tolerance="rel <= 1e-3", losses=losses)
+    kernel_rows["encode_bwd_table"].update(
+        check_captured_encode_bwd_table(torch, permuto_cuda, calls["encode_bwd_table"][0]))
     if args.profile is not None:
         profile_slice(torch, engine, ds, frames, statistics.mean(steady) * 1e3, args.profile)
     unfused = (statistics.median(steady) * 1e3, statistics.mean(steady) * 1e3)

@@ -173,18 +173,211 @@ __global__ void encode_fwd_kernel(const float* __restrict__ table,
                out + (size_t)b * 2 * L * P, P, p);
 }
 
+// -- shared-memory histograms (encode_bwd_table, table_grad) -----------------
+//
+// Both table gradients sum per-pair values into (2, n) f32 histograms. A
+// block keeps one histogram row pair in shared memory, adds into it with
+// shared-memory atomics, and writes it to device memory once, as the TPU
+// kernels keep their histogram in VMEM across point tiles. Atomics make the
+// summation order vary from run to run, so results agree with the plain
+// version to rounding, not bit for bit.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr uint32_t kNoKey = 0xffffffffu;  // a lane with nothing to add
+// Histograms of up to 12,288 entries a row ((2, T) f32 up to 96 KB) are
+// staged in shared memory; larger ones take the direct variants.
+constexpr int kMaxStagedBytes = 96 * 1024;
+// Least pairs (gather_pairs, table_grad) or points (encode_bwd_table) a
+// staged block serves: below them, staging the table or zeroing and
+// flushing the histogram costs more than the block's own work.
+constexpr int kStagedPairs = 8192;
+constexpr int kStagedPoints = 4096;
+constexpr int kFillBlocksPerSm = 4;  // 4 x 8 warps: enough to stream at full rate
+int g_sm_count = 132;                // the card's SMs, read by ngm_permuto_init
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// Blocks along a histogram row: one while the rows alone give every SM
+// kFillBlocksPerSm blocks, else as many as reach that, each summing at
+// least min_chunk of the row's n pairs or points (at most 65,535).
+int hist_chunks(int64_t rows, int n, int min_chunk) {
+  const int64_t fill = (int64_t)kFillBlocksPerSm * g_sm_count;
+  const int64_t chunks = std::min<int64_t>(fill / std::max<int64_t>(rows, 1), n / min_chunk);
+  return (int)std::max<int64_t>(1, std::min<int64_t>(chunks, kMaxGridY));
+}
+
+// Adds (v0, v1) at entry `key` of the shared-memory rows h0 and h1, for all
+// 32 lanes of the warp at once (every lane must call it: the shuffles take
+// the full warp); a lane whose key is kNoKey adds nothing.
+//
+// A float atomicAdd to shared memory is a compare-and-swap loop on this
+// card (ATOMS.CAST.SPIN in the SASS), so lanes that add to one address retry
+// one after another: 32 lanes on one coarse cell cost 32 rounds. So a
+// warp in which some lane holds the same key as its next lane
+// (points that sit next to each other share coarse cells) first groups its
+// lanes by key (__match_any_sync) and sums each group by a tree of shuffles
+// (log2 of the largest group steps); only the lowest lane of a group adds.
+// Warps without such a pair, the fine levels' usual case, add directly and
+// pay one shuffle and one vote: grouping a warp whose keys all differ costs
+// more than the adds it would save (__match_any_sync is slow).
+__device__ __forceinline__ void hist_add(float* h0, float* h1, uint32_t key,
+                                         float v0, float v1) {
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t next_key = __shfl_down_sync(kFullMask, key, 1);
+  if (__any_sync(kFullMask, key != kNoKey && lane < 31u && next_key == key)) {
+    const unsigned peers = __match_any_sync(kFullMask, key);
+    int rank = __popc(peers & ((1u << lane) - 1u));  // place among its peers
+    const bool leader = rank == 0;
+    unsigned above = key == kNoKey ? 0u : peers & ~((2u << lane) - 1u);
+    while (__any_sync(kFullMask, above != 0u)) {
+      const int next = __ffs(above) - 1;  // the next live peer above, or -1
+      const float t0 = __shfl_sync(kFullMask, v0, next & 31);
+      const float t1 = __shfl_sync(kFullMask, v1, next & 31);
+      if (next >= 0) {
+        v0 = v0 + t0;
+        v1 = v1 + t1;
+      }
+      above &= ~__ballot_sync(kFullMask, rank & 1);  // odd places are summed up
+      rank >>= 1;
+    }
+    if (!leader) return;
+  }
+  if (key != kNoKey) {
+    atomicAdd(h0 + key, v0);
+    atomicAdd(h1 + key, v1);
+  }
+}
+
+// row[0:n) = h[0:n) up to cap, 0 past it, written by the block's threads;
+// 16-byte stores where the row allows them.
+__device__ __forceinline__ void store_hist_row(float* __restrict__ row,
+                                               const float* h, int cap, int n) {
+  if (n % 4 == 0 && aligned16(row)) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) {
+      const float4 v = make_float4(i < cap ? h[i] : 0.0f, i + 1 < cap ? h[i + 1] : 0.0f,
+                                   i + 2 < cap ? h[i + 2] : 0.0f, i + 3 < cap ? h[i + 3] : 0.0f);
+      *reinterpret_cast<float4*>(row + i) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) row[i] = i < cap ? h[i] : 0.0f;
+  }
+}
+
+// row[0:n) += h[0:n), the nonzero entries only, into a zeroed output (a
+// row split over several blocks).
+__device__ __forceinline__ void add_hist_row(float* row, const float* h, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float v = h[i];
+    if (v != 0.0f) atomicAdd(row + i, v);
+  }
+}
+
 // Replaces permuto_pallas.encode_bwd_table (_encode_bwd_kernel): recompute
 // the lattice and accumulate w_k * g[b, 2l+f, p] into grad[b, f, l, idx_k].
 //
-// Bound: global atomics. Each call issues ~50 M float atomicAdds into the
-// 16 MiB gradient, which the L2 serves; on the coarse levels (512 and 1024
-// entries) many points of a field hit the same entries, so those levels
-// serialise on contended addresses. Design: one thread per (field, point),
-// plain global atomicAdd (the original CUDA extension's scheme); the caller
-// zeroes the gradient. The TPU's one-hot(idx>>6) x one-hot(idx&63) matmul
-// decomposition worked around serial TPU scatters and is not carried over.
-// Atomics make the summation order vary from run to run, so results agree
-// with the plain version to rounding, not bit for bit.
+// Bound: bytes, 50 MB of cotangent and 4.7 MB of coordinates in and the
+// 16.8 MB gradient out at the training shape (32 fields x 12,288 points,
+// L = 16, T = 4096: 0.021 ms at 3.35 TB/s), then the 6.3 M lattice
+// evaluations (~0.014 ms of f32 work). What limited the first design, one
+// thread per (field, point) adding all 50 M corner values into device
+// memory with global atomics, was the L2's atomic units serialising the
+// coarse levels (512 and 1,024 entries), where many points of a field share
+// an entry. Design, as the TPU kernel keeps each field's (2, L, T) gradient
+// in VMEM across its point tiles: a block owns one (field, level) and a
+// chunk of points (grid x = field * L + level, y = chunks by hist_chunks)
+// and keeps that level's (2, cap_l) histogram in shared memory, 32 KB at
+// cap 4,096 and 4 KB at the coarsest level. Each thread takes every
+// kBwdThreads-th point: the level's two cotangents (streamed) and the
+// point's coordinates, coalesced from (B, 3, P), the next point's loads
+// issued before this point's work; lattice_level for this one level
+// (unchanged, so the corners match encode_fwd and the plain version bit
+// for bit), skipped by a warp whose points all have zero cotangents; and
+// 4 corners x 2 features of shared-memory adds (hist_add). A block's
+// points form one long serial loop a thread, so the block is 16 warps wide
+// and the loop carries no load latency. The price of the level grid is
+// that the coordinates are read once a level: 16 x 4.7 MB at the training
+// shape, from L2, where the 4.7 MB stay resident. A block that owns its
+// level's whole point range writes grad[b, f, l, 0:T) with plain stores,
+// the histogram up to cap_l and zeros past it, so the output needs no
+// memset; blocks of a split range add their nonzero entries into a zeroed
+// output. With the histogram on chip, what bounds the kernel is the lattice
+// arithmetic it shares with encode_fwd_kernel (both take about the same
+// time on an H100). The TPU's one-hot(idx>>6) x one-hot(idx&63) matmuls
+// built the same histogram on the MXU and are not carried over.
+constexpr int kBwdThreads = 512;  // 16 warps a (field, level) block
+
+// One point's inputs at level l: its two cotangents and its coordinates
+// (zeros at or past end).
+struct BwdPoint {
+  float g0, g1, x, y, z;
+};
+
+__device__ __forceinline__ BwdPoint load_bwd_point(const float* xyz, const float* g0p,
+                                                   const float* g1p, int P, int p, int end) {
+  BwdPoint q = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (p < end) {
+    q.g0 = __ldcs(g0p + p);
+    q.g1 = __ldcs(g1p + p);
+    q.x = xyz[p];
+    q.y = xyz[P + p];
+    q.z = xyz[2 * (size_t)P + p];
+  }
+  return q;
+}
+
+__global__ void __launch_bounds__(kBwdThreads) encode_bwd_table_staged_kernel(
+    const float* __restrict__ coords, const float* __restrict__ g,
+    float* __restrict__ grad, int P, int T, int chunk,
+    __grid_constant__ const LevelConsts c) {
+  extern __shared__ __align__(16) float hist[];  // (2, cap_l)
+  const int L = c.n_levels;
+  const int b = blockIdx.x / L;
+  const int l = blockIdx.x - b * L;
+  const int cap = (int)c.mask[l] + 1;
+  float* h0 = hist;
+  float* h1 = hist + cap;
+  for (int i = threadIdx.x; i < 2 * cap; i += blockDim.x) hist[i] = 0.0f;
+  const int begin = blockIdx.y * chunk;
+  const int end = min(P, begin + chunk);
+  const float* xyz = coords + (size_t)b * kDim * P;
+  const float* g0p = g + ((size_t)b * 2 * L + 2 * l) * P;
+  const float* g1p = g0p + P;
+  int p = begin + threadIdx.x;
+  BwdPoint q = load_bwd_point(xyz, g0p, g1p, P, p, end);  // while the histogram is zeroed
+  __syncthreads();
+  for (int base = begin; base < end; base += blockDim.x, p += blockDim.x) {  // the same trips for every warp
+    const BwdPoint next = load_bwd_point(xyz, g0p, g1p, P, p + blockDim.x, end);
+    const bool add = q.g0 != 0.0f || q.g1 != 0.0f;
+    if (__any_sync(kFullMask, add)) {
+      uint32_t idx[kCorners];
+      float w[kCorners];
+      lattice_level(q.x, q.y, q.z, c, l, idx, w);
+#pragma unroll
+      for (int k = 0; k < kCorners; ++k) {
+        hist_add(h0, h1, add ? idx[k] : kNoKey, w[k] * q.g0, w[k] * q.g1);
+      }
+    }
+    q = next;
+  }
+  __syncthreads();
+  float* r0 = grad + ((size_t)b * 2 * L + l) * T;  // grad[b, 0, l, :]
+  float* r1 = r0 + (size_t)L * T;                  // grad[b, 1, l, :]
+  if (gridDim.y == 1) {
+    store_hist_row(r0, h0, cap, T);
+    store_hist_row(r1, h1, cap, T);
+  } else {
+    add_hist_row(r0, h0, cap);
+    add_hist_row(r1, h1, cap);
+  }
+}
+
+// The direct variant, for tables whose (2, T) histogram is above
+// kMaxStagedBytes (T > 12,288; the C entry point chooses for the whole
+// call): one thread per (field, point), every corner value added into the
+// zeroed gradient with a global atomicAdd (the first design, and the
+// original CUDA extension's).
 __global__ void encode_bwd_table_kernel(const float* __restrict__ coords,
                                         const float* __restrict__ g,
                                         float* __restrict__ grad, int P, int T,
@@ -423,8 +616,6 @@ __global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
 // aligned addresses), or rows so short that copying the table moves more
 // bytes than the pairs' sectors would (T >= 8 M). The C entry point chooses
 // by shape (gather_pairs_staged below).
-constexpr int kStagedPairs = 8192;          // least pairs a staged block serves
-constexpr int kMaxStagedBytes = 96 * 1024;  // (2, T) f32 tables up to T = 12,288
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -536,22 +727,127 @@ __global__ void gather_pairs_direct_kernel(const float* __restrict__ table,
   }
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 bool gather_pairs_staged(const float* table, int T, int M) {
   return T > 0 && T % 2 == 0 && 8LL * T <= kMaxStagedBytes && (int64_t)T < 8LL * M &&
          aligned16(table);
 }
 
-// Replaces permuto_pallas.table_grad (_table_grad_kernel): grad[r, f, idx[r, m]]
-// += gv[r, f, m] into a zeroed (rows, 2, T) output.
+// One step of kLookups pairs at m: indices and both values (pairs at or
+// past end read index 0 and values 0, which add nothing).
+template <bool kVec>
+__device__ __forceinline__ void load_pairs(const int64_t* ib, const float* g0,
+                                           const float* g1, int m, int end,
+                                           int64_t i[kLookups], float v0[kLookups],
+                                           float v1[kLookups]) {
+  if (kVec) {
+    if (m < end) {  // end and m are multiples of kLookups
+      const longlong2 a = load_index_pair(ib + m);
+      const longlong2 b = load_index_pair(ib + m + 2);
+      const float4 x = __ldcs(reinterpret_cast<const float4*>(g0 + m));
+      const float4 y = __ldcs(reinterpret_cast<const float4*>(g1 + m));
+      i[0] = a.x;
+      i[1] = a.y;
+      i[2] = b.x;
+      i[3] = b.y;
+      v0[0] = x.x;
+      v0[1] = x.y;
+      v0[2] = x.z;
+      v0[3] = x.w;
+      v1[0] = y.x;
+      v1[1] = y.y;
+      v1[2] = y.z;
+      v1[3] = y.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) {
+        i[k] = 0;
+        v0[k] = 0.0f;
+        v1[k] = 0.0f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      const bool in = m + k < end;
+      i[k] = in ? load_index(ib + m + k) : 0;
+      v0[k] = in ? __ldcs(g0 + m + k) : 0.0f;
+      v1[k] = in ? __ldcs(g1 + m + k) : 0.0f;
+    }
+  }
+}
+
+// Replaces permuto_pallas.table_grad (_table_grad_kernel):
+// grad[r, f, idx[r, m]] += gv[r, f, m] into a (rows, 2, T) output.
 //
-// Bound: global atomics, two a pair, served by L2; coarse levels put many
-// pairs of a row on the same entries and serialise there. Design: one thread
-// per (row, m) on the grid of gather_pairs_kernel, plain global atomicAdd as
-// encode_bwd_table_kernel; pairs whose two values are zero add nothing and
-// are skipped. The summation order varies from run to run, so results agree
-// with index_add_ to rounding, not bit for bit.
+// Bound: bytes. Each pair streams an 8-byte index and two 4-byte values in;
+// at the 2D field set's shape (512 rows x 36,864 pairs, T = 4096) that is
+// 302 MB, plus the 16.8 MB histogram out, so the least time is 0.095 ms at
+// 3.35 TB/s. The first design (now the direct variant) added every value
+// into device memory with a global atomic, 37.7 M a call, which the L2's
+// atomic units serialise where a coarse level puts many pairs on one entry.
+// Design, as the TPU kernel keeps one (field, level) row in VMEM across its
+// pair tiles: a block owns one row (grid x, so more than 65,535 rows need no
+// loop) and a chunk of its pairs (grid y, hist_chunks), and keeps the row's
+// (2, T) histogram in shared memory, which it zeroes itself (32 KB at
+// T = 4096). Each thread takes kLookups pairs a step,
+// as gather_pairs_staged_kernel: two 16-byte streaming index loads and one
+// 16-byte streaming load of each value row, the next step's loads issued
+// before this step's adds; the adds go to shared memory, aggregated within
+// the warp (hist_add); a pair whose two values are zero adds nothing. Rows
+// with M % 4 != 0 or unaligned inputs take the scalar loads. A block that
+// owns its whole row writes all 2T entries with coalesced 16-byte stores,
+// so the output needs no memset; where a row is split over blocks (few
+// rows, many pairs), each adds its nonzero entries into a zeroed output.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) table_grad_staged_kernel(
+    const int64_t* __restrict__ idx, const float* __restrict__ gv,
+    float* __restrict__ grad, int T, int M, int chunk) {
+  extern __shared__ __align__(16) float hist[];  // (2, T)
+  const int64_t r = blockIdx.x;
+  for (int i = threadIdx.x; i < 2 * T; i += blockDim.x) hist[i] = 0.0f;
+  const int begin = blockIdx.y * chunk;
+  const int end = min(M, begin + chunk);
+  const int step = blockDim.x * kLookups;
+  const int64_t* ib = idx + r * M;
+  const float* g0 = gv + r * 2 * M;
+  const float* g1 = g0 + M;
+  int m = begin + threadIdx.x * kLookups;
+  int64_t i[kLookups];
+  float v0[kLookups];
+  float v1[kLookups];
+  load_pairs<kVec>(ib, g0, g1, m, end, i, v0, v1);  // while the histogram is zeroed
+  __syncthreads();
+  for (int base = begin; base < end; base += step, m += step) {  // the same trips for every warp
+    int64_t ni[kLookups];
+    float n0[kLookups];
+    float n1[kLookups];
+    load_pairs<kVec>(ib, g0, g1, m + step, end, ni, n0, n1);
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      const bool add = v0[k] != 0.0f || v1[k] != 0.0f;
+      hist_add(hist, hist + T, add ? (uint32_t)i[k] : kNoKey, v0[k], v1[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      i[k] = ni[k];
+      v0[k] = n0[k];
+      v1[k] = n1[k];
+    }
+  }
+  __syncthreads();
+  float* row = grad + r * 2 * T;
+  if (gridDim.y == 1) {
+    store_hist_row(row, hist, 2 * T, 2 * T);
+  } else {
+    add_hist_row(row, hist, 2 * T);
+  }
+}
+
+// The direct variant, for (2, T) histograms above kMaxStagedBytes
+// (T > 12,288): one thread per (row, m) on the grid of
+// gather_pairs_direct_kernel, both values added into the zeroed output with
+// global atomics (the first design); pairs whose two values are zero are
+// skipped.
 __global__ void table_grad_kernel(const int64_t* __restrict__ idx,
                                   const float* __restrict__ gv,
                                   float* __restrict__ grad, int T, int M,
@@ -680,12 +976,16 @@ __global__ void __launch_bounds__(kMlpThreads) encode_mlp_fwd_kernel(
 
 // Replaces permuto_pallas.encode_mlp_bwd (_encode_mlp_bwd_kernel): the MLP
 // backward from the residual f and the head cotangent g, then the table
-// histogram of encode_bwd_table_kernel driven by dL/df, which stays in
-// registers and never reaches device memory.
+// histogram driven by dL/df, which stays in registers and never reaches
+// device memory. The histogram keeps the first design of encode_bwd_table:
+// every corner value goes into the zeroed gradient with a global atomicAdd
+// (today encode_bwd_table_kernel, the direct variant), not the staged
+// per-level histogram of encode_bwd_table_staged_kernel.
 //
-// Bound: the histogram's global atomics (as encode_bwd_table_kernel) after
-// streaming the residual, g and the coordinates once. Design: one thread per
-// (field, point), grid y = field, kMlpThreads points a block. Each thread
+// Bound: the histogram's global atomics, which the L2 serialises on the
+// coarse levels, after streaming the residual, g and the coordinates once.
+// Design: one thread per (field, point), grid y = field, kMlpThreads points
+// a block. Each thread
 // recomputes its pre-activations, then the block reduces its points' weight
 // gradients in shared memory: the columns h / dL/da0, f and g of its points
 // go to shared memory (row stride kMlpPad, conflict-free), every thread
@@ -822,6 +1122,24 @@ bool mlp_widths_ok(int L, int H, int O) {
   return L >= 1 && L <= kMlpMaxLevels && H >= 1 && H <= kMlpMaxH && O >= 1 && O <= kMlpMaxO;
 }
 
+// Blocks along each row of a staged histogram, or 0 where the (2, T)
+// histogram does not fit the staged budget and the direct variant runs.
+// A function of the shapes only.
+int table_grad_chunks(int rows, int T, int M) {
+  if (T < 1 || 8LL * T > kMaxStagedBytes) return 0;
+  return hist_chunks(rows, M, kStagedPairs);
+}
+
+int encode_bwd_table_chunks(int B, int L, int P, int T) {
+  if (T < 1 || 8LL * T > kMaxStagedBytes) return 0;
+  return hist_chunks((int64_t)B * L, P, kStagedPoints);
+}
+
+// What the caller must allocate for a call with `chunks` blocks a row: 0 and
+// 2 add into a zeroed output (the direct variant; a staged row split over
+// blocks), 1 writes every entry (one staged block a row).
+int plan_of(int chunks) { return chunks <= 1 ? chunks : 2; }
+
 }  // namespace
 
 extern "C" {
@@ -838,6 +1156,15 @@ int ngm_encode_fwd(const float* table, const float* coords, float* out, int B,
   return (int)cudaGetLastError();
 }
 
+// 0: ngm_encode_bwd_table takes the direct variant; 1: staged, one block a
+// (field, level), which writes every entry (the output needs no zeroing);
+// 2: staged, the points split over blocks (a zeroed output).
+int ngm_encode_bwd_table_plan(int B, int L, int P, int T) {
+  return plan_of(encode_bwd_table_chunks(B, L, P, T));
+}
+
+// coords (B, 3, P), g (B, 2L, P) -> grad (B, 2, L, T), zeroed by the caller
+// unless ngm_encode_bwd_table_plan gives 1.
 int ngm_encode_bwd_table(const float* coords, const float* g, float* grad, int B,
                          int P, int L, int T, const float* scales,
                          const float* shifts, const float* elev, const int* caps,
@@ -845,23 +1172,40 @@ int ngm_encode_bwd_table(const float* coords, const float* g, float* grad, int B
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
-  encode_bwd_table_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      coords, g, grad, P, T, c);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int chunks = encode_bwd_table_chunks(B, L, P, T);
+  if (chunks == 0) {
+    const dim3 grid((P + kThreads - 1) / kThreads, B);
+    encode_bwd_table_kernel<<<grid, kThreads, 0, s>>>(coords, g, grad, P, T, c);
+  } else {
+    const int chunk = (P + chunks - 1) / chunks;
+    const dim3 grid((unsigned)((int64_t)B * L), (P + chunk - 1) / chunk);
+    const size_t smem = 8 * (size_t)T;
+    encode_bwd_table_staged_kernel<<<grid, kBwdThreads, smem, s>>>(coords, g, grad, P, T, chunk, c);
+  }
   return (int)cudaGetLastError();
 }
 
-// Once, after the library is loaded: lets the staged gather_pairs variant
-// use more than 48 KB of dynamic shared memory.
+// Once, after the library is loaded: reads the card's SM count (hist_chunks)
+// and lets the staged kernels use more than 48 KB of dynamic shared memory.
 int ngm_permuto_init() {
-  const int bytes = kMaxStagedBytes + 16;
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<true>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&gather_pairs_staged_kernel<false>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const void* staged[] = {
+      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<true>),
+      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<false>),
+      reinterpret_cast<const void*>(&table_grad_staged_kernel<true>),
+      reinterpret_cast<const void*>(&table_grad_staged_kernel<false>),
+      reinterpret_cast<const void*>(&encode_bwd_table_staged_kernel),
+  };
+  for (const void* kernel : staged) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxStagedBytes + 16);
+    }
   }
   return (int)err;
 }
@@ -947,11 +1291,33 @@ int ngm_gather_pairs(const float* table, const int64_t* idx, float* out, int row
   return (int)cudaGetLastError();
 }
 
-// idx (rows, M) int64, gv (rows, 2, M) -> grad (rows, 2, T), zeroed by the caller.
+// 0: ngm_table_grad takes the direct variant; 1: staged, one block a row,
+// which writes every entry (the output needs no zeroing); 2: staged, rows
+// split over blocks (a zeroed output).
+int ngm_table_grad_plan(int rows, int T, int M) {
+  return plan_of(table_grad_chunks(rows, T, M));
+}
+
+// idx (rows, M) int64, gv (rows, 2, M) -> grad (rows, 2, T), zeroed by the
+// caller unless ngm_table_grad_plan gives 1.
 int ngm_table_grad(const int64_t* idx, const float* gv, float* grad, int rows, int T,
                    int M, void* stream) {
-  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
-  table_grad_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(idx, gv, grad, T, M, rows);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int chunks = table_grad_chunks(rows, T, M);
+  if (chunks == 0) {
+    const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+    table_grad_kernel<<<grid, kThreads, 0, s>>>(idx, gv, grad, T, M, rows);
+  } else {
+    // grid x = rows (up to 2^31 - 1), y = chunks, each a multiple of kLookups
+    const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
+    const dim3 grid(rows, (M + chunk - 1) / chunk);
+    const size_t smem = 8 * (size_t)T;
+    if (M % kLookups == 0 && aligned16(idx) && aligned16(gv)) {
+      table_grad_staged_kernel<true><<<grid, kThreads, smem, s>>>(idx, gv, grad, T, M, chunk);
+    } else {
+      table_grad_staged_kernel<false><<<grid, kThreads, smem, s>>>(idx, gv, grad, T, M, chunk);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

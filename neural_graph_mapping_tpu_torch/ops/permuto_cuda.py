@@ -73,6 +73,7 @@ def load_library() -> cuda_build.Library:
     enc_args = [ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr]
     lib.ngm_permuto_init.argtypes = []
     lib.ngm_encode_fwd.argtypes = enc_args
+    lib.ngm_encode_bwd_table_plan.argtypes = [i32, i32, i32, i32]
     lib.ngm_encode_bwd_table.argtypes = enc_args
     lib.ngm_batched_gather.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_encode_fwd_moe.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr]
@@ -82,13 +83,15 @@ def load_library() -> cuda_build.Library:
     ]
     lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32]
     lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.ngm_table_grad_plan.argtypes = [i32, i32, i32]
     lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_encode_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [*consts, ptr]
     lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [*consts, ptr]
-    for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd, lib.ngm_encode_bwd_table,
-               lib.ngm_batched_gather, lib.ngm_encode_fwd_moe, lib.ngm_encode_fwd_moe_rays,
-               lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs, lib.ngm_table_grad,
-               lib.ngm_encode_mlp_fwd, lib.ngm_encode_mlp_bwd):
+    for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd, lib.ngm_encode_bwd_table_plan,
+               lib.ngm_encode_bwd_table, lib.ngm_batched_gather, lib.ngm_encode_fwd_moe,
+               lib.ngm_encode_fwd_moe_rays, lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs,
+               lib.ngm_table_grad_plan, lib.ngm_table_grad, lib.ngm_encode_mlp_fwd,
+               lib.ngm_encode_mlp_bwd):
         fn.restype = i32
     cuda_build.check(lib.ngm_permuto_init(), "permuto init")
     _LIBRARY = library
@@ -121,6 +124,21 @@ def _check_f32(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# The designs of the two histogram kernels (encode_bwd_table, table_grad),
+# by the plan their C entry points return for a shape: global atomics into a
+# zeroed output; one staged block a row, which writes every entry; staged
+# rows split over blocks, which add into a zeroed output.
+HIST_VARIANTS = ("direct", "staged", "staged, split rows")
+
+
+def _hist_output(plan: int, shape, device) -> torch.Tensor:
+    """A histogram kernel's output: uninitialised where one block writes
+    every entry of its row, zeroed where the kernel adds into it."""
+    if HIST_VARIANTS[plan] == "staged":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
 # -- encode_fwd -----------------------------------------------------------------
@@ -193,11 +211,12 @@ def encode_bwd_table(coords, g, scales, shifts, elev, t_size) -> torch.Tensor:
         return encode_bwd_table_plain(coords, g, scales, shifts, elev, caps, t)
     p = coords.shape[-1]
     b = int(torch.Size(lead).numel())
-    grad = torch.zeros(lead + (2, n_levels, t), dtype=torch.float32, device=coords.device)
+    shape = lead + (2, n_levels, t)
     if b * p == 0:
-        return grad
+        return torch.zeros(shape, dtype=torch.float32, device=coords.device)
     consts = _lattice_consts(scales, shifts, elev, caps, n_levels)
     lib = load_library().lib
+    grad = _hist_output(lib.ngm_encode_bwd_table_plan(b, n_levels, p, t), shape, coords.device)
     rc = lib.ngm_encode_bwd_table(
         coords.data_ptr(), g.data_ptr(), grad.data_ptr(), b, p, n_levels, t,
         *consts, cuda_build.stream(coords),
@@ -205,6 +224,16 @@ def encode_bwd_table(coords, g, scales, shifts, elev, t_size) -> torch.Tensor:
     cuda_build.check(rc, "encode_bwd_table")
     LAUNCHES["encode_bwd_table"] += 1
     return grad
+
+
+def encode_bwd_table_variant(coords, scales, t_size) -> str:
+    """The design :func:`encode_bwd_table` takes for CUDA ``coords``
+    (..., 3, P), one of :data:`HIST_VARIANTS` (the C entry point chooses by
+    shape; ``csrc/permuto.cu``)."""
+    n_levels = len(scales)
+    t = max(permuto.normalize_capacities(t_size, n_levels))
+    b = int(torch.Size(coords.shape[:-2]).numel())
+    return HIST_VARIANTS[load_library().lib.ngm_encode_bwd_table_plan(b, n_levels, coords.shape[-1], t)]
 
 
 # -- batched_gather -------------------------------------------------------------
@@ -489,15 +518,24 @@ def table_grad(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> torch
     _features_check(gvals.shape[-2])
     m = idx.shape[-1]
     rows = int(torch.Size(idx.shape[:-1]).numel())
-    grad = torch.zeros(idx.shape[:-1] + (2, table_size), dtype=torch.float32, device=idx.device)
+    shape = idx.shape[:-1] + (2, table_size)
     if rows * m == 0:
-        return grad
+        return torch.zeros(shape, dtype=torch.float32, device=idx.device)
     lib = load_library().lib
+    grad = _hist_output(lib.ngm_table_grad_plan(rows, int(table_size), m), shape, idx.device)
     rc = lib.ngm_table_grad(idx.data_ptr(), gvals.data_ptr(), grad.data_ptr(), rows,
                             int(table_size), m, cuda_build.stream(idx))
     cuda_build.check(rc, "table_grad")
     LAUNCHES["table_grad"] += 1
     return grad
+
+
+def table_grad_variant(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> str:
+    """The design :func:`table_grad` takes for these CUDA tensors, one of
+    :data:`HIST_VARIANTS` (the C entry point chooses by shape;
+    ``csrc/permuto.cu``)."""
+    rows = int(torch.Size(idx.shape[:-1]).numel())
+    return HIST_VARIANTS[load_library().lib.ngm_table_grad_plan(rows, int(table_size), idx.shape[-1])]
 
 
 # -- encode_mlp_fwd / encode_mlp_bwd (the fused training route) ---------------

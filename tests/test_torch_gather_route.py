@@ -58,7 +58,7 @@ def test_gather_pairs_matches_pallas(lead, t, m):
     np.testing.assert_array_equal(to_np(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("lead,t,m", [((2,), 128, 500), ((2, 3), 256, 700)])
+@pytest.mark.parametrize("lead,t,m", [((2,), 128, 500), ((2, 3), 256, 700), ((3,), 256, 1023)])
 def test_table_grad_matches_pallas(lead, t, m):
     """The histogram within 1e-4 (the JAX package's own tolerance for this
     kernel against np.add.at)."""
@@ -71,6 +71,29 @@ def test_table_grad_matches_pallas(lead, t, m):
     got = permuto_cuda.table_grad(torch.from_numpy(idx), torch.from_numpy(gv), t)
     assert got.shape == lead + (2, t)
     assert_close(want, got, atol=1e-4)
+
+
+def test_table_grad_contended_and_zero_rows_match_pallas():
+    """Rows the CUDA kernel treats specially, on one ragged 1,021-pair tile
+    (M % 4 != 0): every pair on one entry, pairs on four entries, all values
+    zero (exact zeros out), one feature zero; against the Pallas kernel in
+    interpret mode within 1e-4 (its own tolerance)."""
+    rng = np.random.default_rng(13)
+    t, m = 256, 1021
+    idx = rng.integers(0, t, (5, m))
+    idx[0] = 77
+    idx[1] = rng.integers(0, 4, m) * 61
+    gv = rng.normal(size=(5, 2, m)).astype(np.float32)
+    gv[2] = 0.0
+    gv[3, 1] = 0.0
+    want = permuto_pallas.table_grad(
+        jnp.asarray(idx, jnp.int32), jnp.asarray(gv), t, interpret=True, mxu_dtype=jnp.float32
+    )
+    got = permuto_cuda.table_grad(torch.from_numpy(idx), torch.from_numpy(gv), t)
+    assert_close(want, got, atol=1e-4)
+    assert float(got[2].abs().max()) == 0.0 and float(got[3, 1].abs().max()) == 0.0
+    assert int(torch.count_nonzero(got[0, 0])) == 1
+    assert float(got[0, 0, 77]) == pytest.approx(float(gv[0, 0].sum()), rel=1e-5)
 
 
 def test_table_grad_zero_gradients():

@@ -280,6 +280,101 @@ def test_table_grad_matches_plain(cuda, lead, t, m):
     assert float(permuto_cuda.table_grad(idx, torch.zeros_like(gv), t).abs().max()) == 0.0
 
 
+# -- the staged histograms (encode_bwd_table, table_grad) -----------------------
+
+
+def _over_stale_nan(dev, shape, call):
+    """call() right after a freed block of ``shape`` f32 was filled with NaN:
+    the wrapper's output, uninitialised where one block writes every entry of
+    its row, takes that block, so an entry the kernel leaves unwritten shows."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stale = torch.full(shape, float("nan"), device=dev)
+    ptr = stale.data_ptr()
+    del stale
+    out = call()
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr
+    return out
+
+
+@pytest.mark.parametrize("b,p,points,variant", [
+    (32, 12288, "uniform", "staged"),  # the training shape
+    (32, 12288, "one coarse cell", "staged"),  # every point within 1e-3: one cell of each coarse level
+    (1, 100_000, "uniform", "staged, split rows"),  # 16 (field, level) rows split over blocks
+    (3, 1000, "zero cotangents", "staged"),
+])
+def test_encode_bwd_table_staged_matches_plain(cuda, b, p, points, variant):
+    """Staged histograms at the production capacities (512, 1024, 4096 x 14):
+    max abs <= 1e-4 * max|plain| (atomics change the summation order), one
+    launch, and every entry past a level's capacity exactly 0 in an output
+    that was not zeroed first."""
+    _, coords, g, consts = _inputs(cuda, b, p, 19)
+    if points == "one coarse cell":
+        coords = 0.37 + coords * (1e-3 / 1.5)
+    if points == "zero cotangents":
+        g = torch.zeros_like(g)
+    assert permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3]) == variant
+    before = permuto_cuda.LAUNCHES["encode_bwd_table"]
+    got = _over_stale_nan(cuda, (b, 2, 16, 4096), lambda: permuto_cuda.encode_bwd_table(coords, g, *consts))
+    assert permuto_cuda.LAUNCHES["encode_bwd_table"] == before + 1
+    want = permuto_cuda.encode_bwd_table_plain(coords, g, *consts, 4096)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for level, cap in enumerate(consts[3]):
+        assert float(got[:, :, level, cap:].abs().sum()) == 0.0
+    if points == "zero cotangents":
+        assert float(got.abs().max()) == 0.0
+
+
+def test_encode_bwd_table_direct_above_the_staged_budget(cuda):
+    """log2_hashmap_size 14: levels of 16,384 entries, a (2, T) histogram of
+    128 KB, above the staged maximum: the direct variant, zeroed output."""
+    enc = PermutohedralEncoding(**dict(PRODUCTION, log2_hashmap_size=14))
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    _, coords, g, _ = _inputs(cuda, 2, 3000, 20)
+    assert permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3]) == "direct"
+    got = permuto_cuda.encode_bwd_table(coords, g, *consts)
+    want = permuto_cuda.encode_bwd_table_plain(coords, g, *consts, enc.capacity)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 2, 16, 16384)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("rows,t,m,offset,pairs,variant", [
+    (512, 4096, 36864, 0, "uniform", "staged"),  # the 2D field set's shape
+    (512, 4096, 36864, 0, "one index", "staged"),  # every pair of a row on one entry
+    (3, 4096, 4099, 0, "uniform", "staged"),  # M % 4 != 0: scalar loads
+    (600, 4096, 4096, 1, "uniform", "staged"),  # inputs off 16-byte alignment: scalar loads
+    (70_000, 16, 7, 0, "uniform", "staged"),  # more rows than gridDim.y holds (rows on grid x)
+    (2, 4096, 100_000, 0, "uniform", "staged, split rows"),  # few rows, many pairs
+    (4, 16384, 1001, 0, "uniform", "direct"),  # T above the staged maximum
+    (5, 4096, 9000, 0, "zero values", "staged"),
+])
+def test_table_grad_variants_match_plain(cuda, rows, t, m, offset, pairs, variant):
+    """max abs <= 1e-4 * max|plain| (atomics), one launch; an output that
+    one block a row writes without a memset has no stale entry; zero values
+    give exact zeros."""
+    gen = torch.Generator(cuda).manual_seed(21)
+    idx = torch.randint(0, t, (offset + rows * m,), generator=gen, device=cuda)[offset:].view(rows, m)
+    gv = torch.randn((offset + rows * 2 * m,), generator=gen, device=cuda)[offset:].view(rows, 2, m)
+    if pairs == "one index":
+        idx = torch.full_like(idx, t // 3)
+    if pairs == "zero values":
+        gv = torch.zeros_like(gv)
+    assert permuto_cuda.table_grad_variant(idx, gv, t) == variant
+    before = permuto_cuda.LAUNCHES["table_grad"]
+    call = lambda: permuto_cuda.table_grad(idx, gv, t)  # noqa: E731
+    got = _over_stale_nan(cuda, (rows, 2, t), call) if variant == "staged" else call()
+    assert permuto_cuda.LAUNCHES["table_grad"] == before + 1
+    want = permuto_cuda.table_grad_plain(idx, gv, t)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    if pairs == "zero values":
+        assert float(got.abs().max()) == 0.0
+
+
 def test_gather_blend_on_card_matches_cpu(cuda):
     """gather_blend's value and table / weight gradients on the card (both
     kernels) against the CPU (plain versions), 3D lattice at production

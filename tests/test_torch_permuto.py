@@ -188,6 +188,54 @@ def test_plain_versions_match_pallas_interpret(caps):
         assert float(got_g[:, :, 0, 128:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("spread", [1e-3, 0.05], ids=["one_coarse_cell", "few_coarse_cells"])
+def test_plain_table_grad_matches_pallas_when_points_share_cells(spread):
+    """Every point of a field within ``spread`` of one spot: on the coarse
+    levels all of them add into the same few entries (the contention the
+    CUDA kernel aggregates within a warp). The plain table gradient against
+    the Pallas kernel in interpret mode, at its tolerance (see above)."""
+    te = PermutohedralEncoding(**SMALL)
+    rng = np.random.default_rng(7)
+    b, p = 2, 1000
+    coords = (0.37 + rng.uniform(0, spread, (b, 3, p))).astype(np.float32)
+    g = rng.normal(size=(b, 8, p)).astype(np.float32)
+    consts = _consts(te)
+    want = permuto_pallas.encode_bwd_table(
+        jnp.asarray(coords), jnp.asarray(g), *consts, interpret=True, mxu_dtype=jnp.float32
+    )
+    got = permuto_cuda.encode_bwd_table(torch.from_numpy(coords), torch.from_numpy(g), *consts)
+    assert_close(want, got, atol=1e-3, rtol=1e-4)
+    # the coarsest level of each field: every point in a handful of entries
+    assert max(int(torch.count_nonzero(got[i, 0, 0])) for i in range(b)) <= 8
+    # barycentric weights sum to 1: each level's gradient sums to its cotangent
+    g_sum = torch.from_numpy(g.reshape(b, 4, 2, p).sum(-1)).transpose(1, 2)
+    torch.testing.assert_close(got.sum(-1), g_sum, rtol=1e-4, atol=1e-3)
+
+
+def test_plain_table_grad_matches_pallas_at_production_capacities(production):
+    """The production capacity tuple (512, 1024, 4096 x 14) on one
+    1024-point tile: the plain table gradient against the Pallas kernel in
+    interpret mode, and exactly zero past each level's capacity. The scales
+    run down to 0.01, the finest the JAX package's own Pallas tests use: at
+    1e-4 the Pallas lattice's multiply by 1/scale picks other corners than
+    the CPU path's division for some points."""
+    _, te = production
+    coarse = PermutohedralEncoding(**dict(PRODUCTION, finest_scale=0.01))
+    rng = np.random.default_rng(8)
+    coords = rng.uniform(-0.25, 1.25, (1, 3, 1024)).astype(np.float32)
+    g = rng.normal(size=(1, 32, 1024)).astype(np.float32)
+    consts = (coarse._scales_t, coarse._shifts_t, coarse._elev_t, te.level_capacities)
+    want = permuto_pallas.encode_bwd_table(
+        jnp.asarray(coords), jnp.asarray(g), *consts, interpret=True, mxu_dtype=jnp.float32
+    )
+    got = permuto_cuda.encode_bwd_table(torch.from_numpy(coords), torch.from_numpy(g), *consts)
+    assert got.shape == (1, 2, 16, 4096)
+    assert_close(want, got, atol=1e-3, rtol=1e-4)
+    for level, cap in enumerate(te.level_capacities):
+        assert float(got[..., level, cap:].abs().sum()) == 0.0
+        assert float(np.abs(np.asarray(want)[..., level, cap:]).sum()) == 0.0
+
+
 def test_encode_fused_returns_zero_coordinate_gradient():
     te = PermutohedralEncoding(**SMALL)
     rng = np.random.default_rng(6)

@@ -11,17 +11,30 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    them; TF32 off.
 2. build: compiles every ``csrc/*.cu`` for sm_90a into
    ``neural_graph_mapping_tpu_torch/_build/`` (one nvcc per source, all
-   started together) and prints the build seconds.
-3. kernels (training): each training kernel against its plain PyTorch
-   version on the card, at the training path's shapes, with the stated
-   tolerance, and timed (see "Kernel times" below). ``encode_bwd_table``'s
-   line names its variant and times it with the cotangent on the two
-   coarsest and on the two finest levels only (``contention``); a
-   ``kernel_variant`` line checks and times
-   its direct variant (log2_hashmap_size 14, T = 16,384). Then the fused pair
-   ``encode_mlp_fwd`` / ``encode_mlp_bwd`` at the same shapes and production
-   widths (D = 32, H = 32, O = 4), beside the unfused route's time for the
-   same work.
+   started together) and prints the build seconds; kernel_resources: each
+   device kernel's registers, stack frame and spill bytes (``-Xptxas -v``)
+   and its local-memory loads and stores (LDL, STL in ``cuobjdump -sass``).
+3. lattice: the kernels' ``lattice_level`` (``ngm_lattice_debug``) against
+   the plain ``lattice_keys_and_weights_soa`` on the card and on the CPU,
+   for uniform points and points built to sit on every level's rounding
+   boundaries (``lattice_boundary_points``): indices exact, weights within
+   1e-6. kernels (training): each training kernel against its plain
+   PyTorch version on the card, at the training path's shapes, with the
+   stated tolerance, and timed (see "Kernel times" below).
+   ``encode_fwd``'s line names its variant (staged); a ``kernel_variant``
+   line checks and times its direct variant (log2_hashmap_size 14,
+   T = 16,384). ``encode_bwd_table``'s line names its variant and times it
+   with the cotangent on the two coarsest and on the two finest levels only
+   (``contention``); a ``kernel_variant`` line checks and times its direct
+   variant at T = 16,384. Then the fused pair ``encode_mlp_fwd`` /
+   ``encode_mlp_bwd`` at the same shapes and production widths (D = 32,
+   H = 32, O = 4), beside the unfused route's time for the same work.
+   ``encode_mlp_bwd``'s line names its variant and the device kernels one
+   call launches (two on the staged design) and has its ``contention``
+   (dL/df on the coarse or the fine levels only, by zeroing w0's other
+   rows; there the cotangent is zeroed at points on a ReLU kink,
+   :func:`off_the_relu_kink`); a ``kernel_variant`` line checks and times
+   its direct variant at T = 16,384.
 4. slice: the port's ``NeuralGraphMap.process_frame`` over 12 frames of the
    synthetic scene (160x120) at the production configuration
    (config/neural_graph_map.yaml + config/synthetic.yaml, written out below);
@@ -30,11 +43,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    iteration at the same width on the card against the same iteration on
    the CPU (plain versions), same weights and draws. kernel_captured:
    ``encode_bwd_table`` at the inputs that iteration gave it, against its
-   plain version and timed (``captured_ms`` in its kernel line).
+   plain version and timed (``captured_ms`` in its kernel line), and the
+   same for ``encode_fwd``.
    slice_fused_mlp: a fresh map with ``fused_mlp: true`` over the same
    frames: only the fused pair trains (once per iteration each), steady ms a
    frame beside the unfused slice's; one iteration against the CPU and
-   against the unfused route on the card.
+   against the unfused route on the card; kernel_captured:
+   ``encode_mlp_bwd`` at the inputs that iteration gave it, against its
+   plain version with the cotangent off the ReLU kink (the error on the
+   inputs as given beside it) and timed (``captured_ms`` in its line).
 5. kernels (render): the three render kernels against their plain versions
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
@@ -102,6 +119,7 @@ import copy
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -210,6 +228,42 @@ CONFIG = {
     "extract_mesh": True,
     "mesh_resolution": 0.04,
 }
+
+
+def lattice_boundary_points(scales, shifts, elev, per_level: int = 128, seed: int = 0, ulps: int = 2):
+    """(3, N) f32 field-local points built to sit on the lattice's rounding
+    boundaries, level by level (numpy; N = 30,720 at the production 16
+    levels): coordinates that are integer and half-integer multiples of a
+    level's scale minus its shift, and points whose elevated coordinates 1-3
+    are 4m + 2, where rounding to the nearest remainder-0 point is a tie;
+    each also moved by 1 and ``ulps`` f32 ulps either way. A corner picked
+    differently at such a point has near-zero weight, which an encode's
+    output cannot show."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scales = np.asarray(scales, np.float64)
+    shifts = np.asarray(shifts, np.float64).reshape(-1, 3)
+    elev = np.asarray(elev, np.float64)[:, None]
+    base = []
+    for s, sh in zip(scales, shifts):
+        sh = sh[:, None]
+        u = rng.uniform(-0.5, 1.5, (3, per_level)) / s + sh  # before elevation
+        base.append((np.round(u) - sh) * s)
+        base.append((np.round(u - 0.5) + 0.5 - sh) * s)
+        cf = u * elev
+        c2 = -(4 * np.round((-3 * cf[2] - 2) / 4) + 2) / 3  # elevated[3] = -3 c2
+        c1 = (c2 - 4 * np.round((c2 - 2 * cf[1] - 2) / 4) - 2) / 2  # elevated[2] = c2 - 2 c1
+        c0 = c1 + c2 - 4 * np.round((c1 + c2 - cf[0] - 2) / 4) - 2  # elevated[1] = c1 + c2 - c0
+        base.append((np.stack([c0, c1, c2]) / elev - sh) * s)
+    pts = np.concatenate(base, axis=1).astype(np.float32)
+    out = [pts]
+    for direction in (np.float32(np.inf), np.float32(-np.inf)):
+        q = pts
+        for _ in range(ulps):
+            q = np.nextafter(q, direction)
+            out.append(q)
+    return np.concatenate(out, axis=1)
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -321,6 +375,79 @@ def bound(n_bytes: float, n_ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def kernel_resources(cuda_build, libs) -> list:
+    """Per device kernel of every built source, read from the binary:
+    registers, stack and local-memory bytes (``cuobjdump -res-usage``),
+    spill bytes where this run compiled the source (``nvcc -Xptxas -v``),
+    and the local-memory loads and stores (LDL, STL) in its SASS
+    (``cuobjdump -sass``)."""
+    cuobjdump = str(pathlib.Path(cuda_build._find_nvcc()).with_name("cuobjdump"))
+    rows = {}
+    for source, lib in libs.items():
+        so = str(cuda_build._target(source))
+        usage = subprocess.run([cuobjdump, "-res-usage", so], capture_output=True, text=True,
+                               check=True, timeout=120).stdout
+        for m in re.finditer(r"Function (\w+):\s*REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", usage):
+            rows.setdefault(m.group(1), {"source": source}).update(
+                registers=int(m.group(2)), stack_bytes=int(m.group(3)), static_shared_bytes=int(m.group(4)),
+                local_bytes=int(m.group(5)))
+        fn = None
+        for line in lib.build_log.splitlines():
+            m = re.search(r"Function properties for (\w+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn in rows:
+                rows[fn].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            fn = part.split(None, 1)[0]
+            rows.setdefault(fn, {"source": source}).update(
+                ldl=len(re.findall(r"\bLDL\b", part)), stl=len(re.findall(r"\bSTL\b", part)))
+    names = list(rows)
+    demangled = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                               check=True, timeout=60).stdout.splitlines()
+    out = []
+    for mangled, name in zip(names, demangled):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        out.append({"kernel": name, **rows[mangled]})
+    return out
+
+
+def check_lattice(torch, permuto_cuda, enc) -> dict:
+    """Phase lattice: the kernels' lattice_level (ngm_lattice_debug) against
+    the plain lattice_keys_and_weights_soa, on the card and on the CPU, for
+    100,000 uniform points and the boundary points of every level:
+    indices exact, weights within 1e-6."""
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.ops import permuto
+
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    rng = np.random.default_rng(31)
+    sets = {"uniform": rng.uniform(-0.5, 1.5, (3, 100_000)).astype(np.float32),
+            "boundary": lattice_boundary_points(*consts[:3])}
+    out = {}
+    for case, pts in sets.items():
+        coords = torch.from_numpy(pts).cuda()
+        idx, w = permuto_cuda.lattice_debug(coords, *consts)
+        s, sh, el = (torch.tensor(v, dtype=torch.float32, device=coords.device) for v in consts[:3])
+        for where, c in (("card", coords), ("cpu", coords.cpu())):
+            s_, sh_, el_ = (v.to(c.device) for v in (s, sh, el))
+            want_idx, want_w = permuto.lattice_keys_and_weights_soa(c.unbind(0), s_, sh_, el_, consts[3])
+            mismatched = int((idx.to(c.device) != want_idx).sum())
+            w_err = max_err(torch, w.to(c.device), want_w)
+            if mismatched or not w_err <= 1e-6:
+                raise AssertionError(f"lattice ({case}, plain on the {where}): {mismatched} corner "
+                                     f"indices differ, weights within {w_err}")
+            out[f"{case}_vs_{where}"] = {"index_mismatches": mismatched, "max_abs_weight_err": w_err}
+        out[f"{case}_points"] = pts.shape[1]
+        out[f"{case}_near_zero_weights"] = int((w.abs() < 1e-6).sum())
+    phase("lattice", levels=len(consts[0]), tolerance="indices exact, weights max abs <= 1e-6", **out)
+    return out
+
+
 def check_kernels(torch, permuto_cuda, enc):
     """Phase 3: every training kernel against its plain version at the
     path's shapes."""
@@ -350,14 +477,11 @@ def check_kernels(torch, permuto_cuda, enc):
         "batched_gather": bound(idx.numel() * (8 + 4 + 4), 0),
     }
     rows = []
-    out = permuto_cuda.encode_fwd(table, coords, *consts)
-    ref = permuto_cuda.encode_fwd_plain(table, coords, *consts)
-    err = (out - ref).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"encode_fwd max abs err {err} > 1e-5")
-    rows.append(("encode_fwd", err, "max abs <= 1e-5",
-                 measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
-                         lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)))
+    err = check_encode_fwd(torch, permuto_cuda, table, coords, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
+                     lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)
+    timing.update(variant=permuto_cuda.encode_fwd_variant(table))
+    rows.append(("encode_fwd", err, "max abs <= 1e-5", timing))
 
     err = check_encode_bwd_table(torch, permuto_cuda, coords, g, consts)
     timing = measure(torch, lambda: permuto_cuda.encode_bwd_table(coords, g, *consts),
@@ -376,8 +500,50 @@ def check_kernels(torch, permuto_cuda, enc):
                          library=lambda: torch.gather(values, 1, idx))))
     shapes = {"encode_fwd": [b, p], "encode_bwd_table": [b, p], "batched_gather": [slots, hw, m]}
     kernel_rows = report_rows(rows, shapes, bounds)
+    check_encode_fwd_direct(torch, permuto_cuda, enc, coords, gen)
     check_encode_bwd_table_direct(torch, permuto_cuda, enc, coords, g)
     return kernel_rows
+
+
+def check_encode_fwd(torch, permuto_cuda, table, coords, consts) -> float:
+    """encode_fwd against its plain version -> max abs error; raises above
+    1e-5."""
+    out = permuto_cuda.encode_fwd(table, coords, *consts)
+    err = max_err(torch, out, permuto_cuda.encode_fwd_plain(table, coords, *consts))
+    if not err <= 1e-5:
+        raise AssertionError(f"encode_fwd max abs err {err} > 1e-5")
+    return err
+
+
+def big_table_consts(enc):
+    """The encoding with log2_hashmap_size 14 (levels of up to 16,384
+    entries, a 128 KB (2, T) row pair, above the staged maximum) -> (that
+    encoding, its lattice constants)."""
+    kwargs = dict(CONFIG["model_kwargs"]["field_kwargs"]["encoding_kwargs"], log2_hashmap_size=14)
+    big = type(enc)(**kwargs)
+    return big, (big._scales_t, big._shifts_t, big._elev_t, big.level_capacities)
+
+
+def check_encode_fwd_direct(torch, permuto_cuda, enc, coords, gen) -> None:
+    """Phase kernel_variant: encode_fwd's direct variant (4 levels a thread,
+    corners read through L2) at the training shape with log2_hashmap_size
+    14, whose level rows are above the staged maximum."""
+    big, consts = big_table_consts(enc)
+    table = torch.rand((coords.shape[0], 2, big.nr_levels, big.capacity), generator=gen,
+                       device=coords.device) * 2 - 1
+    variant = permuto_cuda.encode_fwd_variant(table)
+    if variant != "direct":
+        raise AssertionError(f"encode_fwd took the {variant} variant at T = {big.capacity}")
+    err = check_encode_fwd(torch, permuto_cuda, table, coords, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
+                     lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)
+    n_bytes = (table.numel() + coords.numel() + coords.shape[0] * 2 * big.nr_levels * coords.shape[-1]) * 4
+    bound_ms, bound_by = bound(n_bytes, coords.shape[0] * coords.shape[-1] * big.nr_levels * LATTICE_OPS)
+    phase("kernel_variant", name="encode_fwd", variant=variant,
+          case=f"level rows above the staged maximum (log2_hashmap_size 14, T = {big.capacity})",
+          tolerance="max abs <= 1e-5", max_abs_err=err,
+          shape={"fields": coords.shape[0], "points": coords.shape[-1], "table": big.capacity},
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def encode_bwd_table_bound(coords, g, n_levels: int, t: int):
@@ -394,9 +560,7 @@ def check_encode_bwd_table_direct(torch, permuto_cuda, enc, coords, g) -> None:
     value added into device memory with a global atomic: the first design)
     at the training shape with log2_hashmap_size 14, levels of up to 16,384
     entries, whose 128 KB (2, T) histogram is above the staged maximum."""
-    kwargs = dict(CONFIG["model_kwargs"]["field_kwargs"]["encoding_kwargs"], log2_hashmap_size=14)
-    big = type(enc)(**kwargs)
-    consts = (big._scales_t, big._shifts_t, big._elev_t, big.level_capacities)
+    big, consts = big_table_consts(enc)
     variant = permuto_cuda.encode_bwd_table_variant(coords, consts[0], consts[3])
     if variant != "direct":
         raise AssertionError(f"encode_bwd_table took the {variant} variant at T = {big.capacity}")
@@ -492,16 +656,17 @@ def check_fused_kernels(torch, permuto_cuda, enc):
                      plain_window=True))]
 
     bwd_args = (coords, feats, g, w0, b0, w1, *consts)
-    got = permuto_cuda.encode_mlp_bwd(*bwd_args)
-    want = permuto_cuda.encode_mlp_bwd_plain(*bwd_args)
-    errs = [max_err(torch, a, w, relative=True) for a, w in zip(got, want)]
-    if not (errs[0] <= 1e-4 and max(errs[1:]) <= 1e-4):
-        raise AssertionError(f"encode_mlp_bwd relative errors {errs} > 1e-4")
-    rows.append(("encode_mlp_bwd", max_err(torch, got[0], want[0]),
+    err, w_err = check_encode_mlp_bwd(torch, permuto_cuda, bwd_args)
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_bwd(*bwd_args),
+                     lambda: permuto_cuda.encode_mlp_bwd_plain(*bwd_args), plain_window=True)
+    variant = permuto_cuda.encode_mlp_bwd_variant(coords, consts[0], consts[3])
+    timing.update(variant=variant,
+                  device_kernels=list(MLP_BWD_DEVICE_KERNELS["direct" if variant == "direct" else "staged"]),
+                  contention=mlp_bwd_contention(torch, permuto_cuda, bwd_args))
+    rows.append(("encode_mlp_bwd", err,
                  "table gradient max abs <= 1e-4 * max|plain| (atomics); weight gradients "
-                 f"<= 1e-4 relative (got {max(errs[1:]):.2e})",
-                 measure(torch, lambda: permuto_cuda.encode_mlp_bwd(*bwd_args),
-                         lambda: permuto_cuda.encode_mlp_bwd_plain(*bwd_args), plain_window=True)))
+                 f"<= 1e-4 relative (got {w_err:.2e})", timing))
+    check_encode_mlp_bwd_direct(torch, permuto_cuda, enc, bwd_args)
 
     # the unfused route on the same inputs: encode_fwd + the bmm MLP, and
     # the MLP's autograd (from a kept graph, as training has) + encode_bwd_table
@@ -525,12 +690,107 @@ def check_fused_kernels(torch, permuto_cuda, enc):
     table_bytes = table.numel() * f32
     bounds = {
         "encode_mlp_fwd": bound(table_bytes + weight_bytes + stream, b * p * (n_levels * LATTICE_OPS + mlp_ops)),
-        # recomputed pre-activations, dh, dw1, dw0, dL/df; the lattice and its scatter
-        "encode_mlp_bwd": bound(table_bytes + weight_bytes + stream,
-                                b * p * (n_levels * (LATTICE_OPS + 16) + 6 * d * h + 4 * h * o)),
+        "encode_mlp_bwd": mlp_bwd_bound(bwd_args, t),
     }
     shapes = {name: {"fields": b, "points": p, "D": d, "H": h, "O": o} for name in bounds}
     return report_rows(rows, shapes, bounds, unfused)
+
+
+MLP_BWD_TOLERANCE = "table gradient max abs <= 1e-4 * max|plain|; weight gradients <= 1e-4 relative"
+# The device kernels one encode_mlp_bwd call launches, by design.
+MLP_BWD_DEVICE_KERNELS = {
+    "staged": ("mlp_bwd_kernel", "encode_bwd_table_staged_kernel"),
+    "direct": ("encode_mlp_bwd_kernel",),
+}
+
+
+def off_the_relu_kink(torch, args, margin: float = 1e-5):
+    """encode_mlp_bwd's arguments with the head cotangent zeroed at every
+    point one of whose pre-activations lies within ``margin`` of 0 (relative
+    to the field's largest, computed in f64) -> (args, such points). The
+    kernels sum a pre-activation in another order than the plain version's
+    matrix product, so at such a point the two may disagree on the ReLU
+    mask, and the point's whole dL/df with it (an O(|w0| |dh|) difference,
+    where atomics give O(1e-7)); with no cotangent the mask changes nothing."""
+    coords, feats, g, w0, b0 = args[:5]
+    a = torch.matmul(w0.double().transpose(-1, -2), feats.double()) + b0.double()[..., None]
+    scale = a.abs().amax(dim=(-2, -1), keepdim=True)
+    near = (a.abs() <= margin * scale).any(dim=-2)  # (..., P)
+    g = torch.where(near[..., None, :], torch.zeros_like(g), g)
+    return (coords, feats, g, *args[3:]), int(near.sum())
+
+
+def check_encode_mlp_bwd(torch, permuto_cuda, args):
+    """encode_mlp_bwd against its plain version -> (table gradient max abs
+    error, worst weight-gradient error relative to its largest entry);
+    raises above 1e-4 x max|plain| and 1e-4 relative."""
+    got = permuto_cuda.encode_mlp_bwd(*args)
+    want = permuto_cuda.encode_mlp_bwd_plain(*args)
+    errs = [max_err(torch, a, w, relative=True) for a, w in zip(got, want)]
+    if not (errs[0] <= 1e-4 and max(errs[1:]) <= 1e-4):
+        raise AssertionError(f"encode_mlp_bwd relative errors {errs} > 1e-4")
+    return max_err(torch, got[0], want[0]), max(errs[1:])
+
+
+def mlp_bwd_contention(torch, permuto_cuda, args) -> dict:
+    """Device ms of encode_mlp_bwd with dL/df kept on the two coarsest levels
+    only (the rows of w0 of every other level zeroed; 512 and 1,024 entries:
+    many points a cell) and on the two finest only (4,096: few), each
+    checked against the plain version first, with no cotangent at points on
+    a ReLU kink (:func:`off_the_relu_kink`; with dL/df on two levels, one
+    point whose mask differs exceeds 1e-4 x max|plain|)."""
+    coords, feats, g, w0, *rest = args
+    n_levels = w0.shape[-2] // 2
+    level = torch.arange(2 * n_levels, device=w0.device)[:, None] // 2
+    cases = {"coarse_only": w0 * (level < 2), "fine_only": w0 * (level >= n_levels - 2)}
+    out = {}
+    for case, wc in cases.items():
+        case_args, kink_points = off_the_relu_kink(torch, (coords, feats, g, wc, *rest))
+        check_encode_mlp_bwd(torch, permuto_cuda, case_args)
+        out[f"{case}_ms"] = time_ms(torch, lambda: permuto_cuda.encode_mlp_bwd(*case_args))[0]
+        out[f"{case}_kink_points"] = kink_points
+    return out
+
+
+def check_encode_mlp_bwd_direct(torch, permuto_cuda, enc, args) -> None:
+    """Phase kernel_variant: encode_mlp_bwd's direct variant (one kernel,
+    global atomics: the first design) at the training shape with
+    log2_hashmap_size 14, levels of up to 16,384 entries, whose (2, T)
+    histogram is above the staged maximum."""
+    big, consts = big_table_consts(enc)
+    big_args = tuple(args[:6]) + consts
+    coords = args[0]
+    variant = permuto_cuda.encode_mlp_bwd_variant(coords, consts[0], consts[3])
+    if variant != "direct":
+        raise AssertionError(f"encode_mlp_bwd took the {variant} variant at T = {big.capacity}")
+    err, w_err = check_encode_mlp_bwd(torch, permuto_cuda, big_args)
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_bwd(*big_args),
+                     lambda: permuto_cuda.encode_mlp_bwd_plain(*big_args), plain_window=True)
+    bound_ms, bound_by = mlp_bwd_bound(args, big.capacity)
+    phase("kernel_variant", name="encode_mlp_bwd", variant=variant,
+          device_kernels=list(MLP_BWD_DEVICE_KERNELS["direct"]),
+          case=f"histogram above the staged maximum (log2_hashmap_size 14, T = {big.capacity})",
+          tolerance=MLP_BWD_TOLERANCE,
+          max_abs_err=err, weight_rel_err=w_err,
+          shape={"fields": coords.shape[0], "points": coords.shape[-1], "table": big.capacity},
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def mlp_bwd_bound(args, t: int):
+    """(least ms, what bounds it) of encode_mlp_bwd: coordinates, residual,
+    head cotangent and weights in, the (B, 2, L, T) table gradient and the
+    weight gradients out; the recomputed pre-activations, dh, dw1, dw0, dL/df
+    and the lattice and its adds a point and level."""
+    coords, feats, g, w0 = args[:4]
+    b, p = coords.shape[0], coords.shape[-1]
+    d, h = w0.shape[-2:]
+    o = g.shape[-2]
+    n_levels = d // 2
+    weight_bytes = (d * h + h + h * o + o) * b * 4
+    stream = b * p * (3 + d + o) * 4
+    table_bytes = b * 2 * n_levels * t * 4
+    return bound(table_bytes + 2 * weight_bytes + stream,
+                 b * p * (n_levels * (LATTICE_OPS + 16) + 6 * d * h + 4 * h * o))
 
 
 def to_cpu(x):
@@ -626,6 +886,51 @@ def check_captured_encode_bwd_table(torch, permuto_cuda, args) -> dict:
     phase("kernel_captured", name="encode_bwd_table", variant=variant,
           shape={"fields": coords.shape[0], "points": coords.shape[-1]},
           nonzero_cotangent_share=live, tolerance="max abs <= 1e-4 * max|plain|", max_abs_err=err,
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
+    return {"captured_ms": timing["ms"], "captured_max_abs_err": err, "captured_bound_ms": bound_ms}
+
+
+def check_captured_encode_fwd(torch, permuto_cuda, args) -> dict:
+    """Phase kernel_captured: encode_fwd at the inputs one training
+    iteration of the 12-frame map gave it (samples that cluster on rays and
+    surfaces, so neighbouring points share corners) against its plain
+    version, timed -> the fields it adds to the kernel row."""
+    table, coords, *consts = args
+    consts = tuple(consts)
+    err = check_encode_fwd(torch, permuto_cuda, table, coords, consts)
+    timing = measure(torch, lambda: permuto_cuda.encode_fwd(table, coords, *consts),
+                     lambda: permuto_cuda.encode_fwd_plain(table, coords, *consts), plain_window=True)
+    n_levels = table.shape[-2]
+    n_bytes = (table.numel() + coords.numel() + coords.shape[0] * 2 * n_levels * coords.shape[-1]) * 4
+    bound_ms, bound_by = bound(n_bytes, coords.shape[0] * coords.shape[-1] * n_levels * LATTICE_OPS)
+    phase("kernel_captured", name="encode_fwd", variant=permuto_cuda.encode_fwd_variant(table),
+          shape={"fields": coords.shape[0], "points": coords.shape[-1]},
+          tolerance="max abs <= 1e-5", max_abs_err=err, **timing, bound_ms=bound_ms, bound_by=bound_by)
+    return {"captured_ms": timing["ms"], "captured_max_abs_err": err, "captured_bound_ms": bound_ms}
+
+
+def check_captured_encode_mlp_bwd(torch, permuto_cuda, call) -> dict:
+    """Phase kernel_captured: encode_mlp_bwd at the inputs one fused
+    training iteration of the 12-frame map gave it, against its plain
+    version and timed -> the fields it adds to the kernel row. These inputs
+    change from run to run, so the check takes the cotangent off the ReLU
+    kink (:func:`off_the_relu_kink`): at a point on it the kernel and the
+    plain matrix product may pick different masks, which moved a table
+    gradient entry by 2.6e-3 against a 6.7e-4 limit in a card test. The
+    error on the inputs as they were is reported beside it."""
+    args = tuple(call[0])
+    coords, consts = args[0], args[6:]
+    kink_free, kink_points = off_the_relu_kink(torch, args)
+    err, w_err = check_encode_mlp_bwd(torch, permuto_cuda, kink_free)
+    as_given = max_err(torch, permuto_cuda.encode_mlp_bwd(*args)[0], permuto_cuda.encode_mlp_bwd_plain(*args)[0])
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_bwd(*args),
+                     lambda: permuto_cuda.encode_mlp_bwd_plain(*args), plain_window=True)
+    bound_ms, bound_by = mlp_bwd_bound(args, max(consts[3]))
+    phase("kernel_captured", name="encode_mlp_bwd",
+          variant=permuto_cuda.encode_mlp_bwd_variant(coords, consts[0], consts[3]),
+          shape={"fields": coords.shape[0], "points": coords.shape[-1]},
+          tolerance=MLP_BWD_TOLERANCE + " (no cotangent at points on a ReLU kink)", kink_points=kink_points,
+          max_abs_err=err, weight_rel_err=w_err, max_abs_err_as_given=as_given,
           **timing, bound_ms=bound_ms, bound_by=bound_by)
     return {"captured_ms": timing["ms"], "captured_max_abs_err": err, "captured_bound_ms": bound_ms}
 
@@ -978,7 +1283,8 @@ def check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi):
     never the unfused encodes; steady ms a frame beside the unfused slice's
     (``unfused``: its median and mean); then one production-width iteration
     against the CPU and against the unfused route on the card -> (launches,
-    steady mean ms a frame)."""
+    steady mean ms a frame, the (args, kwargs) of that iteration's
+    encode_mlp_bwd call on the card)."""
     ngm = engine.NeuralGraphMap(dict(CONFIG, fused_mlp=True), device="cuda")
     torch.cuda.synchronize()
     permuto_cuda.reset_launch_counts()
@@ -997,10 +1303,13 @@ def check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi):
         unfused_steady_ms_per_frame_median=unfused[0], unfused_steady_ms_per_frame_mean=unfused[1],
         last_losses=all_losses[-1], card=smi,
     )
-    worst_cpu, worst_unfused, losses = check_iteration_against_cpu(torch, engine, ngm, against_unfused=True)
+    results = []
+    calls = capture_calls(permuto_cuda, ("encode_mlp_bwd",), lambda: results.append(
+        check_iteration_against_cpu(torch, engine, ngm, against_unfused=True)))
+    worst_cpu, worst_unfused, losses = results[0]
     phase("fused_iteration_vs_cpu", max_rel_diff_cpu=worst_cpu, max_rel_diff_unfused_card=worst_unfused,
           tolerance="rel <= 1e-3", losses=losses)
-    return {k: launches[k] for k in names[:2]}, statistics.mean(steady) * 1e3
+    return {k: launches[k] for k in names[:2]}, statistics.mean(steady) * 1e3, calls["encode_mlp_bwd"]
 
 
 def ab_training_routes(torch, engine, ds, frames, rounds: int, smi) -> None:
@@ -1285,14 +1594,13 @@ def main() -> None:
     libs = cuda_build.load_all()
     permuto_cuda.load_library()
     topk.load_library()
-    phase("build", seconds=max(lib.build_seconds for lib in libs.values()),
-          sources=sorted(libs),
-          ptxas=[line.strip() for lib in libs.values() for line in lib.build_log.splitlines()
-                 if "registers" in line or "Compiling entry" in line])
+    phase("build", seconds=max(lib.build_seconds for lib in libs.values()), sources=sorted(libs))
+    phase("kernel_resources", kernels=kernel_resources(cuda_build, libs))
 
     # -- 3. kernels vs plain ------------------------------------------------
     enc_kwargs = CONFIG["model_kwargs"]["field_kwargs"]["encoding_kwargs"]
     enc = PermutohedralEncoding(**enc_kwargs)
+    check_lattice(torch, permuto_cuda, enc)
     kernel_rows = check_kernels(torch, permuto_cuda, enc)
     kernel_rows.update(check_fused_kernels(torch, permuto_cuda, enc))
 
@@ -1330,16 +1638,19 @@ def main() -> None:
         last_losses=all_losses[-1], card=smi,
     )
     results = []
-    calls = capture_calls(permuto_cuda, ("encode_bwd_table",),
+    calls = capture_calls(permuto_cuda, ("encode_fwd", "encode_bwd_table"),
                           lambda: results.append(check_iteration_against_cpu(torch, engine, ngm)))
     worst, losses = results[0]
     phase("iteration_vs_cpu", max_rel_diff=worst, tolerance="rel <= 1e-3", losses=losses)
     kernel_rows["encode_bwd_table"].update(
         check_captured_encode_bwd_table(torch, permuto_cuda, calls["encode_bwd_table"][0]))
+    kernel_rows["encode_fwd"].update(check_captured_encode_fwd(torch, permuto_cuda, calls["encode_fwd"][0]))
     if args.profile is not None:
         profile_slice(torch, engine, ds, frames, statistics.mean(steady) * 1e3, args.profile)
     unfused = (statistics.median(steady) * 1e3, statistics.mean(steady) * 1e3)
-    fused_launches, fused_mean_ms = check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi)
+    fused_launches, fused_mean_ms, captured = check_fused_slice(torch, engine, permuto_cuda, ds, frames,
+                                                                unfused, smi)
+    kernel_rows["encode_mlp_bwd"].update(check_captured_encode_mlp_bwd(torch, permuto_cuda, captured))
     launches.update(fused_launches)
     if args.profile is not None:
         profile_slice(torch, engine, ds, frames, fused_mean_ms, args.profile.with_name(args.profile.name + ".fused"),

@@ -31,6 +31,10 @@ constexpr int kCorners = kDim + 1;  // simplex corners per level
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;  // the card's limit on gridDim.y
 
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
 // Per-level lattice constants. Passed by value as a kernel parameter: the
 // card keeps kernel parameters in its constant bank (__constant__ memory),
 // so every warp reads them as a broadcast, and no copy precedes a launch.
@@ -51,6 +55,13 @@ __device__ __constant__ uint32_t kHashPrimes[kDim] = {1u, 2654435761u, 805459861
 // hyperplane, round to the nearest remainder-0 point (rintf: half to even,
 // like torch.round and jnp.round), rank the residuals, fix points rounded
 // off the hyperplane, then weights and corner hashes.
+//
+// Every array here is indexed by compile-time constants once the loops are
+// unrolled, so all of it lives in registers. The barycentric sums take
+// selects, bary[b] = (bary[b] + (hit ? v : 0)) - (hit' ? v : 0), which is
+// the plain version's torch.where form and rounds the same (adding an exact
+// zero changes nothing). The first design's bary[d - rank[i]] += v, an
+// array indexed by a runtime rank, put bary in local memory (PERF.md §6).
 __device__ __forceinline__ void lattice_level(
     float x, float y, float z, const LevelConsts& c, int l,
     uint32_t idx[kCorners], float w[kCorners]) {
@@ -61,9 +72,11 @@ __device__ __forceinline__ void lattice_level(
   };
   float suffix[kDim + 1];
   suffix[kDim] = 0.0f;
+#pragma unroll
   for (int i = kDim - 1; i >= 0; --i) suffix[i] = suffix[i + 1] + cf[i];
   float elevated[kCorners];
   elevated[0] = suffix[0];
+#pragma unroll
   for (int i = 1; i <= kDim; ++i) elevated[i] = suffix[i] - (float)i * cf[i - 1];
 
   const float down = 1.0f / (float)(kDim + 1);
@@ -71,13 +84,16 @@ __device__ __forceinline__ void lattice_level(
   float diff[kCorners];
   int rank[kCorners];
   float rem_sum = 0.0f;
+#pragma unroll
   for (int i = 0; i < kCorners; ++i) {
     rem0[i] = rintf(elevated[i] * down) * (float)(kDim + 1);
     diff[i] = elevated[i] - rem0[i];
     rank[i] = 0;
     rem_sum = rem_sum + rem0[i];
   }
+#pragma unroll
   for (int i = 0; i < kCorners; ++i) {
+#pragma unroll
     for (int j = i + 1; j < kCorners; ++j) {
       if (diff[i] < diff[j]) {
         rank[i] += 1;
@@ -87,6 +103,7 @@ __device__ __forceinline__ void lattice_level(
     }
   }
   const int s = (int)rintf(rem_sum * down);
+#pragma unroll
   for (int i = 0; i < kCorners; ++i) {
     const int r = rank[i] + s;
     if (r < 0) {
@@ -101,15 +118,20 @@ __device__ __forceinline__ void lattice_level(
   }
 
   float bary[kDim + 2] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
   for (int i = 0; i < kCorners; ++i) {
     const float v = (elevated[i] - rem0[i]) * down;
-    bary[kDim - rank[i]] = bary[kDim - rank[i]] + v;
-    bary[kDim + 1 - rank[i]] = bary[kDim + 1 - rank[i]] - v;
+#pragma unroll
+    for (int b = 0; b < kDim + 2; ++b) {
+      bary[b] = (bary[b] + (kDim - rank[i] == b ? v : 0.0f)) - (kDim + 1 - rank[i] == b ? v : 0.0f);
+    }
   }
   bary[0] = (bary[0] + 1.0f) + bary[kDim + 1];
 
+#pragma unroll
   for (int k = 0; k < kCorners; ++k) {
     uint32_t h = 0u;
+#pragma unroll
     for (int i = 0; i < kDim; ++i) {
       const int offset = rank[i] < (kDim + 1 - k) ? k : k - (kDim + 1);
       const int key = (int)rem0[i] + offset;
@@ -120,57 +142,166 @@ __device__ __forceinline__ void lattice_level(
   }
 }
 
-// All levels of one point from one field's feature-major (2, L, T) table:
-// o[(2l + f) * stride + p] = sum_k w_k * tab[f, l, idx_k].
+// One level of one point from one field's feature-major (2, L, T) table,
+// read through L2: o[(2l + f) * stride + p] = sum_k w_k * tab[f, l, idx_k].
+__device__ __forceinline__ void encode_level(const float* __restrict__ tab, int T, int L, int l,
+                                             float x, float y, float z, const LevelConsts& c,
+                                             float* __restrict__ o, size_t stride, int p) {
+  uint32_t idx[kCorners];
+  float w[kCorners];
+  lattice_level(x, y, z, c, l, idx, w);
+  const float* t0 = tab + (size_t)l * T;
+  const float* t1 = tab + (size_t)(L + l) * T;
+  float acc0 = 0.0f;
+  float acc1 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kCorners; ++k) {
+    acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
+    acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
+  }
+  o[(size_t)(2 * l) * stride + p] = acc0;
+  o[(size_t)(2 * l + 1) * stride + p] = acc1;
+}
+
+// All levels of one point (the MoE encodes).
 __device__ __forceinline__ void encode_point(const float* __restrict__ tab, int T,
                                              float x, float y, float z,
                                              const LevelConsts& c,
                                              float* __restrict__ o,
                                              size_t stride, int p) {
   const int L = c.n_levels;
-  for (int l = 0; l < L; ++l) {
-    uint32_t idx[kCorners];
-    float w[kCorners];
-    lattice_level(x, y, z, c, l, idx, w);
-    const float* t0 = tab + (size_t)l * T;
-    const float* t1 = tab + (size_t)(L + l) * T;
-    float acc0 = 0.0f;
-    float acc1 = 0.0f;
-    for (int k = 0; k < kCorners; ++k) {
-      acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
-      acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
-    }
-    o[(size_t)(2 * l) * stride + p] = acc0;
-    o[(size_t)(2 * l + 1) * stride + p] = acc1;
-  }
+  for (int l = 0; l < L; ++l) encode_level(tab, T, L, l, x, y, z, c, o, stride, p);
 }
 
 // Replaces permuto_pallas.encode_fwd (_encode_fwd_kernel): the fused
 // permutohedral encode, out[b, 2l+f, p] = sum_k w_k * table[b, f, l, idx_k].
 //
-// Bound: random 8-byte gathers. At the training shape (32 fields x 12,288
-// points x 16 levels x 4 corners x 2 features, ~50 M gathers per call) the
-// kernel is latency-bound on L2 hits: the 32 training tables are 16 MiB and
-// stay resident in the 50 MB L2, and the coordinates and the output stream
-// once, coalesced. Design: one thread per (field, point), all levels in
-// registers, no shared memory; consecutive threads take consecutive points
-// so every coordinate load and every output store is one coalesced
-// transaction per warp. The TPU's 128-lane chunk sweep and bf16 pair
-// packing existed to emulate a gather the TPU lacks and are not carried over.
+// Bound: bytes, the 16 MiB of training tables, the coordinates and the
+// features out once (0.021 ms at 3.35 TB/s at the training shape, 32 fields
+// x 12,288 points x 16 levels). What limited the first design (one thread a
+// (field, point) walking all 16 levels) was, measured by A/B on an H100,
+// first the lattice's bary array, which a runtime index put in local
+// memory (24 bytes of stack, 12 LDL and 12 STL a level): 2.2-2.8x a
+// design's time; then its ~50 M random 4-byte table reads a call through
+// L2, each a 32-byte sector (two a corner, whose two features lie L x T
+// floats apart): ~1.4x. Design, as the TPU kernel holds a field's table in
+// VMEM: encode_fwd_staged_kernel gives a block one (field, level) and a
+// chunk of points (grid x = field * L + level, y = chunks by hist_chunks,
+// as encode_bwd_table_staged_kernel) and copies that level's two feature
+// rows, (2, cap_l) f32, 4-32 KB, into shared memory with coalesced 16-byte
+// loads; every corner is then read from shared memory. Each thread takes
+// every blockDim-th point: coordinates coalesced from (B, 3, P) (read once
+// a level, from L2, where the 4.7 MB stay), the next point's loads issued
+// before this point's work, lattice_level for the block's level, and one
+// coalesced store a feature. Tables whose (2, T) rows exceed
+// kMaxStagedBytes (T > 12,288) take the direct variant, encode_fwd_kernel:
+// one thread a (field, point, group of kFwdDirectLevels levels), grid
+// (points, level groups, fields), corners read through L2; 4 levels a
+// thread was the fastest of 1, 2, 4 and 16 in an A/B on an H100 (PERF.md §6).
+// The TPU's 128-lane chunk sweep and bf16 pair packing existed to emulate a
+// gather the TPU lacks and are not carried over.
+constexpr int kFwdThreads = 512;  // 16 warps a (field, level) block
+constexpr int kFwdDirectLevels = 4;
+
+__global__ void __launch_bounds__(kFwdThreads) encode_fwd_staged_kernel(
+    const float* __restrict__ table, const float* __restrict__ coords,
+    float* __restrict__ out, int P, int T, int chunk,
+    __grid_constant__ const LevelConsts c) {
+  extern __shared__ __align__(16) float stab[];  // (2, cap_l)
+  const int L = c.n_levels;
+  const int b = blockIdx.x / L;
+  const int l = blockIdx.x - b * L;
+  const int cap = (int)c.mask[l] + 1;
+  const float* t0 = table + ((size_t)b * 2 * L + l) * T;  // table[b, 0, l, :]
+  const float* t1 = t0 + (size_t)L * T;                   // table[b, 1, l, :]
+  if (cap % 4 == 0 && aligned16(t0) && aligned16(t1)) {
+    for (int i = 4 * threadIdx.x; i < cap; i += 4 * blockDim.x) {
+      *reinterpret_cast<float4*>(stab + i) = __ldg(reinterpret_cast<const float4*>(t0 + i));
+      *reinterpret_cast<float4*>(stab + cap + i) = __ldg(reinterpret_cast<const float4*>(t1 + i));
+    }
+  } else {
+    for (int i = threadIdx.x; i < cap; i += blockDim.x) {
+      stab[i] = __ldg(t0 + i);
+      stab[cap + i] = __ldg(t1 + i);
+    }
+  }
+  const int begin = blockIdx.y * chunk;
+  const int end = min(P, begin + chunk);
+  const float* xyz = coords + (size_t)b * kDim * P;
+  float* o0 = out + ((size_t)b * 2 * L + 2 * l) * P;
+  float* o1 = o0 + P;
+  int p = begin + threadIdx.x;
+  float x = 0.0f, y = 0.0f, z = 0.0f;
+  if (p < end) {  // while the table is copied
+    x = xyz[p];
+    y = xyz[P + p];
+    z = xyz[2 * (size_t)P + p];
+  }
+  __syncthreads();
+  for (; p < end; p += blockDim.x) {
+    const int pn = p + blockDim.x;
+    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    if (pn < end) {
+      nx = xyz[pn];
+      ny = xyz[P + pn];
+      nz = xyz[2 * (size_t)P + pn];
+    }
+    uint32_t idx[kCorners];
+    float w[kCorners];
+    lattice_level(x, y, z, c, l, idx, w);
+    float acc0 = 0.0f;
+    float acc1 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kCorners; ++k) {
+      acc0 = acc0 + w[k] * stab[idx[k]];
+      acc1 = acc1 + w[k] * stab[cap + idx[k]];
+    }
+    o0[p] = acc0;
+    o1[p] = acc1;
+    x = nx;
+    y = ny;
+    z = nz;
+  }
+}
+
 __global__ void encode_fwd_kernel(const float* __restrict__ table,
                                   const float* __restrict__ coords,
                                   float* __restrict__ out, int P, int T,
                                   __grid_constant__ const LevelConsts c) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
+  const int l0 = blockIdx.y * kFwdDirectLevels;
+  const int b = blockIdx.z;
   if (p >= P) return;
   const size_t cbase = (size_t)b * kDim * P;
   const float x = coords[cbase + p];
   const float y = coords[cbase + P + p];
   const float z = coords[cbase + 2 * (size_t)P + p];
   const int L = c.n_levels;
-  encode_point(table + (size_t)b * 2 * L * T, T, x, y, z, c,
-               out + (size_t)b * 2 * L * P, P, p);
+  const float* tab = table + (size_t)b * 2 * L * T;
+  float* o = out + (size_t)b * 2 * L * P;
+#pragma unroll
+  for (int i = 0; i < kFwdDirectLevels; ++i) {
+    if (l0 + i < L) encode_level(tab, T, L, l0 + i, x, y, z, c, o, P, p);
+  }
+}
+
+// Writes lattice_level's corners for N points x L levels: idx and w
+// (L, kCorners, N), the layout of lattice_keys_and_weights_soa, so a test
+// can hold the kernels' lattice against the plain version bit for bit.
+__global__ void lattice_debug_kernel(const float* __restrict__ coords, int32_t* __restrict__ idx,
+                                     float* __restrict__ w, int N,
+                                     __grid_constant__ const LevelConsts c) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  if (n >= N) return;
+  uint32_t ii[kCorners];
+  float ww[kCorners];
+  lattice_level(coords[n], coords[N + n], coords[2 * (size_t)N + n], c, l, ii, ww);
+#pragma unroll
+  for (int k = 0; k < kCorners; ++k) {
+    idx[((size_t)l * kCorners + k) * N + n] = (int32_t)ii[k];
+    w[((size_t)l * kCorners + k) * N + n] = ww[k];
+  }
 }
 
 // -- shared-memory histograms (encode_bwd_table, table_grad) -----------------
@@ -187,6 +318,7 @@ constexpr uint32_t kNoKey = 0xffffffffu;  // a lane with nothing to add
 // Histograms of up to 12,288 entries a row ((2, T) f32 up to 96 KB) are
 // staged in shared memory; larger ones take the direct variants.
 constexpr int kMaxStagedBytes = 96 * 1024;
+bool staged_fits(int T) { return T >= 1 && 8LL * T <= kMaxStagedBytes; }
 // Least pairs (gather_pairs, table_grad) or points (encode_bwd_table) a
 // staged block serves: below them, staging the table or zeroing and
 // flushing the histogram costs more than the block's own work.
@@ -194,10 +326,6 @@ constexpr int kStagedPairs = 8192;
 constexpr int kStagedPoints = 4096;
 constexpr int kFillBlocksPerSm = 4;  // 4 x 8 warps: enough to stream at full rate
 int g_sm_count = 132;                // the card's SMs, read by ngm_permuto_init
-
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
 
 // Blocks along a histogram row: one while the rows alone give every SM
 // kFillBlocksPerSm blocks, else as many as reach that, each summing at
@@ -302,10 +430,13 @@ __device__ __forceinline__ void add_hist_row(float* row, const float* h, int n) 
 // level's whole point range writes grad[b, f, l, 0:T) with plain stores,
 // the histogram up to cap_l and zeros past it, so the output needs no
 // memset; blocks of a split range add their nonzero entries into a zeroed
-// output. With the histogram on chip, what bounds the kernel is the lattice
-// arithmetic it shares with encode_fwd_kernel (both take about the same
-// time on an H100). The TPU's one-hot(idx>>6) x one-hot(idx&63) matmuls
-// built the same histogram on the MXU and are not carried over.
+// output. With the histogram on chip, its adds (a compare-and-swap loop
+// each, hist_add) are the suspect for what bounds the kernel, not yet
+// measured on their own (PERF.md §7): encode_fwd_staged_kernel, which runs
+// the same lattice on the same grid and reads where this kernel adds, takes
+// a third of its time on an H100. The TPU's one-hot(idx>>6) x
+// one-hot(idx&63) matmuls built the same histogram on the MXU and are not
+// carried over.
 constexpr int kBwdThreads = 512;  // 16 warps a (field, level) block
 
 // One point's inputs at level l: its two cotangents and its coordinates
@@ -975,23 +1106,195 @@ __global__ void __launch_bounds__(kMlpThreads) encode_mlp_fwd_kernel(
 }
 
 // Replaces permuto_pallas.encode_mlp_bwd (_encode_mlp_bwd_kernel): the MLP
-// backward from the residual f and the head cotangent g, then the table
-// histogram driven by dL/df, which stays in registers and never reaches
-// device memory. The histogram keeps the first design of encode_bwd_table:
-// every corner value goes into the zeroed gradient with a global atomicAdd
-// (today encode_bwd_table_kernel, the direct variant), not the staged
-// per-level histogram of encode_bwd_table_staged_kernel.
+// backward from the residual f and the head cotangent g (the four weight
+// gradients), and the (B, 2, L, T) table gradient driven by dL/df.
 //
-// Bound: the histogram's global atomics, which the L2 serialises on the
-// coarse levels, after streaming the residual, g and the coordinates once.
-// Design: one thread per (field, point), grid y = field, kMlpThreads points
-// a block. Each thread
-// recomputes its pre-activations, then the block reduces its points' weight
-// gradients in shared memory: the columns h / dL/da0, f and g of its points
-// go to shared memory (row stride kMlpPad, conflict-free), every thread
-// sums a few weight entries over the block's points, and adds each to the
-// zeroed global gradient with one atomicAdd a block. Points past P carry a
-// zero cotangent, so they add nothing, and take no part in the histogram.
+// Bound: operations, the recomputed pre-activations, dh, dL/df and the two
+// weight-gradient products (~4.4 K f32 operations a point) and the lattice
+// of 16 levels, 0.053 ms at the training shape; the bytes (residual, g,
+// coordinates in, gradients out) take 0.03 ms. What limited the first
+// design (now the direct variant, encode_mlp_bwd_kernel below) was its
+// histogram: 50 M global atomicAdds a call into a zeroed gradient, which
+// the L2's atomic units serialise on the coarse levels, the design
+// encode_bwd_table left for staged histograms. Design: two kernels on the
+// stream, as the histogram wants one (field, level) a block and the MLP one
+// point a thread. mlp_bwd_kernel takes one thread a (field, point) and
+// kMlpRounds rounds of kMlpThreads points a block: it recomputes the
+// pre-activations (the weights read from shared memory 16 bytes at a time),
+// writes dL/df (B, 2L, P) f32 once (50 MB at the training shape, written
+// and read back at ~0.03 ms), and reduces the weight gradients over the
+// block's points in shared memory: the round's f (a column a point) and h
+// or dL/da0 and g (a row a point) go to shared memory, each thread sums a
+// 2 x 4 tile of dw0 in registers (three conflict-free loads for eight
+// FMAs a point), warp 0 also db0 and dw1, and after its rounds the block
+// adds each entry to the zeroed gradient with one atomicAdd: kMlpRounds
+// times fewer global atomics than one a round (4 rounds were a few percent
+// ahead of 1 and 2 in an A/B on an H100, PERF.md §6). Then
+// encode_bwd_table_staged_kernel, unchanged, takes dL/df as its cotangent:
+// the level's (2, cap_l) histogram in shared memory, every entry written
+// once, so the table gradient needs no memset. Points past P carry a zero
+// cotangent and add nothing.
+constexpr int kMlpRounds = 4;
+
+__global__ void __launch_bounds__(kMlpThreads) mlp_bwd_kernel(
+    const float* __restrict__ feats, const float* __restrict__ g,
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, float* __restrict__ dfeats,
+    float* __restrict__ dw0, float* __restrict__ db0, float* __restrict__ dw1,
+    float* __restrict__ db1, int P, int L, int H, int O) {
+  constexpr int kRow = kMlpMaxH + 4;  // a point's row of sA: 16-byte aligned, 4-way stores
+  __shared__ __align__(16) float sw0[kMlpMaxD][kMlpMaxH];
+  __shared__ __align__(16) float sb0[kMlpMaxH];
+  __shared__ __align__(16) float sw1[kMlpMaxH][kMlpMaxO];
+  __shared__ float sF[kMlpMaxD][kMlpPad];                 // features, a column a point
+  __shared__ __align__(16) float sA[kMlpThreads][kRow];  // h, then dL/da0, a row a point
+  __shared__ __align__(16) float sG[kMlpThreads][kMlpMaxO];  // head cotangent, a row a point
+  static_assert(kMlpThreads == 128 && kMlpMaxD == 32 && kMlpMaxH == 32 && kMlpMaxO == 4,
+                "the weight-gradient tiles below assume the production widths");
+  const int b = blockIdx.y;
+  const int D = 2 * L;
+  const int t = threadIdx.x;
+  // this thread's tile of dw0: rows d0, d0 + 1 and columns j0 .. j0 + 3
+  // (a warp reads 8 distinct column quads and 8 distinct rows: no bank
+  // conflicts); warp 0 also sums db0[t] and dw1[t][0..3], warp 1's first
+  // four lanes db1[t - 32]
+  const int d0 = 2 * (t / 8);
+  const int j0 = 4 * (t % 8);
+  load_mlp_weights(w0 + (size_t)b * D * H, b0 + (size_t)b * H, w1 + (size_t)b * H * O,
+                   D, H, O, sw0, sb0, sw1);
+  const float* fb = feats + (size_t)b * D * P;
+  const float* gb = g + (size_t)b * O * P;
+  float* dfb = dfeats + (size_t)b * D * P;
+  float acc0[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  float acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // dw1[t][q] (warp 0)
+  float accb = 0.0f;                         // db0[t] (warp 0), db1[t - 32] (warp 1)
+  for (int r = 0; r < kMlpRounds; ++r) {
+    const int p = (blockIdx.x * kMlpRounds + r) * kMlpThreads + t;
+    const bool live = p < P;
+    float f[kMlpMaxD];
+#pragma unroll
+    for (int d = 0; d < kMlpMaxD; ++d) {
+      f[d] = (live && d < D) ? fb[(size_t)d * P + p] : 0.0f;
+      sF[d][t] = f[d];
+    }
+    float gg[kMlpMaxO];
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) gg[q] = (live && q < O) ? gb[(size_t)q * P + p] : 0.0f;
+    *reinterpret_cast<float4*>(sG[t]) = make_float4(gg[0], gg[1], gg[2], gg[3]);
+    __syncthreads();  // the weights and the round's columns are in shared memory
+    // pre-activations a0[j] = b0[j] + sum_d w0[d][j] f[d], d in order
+    float a0[kMlpMaxH];
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; ++j) a0[j] = sb0[j];
+#pragma unroll
+    for (int d = 0; d < kMlpMaxD; ++d) {
+#pragma unroll
+      for (int j = 0; j < kMlpMaxH; j += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(&sw0[d][j]);
+        a0[j] = fmaf(w.x, f[d], a0[j]);
+        a0[j + 1] = fmaf(w.y, f[d], a0[j + 1]);
+        a0[j + 2] = fmaf(w.z, f[d], a0[j + 2]);
+        a0[j + 3] = fmaf(w.w, f[d], a0[j + 3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; j += 4) {
+      *reinterpret_cast<float4*>(&sA[t][j]) = make_float4(fmaxf(a0[j], 0.0f), fmaxf(a0[j + 1], 0.0f),
+                                                          fmaxf(a0[j + 2], 0.0f), fmaxf(a0[j + 3], 0.0f));
+    }
+    __syncthreads();
+    // dw1[j][q] += sum_points h[j] g[q]; db1[q] += sum_points g[q]
+    if (t < kMlpMaxH) {
+      for (int u = 0; u < kMlpThreads; ++u) {
+        const float h = sA[u][t];
+        const float4 gq = *reinterpret_cast<const float4*>(sG[u]);
+        acc1[0] = fmaf(h, gq.x, acc1[0]);
+        acc1[1] = fmaf(h, gq.y, acc1[1]);
+        acc1[2] = fmaf(h, gq.z, acc1[2]);
+        acc1[3] = fmaf(h, gq.w, acc1[3]);
+      }
+    } else if (t < kMlpMaxH + kMlpMaxO) {
+      for (int u = 0; u < kMlpThreads; ++u) accb = accb + sG[u][t - kMlpMaxH];
+    }
+    __syncthreads();  // every thread is done reading h
+    // dL/da0[j] = relu'(a0[j]) sum_q w1[j][q] g[q]
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; ++j) {
+      const float4 w = *reinterpret_cast<const float4*>(sw1[j]);
+      float dh = 0.0f;
+      dh = fmaf(w.x, gg[0], dh);
+      dh = fmaf(w.y, gg[1], dh);
+      dh = fmaf(w.z, gg[2], dh);
+      dh = fmaf(w.w, gg[3], dh);
+      a0[j] = a0[j] > 0.0f ? dh : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; j += 4) {
+      *reinterpret_cast<float4*>(&sA[t][j]) = make_float4(a0[j], a0[j + 1], a0[j + 2], a0[j + 3]);
+    }
+    if (live) {  // dL/df[d] = sum_j w0[d][j] dL/da0[j], j in order
+#pragma unroll
+      for (int d = 0; d < kMlpMaxD; ++d) {
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kMlpMaxH; j += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(&sw0[d][j]);
+          s = fmaf(w.x, a0[j], s);
+          s = fmaf(w.y, a0[j + 1], s);
+          s = fmaf(w.z, a0[j + 2], s);
+          s = fmaf(w.w, a0[j + 3], s);
+        }
+        if (d < D) dfb[(size_t)d * P + p] = s;
+      }
+    }
+    __syncthreads();
+    // dw0[d][j] += sum_points f[d] dL/da0[j]; db0[j] += sum_points dL/da0[j]
+    for (int u = 0; u < kMlpThreads; ++u) {
+      const float4 da = *reinterpret_cast<const float4*>(&sA[u][j0]);
+      const float f0 = sF[d0][u];
+      const float f1 = sF[d0 + 1][u];
+      acc0[0][0] = fmaf(f0, da.x, acc0[0][0]);
+      acc0[0][1] = fmaf(f0, da.y, acc0[0][1]);
+      acc0[0][2] = fmaf(f0, da.z, acc0[0][2]);
+      acc0[0][3] = fmaf(f0, da.w, acc0[0][3]);
+      acc0[1][0] = fmaf(f1, da.x, acc0[1][0]);
+      acc0[1][1] = fmaf(f1, da.y, acc0[1][1]);
+      acc0[1][2] = fmaf(f1, da.z, acc0[1][2]);
+      acc0[1][3] = fmaf(f1, da.w, acc0[1][3]);
+    }
+    if (t < kMlpMaxH) {
+      for (int u = 0; u < kMlpThreads; ++u) accb = accb + sA[u][t];
+    }
+    if (r + 1 < kMlpRounds) __syncthreads();  // the next round overwrites the columns
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (d0 + i < D && j0 + k < H) atomicAdd(dw0 + ((size_t)b * D + d0 + i) * H + j0 + k, acc0[i][k]);
+    }
+  }
+  if (t < H) {
+    atomicAdd(db0 + (size_t)b * H + t, accb);
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) {
+      if (q < O) atomicAdd(dw1 + ((size_t)b * H + t) * O + q, acc1[q]);
+    }
+  } else if (t >= kMlpMaxH && t < kMlpMaxH + O) {
+    atomicAdd(db1 + (size_t)b * O + t - kMlpMaxH, accb);
+  }
+}
+
+// The direct variant, for tables whose (2, T) histogram is above
+// kMaxStagedBytes (T > 12,288; the C entry point chooses by shape), and the
+// first design: one kernel, one thread per (field, point), grid y = field,
+// kMlpThreads points a block. Each thread recomputes its pre-activations,
+// the block reduces its points' weight gradients in shared memory (the
+// columns h / dL/da0, f and g of its points, every thread summing a few
+// entries over them) and adds each entry to the zeroed global gradient
+// with one atomicAdd a block; dL/df stays in registers and every
+// corner value goes into the zeroed table gradient with a global atomicAdd,
+// as encode_bwd_table_kernel does.
 __global__ void __launch_bounds__(kMlpThreads) encode_mlp_bwd_kernel(
     const float* __restrict__ coords, const float* __restrict__ feats,
     const float* __restrict__ g, const float* __restrict__ w0,
@@ -1126,12 +1429,12 @@ bool mlp_widths_ok(int L, int H, int O) {
 // histogram does not fit the staged budget and the direct variant runs.
 // A function of the shapes only.
 int table_grad_chunks(int rows, int T, int M) {
-  if (T < 1 || 8LL * T > kMaxStagedBytes) return 0;
+  if (!staged_fits(T)) return 0;
   return hist_chunks(rows, M, kStagedPairs);
 }
 
 int encode_bwd_table_chunks(int B, int L, int P, int T) {
-  if (T < 1 || 8LL * T > kMaxStagedBytes) return 0;
+  if (!staged_fits(T)) return 0;
   return hist_chunks((int64_t)B * L, P, kStagedPoints);
 }
 
@@ -1144,15 +1447,41 @@ int plan_of(int chunks) { return chunks <= 1 ? chunks : 2; }
 
 extern "C" {
 
+// 1 if ngm_encode_fwd takes the staged design for tables of T entries a
+// level row, 0 if the direct one.
+int ngm_encode_fwd_staged(int T) { return staged_fits(T) ? 1 : 0; }
+
+// table (B, 2, L, T), coords (B, 3, P) -> out (B, 2L, P).
 int ngm_encode_fwd(const float* table, const float* coords, float* out, int B,
                    int P, int L, int T, const float* scales, const float* shifts,
                    const float* elev, const int* caps, void* stream) {
+  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
-  encode_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(table, coords,
-                                                                 out, P, T, c);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (staged_fits(T)) {
+    const int chunks = hist_chunks((int64_t)B * L, P, kStagedPoints);
+    const int chunk = (P + chunks - 1) / chunks;
+    const dim3 grid((unsigned)((int64_t)B * L), (P + chunk - 1) / chunk);
+    encode_fwd_staged_kernel<<<grid, kFwdThreads, 8 * (size_t)T, s>>>(table, coords, out, P, T, chunk, c);
+  } else {
+    const dim3 grid((P + kThreads - 1) / kThreads, (L + kFwdDirectLevels - 1) / kFwdDirectLevels, B);
+    encode_fwd_kernel<<<grid, kThreads, 0, s>>>(table, coords, out, P, T, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// coords (3, N) -> idx (L, 4, N) int32 and w (L, 4, N): lattice_level's
+// corners, for tests of the lattice itself.
+int ngm_lattice_debug(const float* coords, int32_t* idx, float* w, int N, int L,
+                      const float* scales, const float* shifts, const float* elev,
+                      const int* caps, void* stream) {
+  LevelConsts c;
+  const int err = fill_consts(&c, L, scales, shifts, elev, caps);
+  if (err) return err;
+  const dim3 grid((N + kThreads - 1) / kThreads, L);
+  lattice_debug_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(coords, idx, w, N, c);
   return (int)cudaGetLastError();
 }
 
@@ -1200,6 +1529,7 @@ int ngm_permuto_init() {
       reinterpret_cast<const void*>(&table_grad_staged_kernel<true>),
       reinterpret_cast<const void*>(&table_grad_staged_kernel<false>),
       reinterpret_cast<const void*>(&encode_bwd_table_staged_kernel),
+      reinterpret_cast<const void*>(&encode_fwd_staged_kernel),
   };
   for (const void* kernel : staged) {
     if (err == cudaSuccess) {
@@ -1338,22 +1668,46 @@ int ngm_encode_mlp_fwd(const float* table, const float* coords, const float* w0,
   return (int)cudaGetLastError();
 }
 
+// What the caller of ngm_encode_mlp_bwd must allocate for the table
+// gradient, as ngm_encode_bwd_table_plan says (0 zeroed, the direct
+// design; 1 uninitialised, staged; 2 zeroed, staged with split rows).
+int ngm_encode_mlp_bwd_plan(int B, int L, int P, int T) {
+  return plan_of(encode_bwd_table_chunks(B, L, P, T));
+}
+
 // coords (B, 3, P), feats (B, 2L, P), g (B, O, P), w0, b0, w1 as above ->
-// grad_table (B, 2, L, T), dw0 (B, 2L, H), db0 (B, H), dw1 (B, H, O),
-// db1 (B, O), every output zeroed by the caller.
+// grad_table (B, 2, L, T) (allocated as ngm_encode_mlp_bwd_plan says),
+// dw0 (B, 2L, H), db0 (B, H), dw1 (B, H, O), db1 (B, O), zeroed by the
+// caller; dfeats (B, 2L, P) is the staged design's scratch for dL/df (may be
+// null for the direct one).
 int ngm_encode_mlp_bwd(const float* coords, const float* feats, const float* g,
                        const float* w0, const float* b0, const float* w1,
                        float* grad_table, float* dw0, float* db0, float* dw1,
-                       float* db1, int B, int P, int L, int T, int H, int O,
+                       float* db1, float* dfeats, int B, int P, int L, int T, int H, int O,
                        const float* scales, const float* shifts, const float* elev,
                        const int* caps, void* stream) {
-  if (!mlp_widths_ok(L, H, O)) return (int)cudaErrorInvalidValue;
+  if (!mlp_widths_ok(L, H, O) || B > kMaxGridY) return (int)cudaErrorInvalidValue;
+  const int chunks = encode_bwd_table_chunks(B, L, P, T);
+  if (chunks > 0 && dfeats == nullptr) return (int)cudaErrorInvalidValue;
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const dim3 grid((P + kMlpThreads - 1) / kMlpThreads, B);
-  encode_mlp_bwd_kernel<<<grid, kMlpThreads, 0, (cudaStream_t)stream>>>(
-      coords, feats, g, w0, b0, w1, grad_table, dw0, db0, dw1, db1, P, T, H, O, c);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (chunks == 0) {
+    const dim3 grid((P + kMlpThreads - 1) / kMlpThreads, B);
+    encode_mlp_bwd_kernel<<<grid, kMlpThreads, 0, s>>>(
+        coords, feats, g, w0, b0, w1, grad_table, dw0, db0, dw1, db1, P, T, H, O, c);
+    return (int)cudaGetLastError();
+  }
+  const int per_block = kMlpThreads * kMlpRounds;
+  const dim3 mlp_grid((P + per_block - 1) / per_block, B);
+  mlp_bwd_kernel<<<mlp_grid, kMlpThreads, 0, s>>>(feats, g, w0, b0, w1, dfeats, dw0, db0, dw1, db1,
+                                                  P, L, H, O);
+  const cudaError_t mlp_err = cudaGetLastError();
+  if (mlp_err != cudaSuccess) return (int)mlp_err;
+  const int chunk = (P + chunks - 1) / chunks;
+  const dim3 grid((unsigned)((int64_t)B * L), (P + chunk - 1) / chunk);
+  encode_bwd_table_staged_kernel<<<grid, kBwdThreads, 8 * (size_t)T, s>>>(coords, dfeats, grad_table, P, T, chunk, c);
   return (int)cudaGetLastError();
 }
 

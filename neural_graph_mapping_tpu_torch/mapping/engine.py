@@ -551,7 +551,9 @@ class NeuralGraphMap:
         kwargs["field_kwargs"] = {**kwargs["field_kwargs"], "fused_mlp": self._fused_mlp}
         self._fset = NeuralFieldSet(**kwargs).to(self._device)
         # two streams of draws, as the JAX engine has two keys: one for
-        # parameter init, one for the per-frame programs
+        # parameter init and renders (JAX's _key), one for the per-frame
+        # programs (_base_key), so a render between frames leaves every
+        # later training draw where it was
         self._init_gen = torch.Generator(self._device).manual_seed(self._seed)
         self._frame_gen = torch.Generator(self._device).manual_seed(self._seed + 1)
         self._frame_counter = 0
@@ -899,7 +901,7 @@ class NeuralGraphMap:
                 self._fset, camera, self._rcfg, self._eval_span_samples, self._eval_near,
                 self._eval_far, self._params, self._map_arrays.positions,
                 self._map_arrays.orientations, allocated, ijs, c2w,
-                generator=self._frame_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
+                generator=self._init_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
                 sample_spacing=float(self._sample_spacing),
             )
             return rgbd, dv

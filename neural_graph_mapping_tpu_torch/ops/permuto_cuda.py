@@ -72,7 +72,9 @@ def load_library() -> cuda_build.Library:
     consts = [c_float_p, c_float_p, c_float_p, c_int_p]
     enc_args = [ptr, ptr, ptr, i32, i32, i32, i32, *consts, ptr]
     lib.ngm_permuto_init.argtypes = []
+    lib.ngm_encode_fwd_staged.argtypes = [i32]
     lib.ngm_encode_fwd.argtypes = enc_args
+    lib.ngm_lattice_debug.argtypes = [ptr, ptr, ptr, i32, i32, *consts, ptr]
     lib.ngm_encode_bwd_table_plan.argtypes = [i32, i32, i32, i32]
     lib.ngm_encode_bwd_table.argtypes = enc_args
     lib.ngm_batched_gather.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
@@ -86,12 +88,14 @@ def load_library() -> cuda_build.Library:
     lib.ngm_table_grad_plan.argtypes = [i32, i32, i32]
     lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_encode_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [*consts, ptr]
-    lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 11 + [i32] * 6 + [*consts, ptr]
-    for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd, lib.ngm_encode_bwd_table_plan,
+    lib.ngm_encode_mlp_bwd_plan.argtypes = [i32] * 4
+    lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 12 + [i32] * 6 + [*consts, ptr]
+    for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd_staged, lib.ngm_encode_fwd,
+               lib.ngm_lattice_debug, lib.ngm_encode_bwd_table_plan,
                lib.ngm_encode_bwd_table, lib.ngm_batched_gather, lib.ngm_encode_fwd_moe,
                lib.ngm_encode_fwd_moe_rays, lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs,
                lib.ngm_table_grad_plan, lib.ngm_table_grad, lib.ngm_encode_mlp_fwd,
-               lib.ngm_encode_mlp_bwd):
+               lib.ngm_encode_mlp_bwd_plan, lib.ngm_encode_mlp_bwd):
         fn.restype = i32
     cuda_build.check(lib.ngm_permuto_init(), "permuto init")
     _LIBRARY = library
@@ -153,7 +157,9 @@ def encode_fwd_plain(table, coords, scales, shifts, elev, t_size) -> torch.Tenso
 
 def encode_fwd(table, coords, scales, shifts, elev, t_size) -> torch.Tensor:
     """Fused permutohedral encode. table (..., 2, L, T) feature-major,
-    coords (..., 3, P) -> (..., 2L, P) with row 2l+f (permuto_pallas.encode_fwd)."""
+    coords (..., 3, P) -> (..., 2L, P) with row 2l+f (permuto_pallas.encode_fwd).
+    The C entry point takes the staged design for (2, T) level rows up to
+    96 KB and the direct one above (:func:`encode_fwd_variant`)."""
     lead = coords.shape[:-2]
     if coords.shape[-2] != 3 or table.shape[:-3] != lead or table.shape[-3] != 2:
         raise ValueError(f"shapes table {tuple(table.shape)} / coords {tuple(coords.shape)}")
@@ -179,6 +185,36 @@ def encode_fwd(table, coords, scales, shifts, elev, t_size) -> torch.Tensor:
     cuda_build.check(rc, "encode_fwd")
     LAUNCHES["encode_fwd"] += 1
     return out
+
+
+def encode_fwd_variant(table) -> str:
+    """'staged' or 'direct': the design :func:`encode_fwd` takes by shape
+    for a (..., 2, L, T) table (``csrc/permuto.cu``)."""
+    return "staged" if load_library().lib.ngm_encode_fwd_staged(table.shape[-1]) else "direct"
+
+
+def lattice_debug(coords, scales, shifts, elev, t_size) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' lattice (``lattice_level`` in ``csrc/permuto.cu``) for
+    coords (3, N) -> (idx (L, 4, N) int64, w (L, 4, N)), the layout of
+    :func:`permuto.lattice_keys_and_weights_soa`, which a CPU tensor gets."""
+    if coords.ndim != 2 or coords.shape[0] != 3:
+        raise ValueError(f"coords must be (3, N), got {tuple(coords.shape)}")
+    _check_f32("coords", coords)
+    n_levels = len(scales)
+    caps = permuto.normalize_capacities(t_size, n_levels)
+    if cuda_build.route(coords) == "cpu":
+        s, sh, el = _const_tensors(scales, shifts, elev, coords.device)
+        return permuto.lattice_keys_and_weights_soa(coords.unbind(0), s, sh, el, caps)
+    n = coords.shape[1]
+    idx = torch.empty((n_levels, 4, n), dtype=torch.int32, device=coords.device)
+    w = torch.empty((n_levels, 4, n), dtype=torch.float32, device=coords.device)
+    if n:
+        rc = load_library().lib.ngm_lattice_debug(
+            coords.data_ptr(), idx.data_ptr(), w.data_ptr(), n, n_levels,
+            *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(coords),
+        )
+        cuda_build.check(rc, "lattice_debug")
+    return idx.long(), w
 
 
 # -- encode_bwd_table -----------------------------------------------------------
@@ -636,7 +672,11 @@ def encode_mlp_bwd(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):
     """Backward of :func:`encode_mlp_fwd` (permuto_pallas.encode_mlp_bwd):
     coords (..., 3, P), the residual feats (..., 2L, P), the head cotangent
     g (..., O, P) and the weights -> (grad_table (..., 2, L, T), dw0, db0,
-    dw1, db1), T = max(t_size). The bias b1 does not enter the backward."""
+    dw1, db1), T = max(t_size). The bias b1 does not enter the backward.
+    The C entry point takes the staged design (an MLP pass, then the staged
+    table histogram: two device kernels, one launch of the wrapper) for
+    (2, T) level rows up to 96 KB and the direct one-kernel design above
+    (:func:`encode_mlp_bwd_variant`)."""
     lead = coords.shape[:-2]
     n_levels = len(scales)
     p = coords.shape[-1]
@@ -655,7 +695,9 @@ def encode_mlp_bwd(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):
     _mlp_widths_check(n_levels, h, o)
     b = int(torch.Size(lead).numel())
     d = 2 * n_levels
-    grad_table = torch.zeros(lead + (2, n_levels, t), dtype=torch.float32, device=coords.device)
+    lib = load_library().lib
+    plan = lib.ngm_encode_mlp_bwd_plan(b, n_levels, p, t)
+    grad_table = _hist_output(plan, lead + (2, n_levels, t), coords.device)
     # the four weight gradients as views of one zeroed buffer: one memset
     flat = torch.zeros(b * (d * h + h + h * o + o), dtype=torch.float32, device=coords.device)
     dw0, db0, dw1, db1 = (
@@ -664,17 +706,27 @@ def encode_mlp_bwd(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):
                                ((d, h), (h,), (h, o), (o,)))
     )
     if b * p == 0:
-        return grad_table, dw0, db0, dw1, db1
-    lib = load_library().lib
+        return grad_table.zero_(), dw0, db0, dw1, db1
+    # dL/df, the staged design's scratch between its two device kernels
+    dfeats = torch.empty(lead + (d, p), dtype=torch.float32, device=coords.device) if plan else None
     rc = lib.ngm_encode_mlp_bwd(
         coords.data_ptr(), feats.data_ptr(), g.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w1.data_ptr(), grad_table.data_ptr(), dw0.data_ptr(), db0.data_ptr(), dw1.data_ptr(),
-        db1.data_ptr(), b, p, n_levels, t, h, o,
+        db1.data_ptr(), None if dfeats is None else dfeats.data_ptr(), b, p, n_levels, t, h, o,
         *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(coords),
     )
     cuda_build.check(rc, "encode_mlp_bwd")
     LAUNCHES["encode_mlp_bwd"] += 1
     return grad_table, dw0, db0, dw1, db1
+
+
+def encode_mlp_bwd_variant(coords, scales, t_size) -> str:
+    """The table-gradient design :func:`encode_mlp_bwd` takes by shape for
+    CUDA ``coords`` (..., 3, P), one of :data:`HIST_VARIANTS`."""
+    n_levels = len(scales)
+    t = max(permuto.normalize_capacities(t_size, n_levels))
+    b = int(torch.Size(coords.shape[:-2]).numel())
+    return HIST_VARIANTS[load_library().lib.ngm_encode_mlp_bwd_plan(b, n_levels, coords.shape[-1], t)]
 
 
 KERNELS: Tuple[Tuple[str, str, str], ...] = (

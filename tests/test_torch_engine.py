@@ -288,6 +288,34 @@ def test_process_frame_allocates_like_jax():
     assert int(tngm._map_arrays.training_iterations.sum()) > 0
 
 
+def test_render_between_frames_leaves_training_draws():
+    """Two maps of one seed train on the same four frames; one of them
+    renders a 16x12 image after frame 1, as a live preview does. A render
+    draws its jitter from the init stream (JAX's ``_key``), never from the
+    frame programs' stream, so both end with equal parameters and training
+    counts."""
+    ds = SyntheticDataset(DS_CFG)
+    ds.load_slam_results()
+    cfg = tiny_config(eval_span_samples=32, pixel_block_size=512)
+    previewed, plain = engine.NeuralGraphMap(cfg, "cpu"), engine.NeuralGraphMap(cfg, "cpu")
+    cam = ds.camera.scaled_camera(0.4)
+    assert (cam.width, cam.height) == (16, 12)
+    for fid in range(4):
+        for ngm in (previewed, plain):
+            ngm.process_frame(ds, fid, ds[fid]["rgbd"])
+        if fid == 1:
+            init_state = previewed._init_gen.get_state()
+            rgbd, _ = previewed.render_image(ds[fid]["c2w"], cam)
+            assert rgbd.shape == (12, 16, 4) and bool(torch.isfinite(rgbd).all())
+            assert not torch.equal(previewed._init_gen.get_state(), init_state)  # the render drew
+    assert previewed.capacity == plain.capacity and previewed.num_fields == plain.num_fields > 0
+    for k, v in plain._params.items():
+        assert torch.equal(previewed._params[k], v), k
+    ti = plain._map_arrays.training_iterations
+    assert int(ti.sum()) > 0
+    assert torch.equal(previewed._map_arrays.training_iterations, ti)
+
+
 def test_chip_smoke_config_equals_yaml():
     """chip_smoke.py writes the production config out (the card's machine
     may lack PyYAML); it must equal what the loader gives for the files."""

@@ -488,3 +488,118 @@ def test_new_wrappers_never_take_the_plain_path(cuda):
         permuto_cuda.table_grad(idx, torch.zeros((2, 3, 5), device=cuda), 8)
     with pytest.raises(ValueError):
         permuto_cuda.table_grad(idx, torch.zeros((2, 2, 5)), 8)
+
+
+# -- the lattice, the encode's designs, the staged fused backward -------------------
+
+
+def test_lattice_matches_plain_bit_for_bit(cuda):
+    """The kernels' lattice_level (ngm_lattice_debug) against the plain
+    lattice_keys_and_weights_soa on the card, at the production constants:
+    indices exact, weights within 1e-6, for uniform points and for points
+    built to sit on every level's rounding boundaries, where a swapped
+    corner has near-zero weight and no encode output would show it."""
+    import chip_smoke
+
+    enc = PermutohedralEncoding(**PRODUCTION)
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    uniform = np.random.default_rng(30).uniform(-0.5, 1.5, (3, 20_000)).astype(np.float32)
+    boundary = chip_smoke.lattice_boundary_points(*consts[:3])
+    for pts in (uniform, boundary):
+        coords = torch.from_numpy(pts).to(cuda)
+        idx, w = permuto_cuda.lattice_debug(coords, *consts)
+        s, sh, el = (torch.tensor(v, dtype=torch.float32, device=cuda) for v in consts[:3])
+        want_idx, want_w = permuto.lattice_keys_and_weights_soa(coords.unbind(0), s, sh, el, consts[3])
+        assert torch.equal(idx, want_idx)
+        assert float((w - want_w).abs().max()) <= 1e-6
+    assert int((w.abs() < 1e-6).sum()) > 1000  # the boundary points do sit on boundaries
+
+
+@pytest.mark.parametrize("b,p", [(3, 1000), (32, 12288), (1, 100_000)])
+def test_encode_fwd_staged_matches_plain(cuda, b, p):
+    """The staged encode_fwd within 1e-5 of the plain version, one launch a
+    call, at a short shape, the training shape and one field whose points
+    are split over blocks."""
+    table, coords, _, consts = _inputs(cuda, b, p, 22)
+    assert permuto_cuda.encode_fwd_variant(table) == "staged"
+    before = permuto_cuda.LAUNCHES["encode_fwd"]
+    got = permuto_cuda.encode_fwd(table, coords, *consts)
+    assert permuto_cuda.LAUNCHES["encode_fwd"] == before + 1
+    want = permuto_cuda.encode_fwd_plain(table, coords, *consts)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_encode_fwd_direct_above_the_staged_budget(cuda):
+    """log2_hashmap_size 14: level rows of 16,384 entries, 128 KB, above the
+    staged maximum: the direct design by shape."""
+    enc = PermutohedralEncoding(**dict(PRODUCTION, log2_hashmap_size=14))
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    gen = torch.Generator(cuda).manual_seed(23)
+    table = torch.rand((2, 2, 16, 16384), generator=gen, device=cuda) * 2 - 1
+    coords = torch.rand((2, 3, 3000), generator=gen, device=cuda) * 1.5 - 0.25
+    assert permuto_cuda.encode_fwd_variant(table) == "direct"
+    got = permuto_cuda.encode_fwd(table, coords, *consts)
+    assert float((got - permuto_cuda.encode_fwd_plain(table, coords, *consts)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("log2_t,variant", [(12, "staged"), (14, "direct")])
+@pytest.mark.parametrize("levels", ["all", "coarse only", "fine only"])
+def test_encode_mlp_bwd_designs_match_plain(cuda, log2_t, variant, levels):
+    """encode_mlp_bwd's staged design (log2_hashmap_size 12) and its direct
+    design (14: level rows above the staged maximum), both taken by shape,
+    at the training shape, with dL/df on all levels, on the two coarsest
+    only (many points a cell) or the two finest only (w0's rows of the
+    other levels zeroed): table gradient max abs <= 1e-4 x max|plain|
+    (atomics), weight gradients <= 1e-4 relative, one launch a call. Points
+    with a pre-activation within rounding of the ReLU kink carry no
+    cotangent (chip_smoke.off_the_relu_kink): there the kernels and the
+    plain matrix product may round to different masks, and at these inputs
+    one such point moved a table gradient entry of the direct design, all
+    levels, by 2.6e-3 against a 6.7e-4 limit."""
+    import chip_smoke
+
+    widths = dict(PRODUCTION, log2_hashmap_size=log2_t)
+    (table, w0, b0, w1, b1, coords), g, consts = _mlp_inputs(cuda, 32, 12288, 24, widths=widths)
+    level = torch.arange(32, device=cuda)[:, None] // 2
+    if levels != "all":
+        w0 = w0 * ((level < 2) if levels == "coarse only" else (level >= 14))
+    feats = permuto_cuda.encode_mlp_fwd(table, w0, b0, w1, b1, coords, *consts)[1]
+    args = chip_smoke.off_the_relu_kink(torch, (coords, feats, g, w0, b0, w1, *consts))[0]
+    assert permuto_cuda.encode_mlp_bwd_variant(coords, consts[0], consts[3]) == variant
+    before = permuto_cuda.LAUNCHES["encode_mlp_bwd"]
+    got = permuto_cuda.encode_mlp_bwd(*args)
+    assert permuto_cuda.LAUNCHES["encode_mlp_bwd"] == before + 1
+    want = permuto_cuda.encode_mlp_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("table", "w0", "b0", "w1", "b1"), got, want):
+        assert a.shape == w.shape, name
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+    if levels != "all":
+        keep = slice(0, 2) if levels == "coarse only" else slice(14, 16)
+        rest = torch.ones(16, dtype=torch.bool, device=cuda)
+        rest[keep] = False
+        assert float(got[0][:, :, rest].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("b,p,log2_t,variant", [
+    (32, 12288, 12, "staged"),  # the training shape: one block a (field, level)
+    (1, 100_000, 12, "staged, split rows"),  # 16 rows split over blocks: a zeroed output
+    (2, 3000, 14, "direct"),  # (2, T) rows of 128 KB, above the staged maximum
+])
+def test_encode_mlp_bwd_by_shape_over_a_stale_block(cuda, b, p, log2_t, variant):
+    """The design taken by shape, right after a freed block of the table
+    gradient's size was filled with NaN: an output that the staged design
+    writes without a memset takes that block, so an entry left unwritten
+    shows; every entry past a level's capacity is exactly 0."""
+    widths = dict(PRODUCTION, log2_hashmap_size=log2_t)
+    (table, w0, b0, w1, b1, coords), g, consts = _mlp_inputs(cuda, b, p, 25, widths=widths)
+    feats = permuto_cuda.encode_mlp_fwd(table, w0, b0, w1, b1, coords, *consts)[1]
+    args = (coords, feats, g, w0, b0, w1, *consts)
+    assert permuto_cuda.encode_mlp_bwd_variant(coords, consts[0], consts[3]) == variant
+    t = 1 << log2_t
+    got = _over_stale_nan(cuda, (b, 2, 16, t), lambda: permuto_cuda.encode_mlp_bwd(*args)[0])
+    want = permuto_cuda.encode_mlp_bwd_plain(*args)[0]
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    for level, cap in enumerate(consts[3]):
+        assert float(got[:, :, level, cap:].abs().sum()) == 0.0

@@ -61,9 +61,15 @@ def test_production_capacities(production):
 
 
 def test_lattice_matches_jax_at_production_constants(production):
-    """Indices exact, weights within 1e-6 (2k random + 4913 grid points)."""
+    """Indices exact, weights within 1e-6: 2k random and 4913 grid points,
+    and 30,720 points built to sit on each level's rounding boundaries
+    (``chip_smoke.lattice_boundary_points``, which the card's lattice is
+    held to as well), where a corner swap has near-zero weight."""
+    import chip_smoke
+
     je, te = production
-    pts = _points(2000, 0)
+    boundary = chip_smoke.lattice_boundary_points(te._scales_t, te._shifts_t, te._elev_t)
+    pts = np.concatenate([_points(2000, 0), boundary], axis=1)
     want_idx, want_w = jpermuto.lattice_keys_and_weights_soa(
         tuple(jnp.asarray(p) for p in pts), jnp.asarray(je.scales), je._shifts,
         je._elev_scale, je.level_capacities,

@@ -271,7 +271,7 @@ def test_render_image_equals_its_blocks(trained_map, monkeypatch):
     rays = _count_calls(monkeypatch, "encode_fwd_moe_rays")
     carried = _count_calls(monkeypatch, "encode_fwd_moe")
     c2w = ds[2]["c2w"]
-    state = ngm._frame_gen.get_state()
+    state = ngm._init_gen.get_state()
     rgbd, dv = ngm.render_image(c2w, ds.camera)
     h, w = DS_CFG["height"], DS_CFG["width"]
     assert rgbd.shape == (h, w, 4) and dv.shape == (h, w)
@@ -279,7 +279,7 @@ def test_render_image_equals_its_blocks(trained_map, monkeypatch):
     n_blocks = -(-h * w // 512)
     assert len(rays) == n_blocks and not carried
 
-    ngm._frame_gen.set_state(state)
+    ngm._init_gen.set_state(state)
     ii, jj = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
     ijs = torch.stack([ii, jj], -1).reshape(-1, 2).float()
     ijs = torch.cat([ijs, ijs.new_zeros((n_blocks * 512 - h * w, 2))])
@@ -287,7 +287,7 @@ def test_render_image_equals_its_blocks(trained_map, monkeypatch):
         engine.render_block_tiled(
             ngm._fset, ds.camera, ngm._rcfg, 32, ngm._eval_near, ngm._eval_far, ngm._params,
             ngm._map_arrays.positions, ngm._map_arrays.orientations, ngm._allocated_mask(),
-            ijs[s : s + 512], torch.as_tensor(c2w), generator=ngm._frame_gen,
+            ijs[s : s + 512], torch.as_tensor(c2w), generator=ngm._init_gen,
             use_ray_kernel=True, block_offset=s, sample_spacing=ngm._sample_spacing,
         )[0]
         for s in range(0, n_blocks * 512, 512)

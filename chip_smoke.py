@@ -12,8 +12,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 2. build: compiles every ``csrc/*.cu`` for sm_90a into
    ``neural_graph_mapping_tpu_torch/_build/`` (one nvcc per source, all
    started together) and prints the build seconds; kernel_resources: each
-   device kernel's registers, stack frame and spill bytes (``-Xptxas -v``)
-   and its local-memory loads and stores (LDL, STL in ``cuobjdump -sass``).
+   device kernel's registers, stack frame and spill bytes (``-Xptxas -v``),
+   its local-memory loads and stores (LDL, STL in ``cuobjdump -sass``) and
+   its SASS instruction counts (:func:`sass_counts`).
 3. lattice: the kernels' ``lattice_level`` (``ngm_lattice_debug``) against
    the plain ``lattice_keys_and_weights_soa`` on the card and on the CPU,
    for uniform points and points built to sit on every level's rounding
@@ -29,6 +30,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    variant at T = 16,384. Then the fused pair ``encode_mlp_fwd`` /
    ``encode_mlp_bwd`` at the same shapes and production widths (D = 32,
    H = 32, O = 4), beside the unfused route's time for the same work.
+   ``encode_mlp_fwd``'s line names its variant and its two device kernels,
+   and its residual must equal ``encode_fwd``'s output bit for bit; a
+   ``kernel_variant`` line checks and times its direct variant at
+   T = 16,384.
    ``encode_mlp_bwd``'s line names its variant and the device kernels one
    call launches (two on the staged design) and has its ``contention``
    (dL/df on the coarse or the fine levels only, by zeroing w0's other
@@ -49,14 +54,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    frames: only the fused pair trains (once per iteration each), steady ms a
    frame beside the unfused slice's; one iteration against the CPU and
    against the unfused route on the card; kernel_captured:
-   ``encode_mlp_bwd`` at the inputs that iteration gave it, against its
+   ``encode_mlp_fwd`` at the inputs that iteration gave it, against its
+   plain version and timed, and ``encode_mlp_bwd`` at its inputs, against its
    plain version with the cotangent off the ReLU kink (the error on the
    inputs as given beside it) and timed (``captured_ms`` in its line).
 5. kernels (render): the three render kernels against their plain versions
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
    all 4,194,304 points, the two MoE encodes within 1e-5 on 256 live tiles
-   (tables U(-1, 1)), timed.
+   (tables U(-1, 1)), timed; their lines give the block's live tiles, live
+   pairs and field runs. ``encode_fwd_moe_rays``' line names its variant
+   (staged) and device kernel; a ``kernel_variant`` line checks and times
+   its direct design on the same block with tables of T = 16,384.
 6. render: ``NeuralGraphMap.render_image`` of frame 11's pose on the trained
    map at 160x120 (PSNR and depth-L1 against the frame, median ms of 5
    renders, each render kernel launched once per block) and at 640x480
@@ -375,12 +384,21 @@ def bound(n_bytes: float, n_ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def sass_counts(sass: str) -> dict:
+    """Static instruction counts of one device kernel's SASS (the text
+    ``cuobjdump -sass`` prints for it): ``sass_instructions`` (all but NOP)
+    and ``divisions`` (FCHK, one per IEEE f32 division's fast path)."""
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
+    return {"sass_instructions": sum(op != "NOP" for op in ops), "divisions": ops.count("FCHK")}
+
+
 def kernel_resources(cuda_build, libs) -> list:
     """Per device kernel of every built source, read from the binary:
     registers, stack and local-memory bytes (``cuobjdump -res-usage``),
     spill bytes where this run compiled the source (``nvcc -Xptxas -v``),
-    and the local-memory loads and stores (LDL, STL) in its SASS
-    (``cuobjdump -sass``)."""
+    the local-memory loads and stores (LDL, STL) in its SASS
+    (``cuobjdump -sass``) and its static instruction counts
+    (:func:`sass_counts`)."""
     cuobjdump = str(pathlib.Path(cuda_build._find_nvcc()).with_name("cuobjdump"))
     rows = {}
     for source, lib in libs.items():
@@ -404,7 +422,8 @@ def kernel_resources(cuda_build, libs) -> list:
         for part in re.split(r"\n\s*Function : ", sass)[1:]:
             fn = part.split(None, 1)[0]
             rows.setdefault(fn, {"source": source}).update(
-                ldl=len(re.findall(r"\bLDL\b", part)), stl=len(re.findall(r"\bSTL\b", part)))
+                ldl=len(re.findall(r"\bLDL\b", part)), stl=len(re.findall(r"\bSTL\b", part)),
+                **sass_counts(part))
     names = list(rows)
     demangled = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
                                check=True, timeout=60).stdout.splitlines()
@@ -645,15 +664,15 @@ def check_fused_kernels(torch, permuto_cuda, enc):
     g = torch.randn((b, o, p), generator=gen, device=dev)
     weights = (w0, b0, w1, b1)
 
-    out, feats = permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts)
-    ref_out, ref_feats = permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts)
-    err = max(max_err(torch, out, ref_out), max_err(torch, feats, ref_feats))
-    if not err <= 1e-5:
-        raise AssertionError(f"encode_mlp_fwd max abs err {err} > 1e-5")
-    rows = [("encode_mlp_fwd", err, "max abs <= 1e-5 (outputs and residual)",
-             measure(torch, lambda: permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts),
+    err, feats, ref_feats = check_encode_mlp_fwd(torch, permuto_cuda, (table, *weights, coords, *consts))
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_fwd(table, *weights, coords, *consts),
                      lambda: permuto_cuda.encode_mlp_fwd_plain(table, *weights, coords, *consts),
-                     plain_window=True))]
+                     plain_window=True)
+    variant = permuto_cuda.encode_mlp_fwd_variant(table)
+    timing.update(variant=variant, device_kernels=list(MLP_FWD_DEVICE_KERNELS[variant]))
+    rows = [("encode_mlp_fwd", err, MLP_FWD_TOLERANCE, timing)]
+    check_encode_mlp_fwd_direct(torch, permuto_cuda, enc, weights, coords, gen)
+
 
     bwd_args = (coords, feats, g, w0, b0, w1, *consts)
     err, w_err = check_encode_mlp_bwd(torch, permuto_cuda, bwd_args)
@@ -683,17 +702,88 @@ def check_fused_kernels(torch, permuto_cuda, enc):
 
     unfused = {"encode_mlp_fwd": {"unfused_ms": time_ms(torch, unfused_fwd)[0]},
                "encode_mlp_bwd": {"unfused_ms": time_ms(torch, unfused_bwd, runs=10)[0]}}
-    f32 = 4
-    mlp_ops = 2 * (d * h + h * o)
-    weight_bytes = (d * h + h + h * o + o) * b * f32
-    stream = b * p * (3 + d + o) * f32  # coordinates, residual, outputs or cotangent
-    table_bytes = table.numel() * f32
     bounds = {
-        "encode_mlp_fwd": bound(table_bytes + weight_bytes + stream, b * p * (n_levels * LATTICE_OPS + mlp_ops)),
+        "encode_mlp_fwd": mlp_fwd_bound((table, *weights, coords)),
         "encode_mlp_bwd": mlp_bwd_bound(bwd_args, t),
     }
     shapes = {name: {"fields": b, "points": p, "D": d, "H": h, "O": o} for name in bounds}
     return report_rows(rows, shapes, bounds, unfused)
+
+
+MLP_FWD_TOLERANCE = "max abs <= 1e-5 (outputs and residual); residual equal to encode_fwd's"
+# The device kernels one encode_mlp_fwd call launches, by design.
+MLP_FWD_DEVICE_KERNELS = {
+    "staged": ("encode_fwd_staged_kernel", "mlp_fwd_kernel"),
+    "direct": ("encode_fwd_kernel", "mlp_fwd_kernel"),
+}
+
+
+def check_encode_mlp_fwd(torch, permuto_cuda, args):
+    """encode_mlp_fwd against its plain version -> (max abs error of the
+    outputs and the residual, the residual, the plain residual); raises
+    above 1e-5, or where the residual differs from encode_fwd's output on
+    the same inputs in any bit."""
+    table, coords, consts = args[0], args[5], args[6:]
+    out, feats = permuto_cuda.encode_mlp_fwd(*args)
+    ref_out, ref_feats = permuto_cuda.encode_mlp_fwd_plain(*args)
+    err = max(max_err(torch, out, ref_out), max_err(torch, feats, ref_feats))
+    if not err <= 1e-5:
+        raise AssertionError(f"encode_mlp_fwd max abs err {err} > 1e-5")
+    if not torch.equal(feats, permuto_cuda.encode_fwd(table, coords, *consts)):
+        raise AssertionError("encode_mlp_fwd's residual differs from encode_fwd's output")
+    return err, feats, ref_feats
+
+
+def mlp_fwd_bound(args):
+    """(least ms, what bounds it) of encode_mlp_fwd: tables, weights and
+    coordinates in, the residual and outputs out; the lattice and the MLP's
+    2 (D H + H O) operations a point."""
+    table, w0, b0, w1, b1, coords = args[:6]
+    b, p = coords.shape[0], coords.shape[-1]
+    d, h = w0.shape[-2:]
+    o = w1.shape[-1]
+    weight_bytes = (d * h + h + h * o + o) * b * 4
+    return bound(table.numel() * 4 + weight_bytes + b * p * (3 + d + o) * 4,
+                 b * p * ((d // 2) * LATTICE_OPS + 2 * (d * h + h * o)))
+
+
+def check_encode_mlp_fwd_direct(torch, permuto_cuda, enc, weights, coords, gen) -> None:
+    """Phase kernel_variant: encode_mlp_fwd's direct design (encode_fwd's
+    direct kernel, then the MLP pass) at the training shape with
+    log2_hashmap_size 14, whose level rows are above the staged maximum."""
+    big, consts = big_table_consts(enc)
+    table = torch.rand((coords.shape[0], 2, big.nr_levels, big.capacity), generator=gen,
+                       device=coords.device) * 2 - 1
+    args = (table, *weights, coords, *consts)
+    variant = permuto_cuda.encode_mlp_fwd_variant(table)
+    if variant != "direct":
+        raise AssertionError(f"encode_mlp_fwd took the {variant} design at T = {big.capacity}")
+    err = check_encode_mlp_fwd(torch, permuto_cuda, args)[0]
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_fwd(*args),
+                     lambda: permuto_cuda.encode_mlp_fwd_plain(*args), plain_window=True)
+    bound_ms, bound_by = mlp_fwd_bound(args)
+    phase("kernel_variant", name="encode_mlp_fwd", variant=variant,
+          device_kernels=list(MLP_FWD_DEVICE_KERNELS[variant]),
+          case=f"level rows above the staged maximum (log2_hashmap_size 14, T = {big.capacity})",
+          tolerance=MLP_FWD_TOLERANCE, max_abs_err=err,
+          shape={"fields": coords.shape[0], "points": coords.shape[-1], "table": big.capacity},
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_captured_encode_mlp_fwd(torch, permuto_cuda, call) -> dict:
+    """Phase kernel_captured: encode_mlp_fwd at the inputs one fused
+    training iteration of the 12-frame map gave it, against its plain
+    version and timed -> the fields it adds to the kernel row."""
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a for a in call[0])
+    table, coords = args[0], args[5]
+    err = check_encode_mlp_fwd(torch, permuto_cuda, args)[0]
+    timing = measure(torch, lambda: permuto_cuda.encode_mlp_fwd(*args),
+                     lambda: permuto_cuda.encode_mlp_fwd_plain(*args), plain_window=True)
+    bound_ms, bound_by = mlp_fwd_bound(args)
+    phase("kernel_captured", name="encode_mlp_fwd", variant=permuto_cuda.encode_mlp_fwd_variant(table),
+          shape={"fields": coords.shape[0], "points": coords.shape[-1]}, tolerance=MLP_FWD_TOLERANCE,
+          max_abs_err=err, **timing, bound_ms=bound_ms, bound_by=bound_by)
+    return {"captured_ms": timing["ms"], "captured_max_abs_err": err, "captured_bound_ms": bound_ms}
 
 
 MLP_BWD_TOLERANCE = "table gradient max abs <= 1e-4 * max|plain|; weight gradients <= 1e-4 relative"
@@ -1073,9 +1163,21 @@ def block_call(torch, ngm, camera, c2w, offset: int, rays: int, u):
     return args, dict(u=u, block_offset=offset, sample_spacing=float(ngm._sample_spacing))
 
 
-def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
+def field_runs(torch, tile_experts, live: int) -> dict:
+    """The live tiles' runs of one field (the dispatch sorts tiles by
+    field): their count and their mean, shortest and longest length in
+    tiles."""
+    _, lengths = torch.unique_consecutive(tile_experts[:live], return_counts=True)
+    return {"field_runs": int(lengths.numel()), "mean_run_tiles": live / int(lengths.numel()),
+            "min_run_tiles": int(lengths.min()), "max_run_tiles": int(lengths.max())}
+
+
+def check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds):
     """Phase 5: the render kernels against their plain versions at the
-    shapes of the first 8192-ray block of the trained map's 160x120 render."""
+    shapes of the first 8192-ray block of the trained map's 160x120 render.
+    Each MoE encode's line also gives the block's live pairs (its valid
+    (sample, field) pairs, counted from the dispatch's arguments) and its
+    field runs (:func:`field_runs`)."""
     dev = ngm._params["w0"].device
     gen = torch.Generator(dev).manual_seed(4321)
     block = min(ngm.render_block_size(), ds.camera.height * ds.camera.width)
@@ -1086,10 +1188,12 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
     rays_args, rays_kw = capture_call(
         permuto_cuda, "encode_fwd_moe_rays",
         lambda: engine.render_block_tiled(*args, use_ray_kernel=True, **kw))
+    (_, pair_valid, *_), _ = capture_call(
+        dispatch, "tiled_dispatch_sorted", lambda: engine.render_block_tiled(*args, use_ray_kernel=True, **kw))
+    live_pairs = int(pair_valid.sum())
     moe_args, moe_kw = capture_call(
         permuto_cuda, "encode_fwd_moe",
         lambda: engine.render_block_tiled(*args, use_ray_kernel=False, **kw))
-    f32 = 4
     rows, shapes, bounds = [], {}, {}
 
     # topk2_fields: bit-identical on every point
@@ -1119,28 +1223,75 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds):
         live = int(num_live)
         n_tiles, levels = c_args[1].shape[0], tables.shape[2]
         sel = torch.unique(torch.linspace(0, live - 1, min(256, live), device=dev).round().long())
-        full = kernel(*c_args, **c_kw)
-        per_tile = (1, 2, 3) if name == "encode_fwd_moe_rays" else (1, 2)  # tile-major inputs
-        sub_args = tuple(a[sel].contiguous() if j in per_tile else a for j, a in enumerate(c_args))
-        sub_kw = {k: v for k, v in c_kw.items() if k != "num_live_tiles"}
-        ref = plain(*sub_args, **sub_kw)
-        err = float((full[sel] - ref).abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"{name} max abs err {err} > 1e-5 on {sel.numel()} live tiles")
+        err = check_moe(torch, permuto_cuda, name, c_args, c_kw, sel)
         rows.append((name, err, f"max abs <= 1e-5 on {sel.numel()} live tiles",
                      measure(torch, lambda: kernel(*c_args, **c_kw),
                              lambda: plain(*c_args, **c_kw), plain_window=True)))
         te = c_args[3] if name == "encode_fwd_moe_rays" else c_args[2]
         experts = int(torch.unique(te[:live]).numel())
         pairs = live * permuto_cuda.TILE
-        in_bytes = pairs * (8 if name == "encode_fwd_moe_rays" else 12)  # index + distance, or xyz
-        table_bytes = experts * 2 * levels * tables.shape[3] * f32
-        rebuild_ops = 40 if name == "encode_fwd_moe_rays" else 0  # ray -> field-local point
-        bounds[name] = bound(in_bytes + table_bytes + pairs * 2 * levels * f32,
-                             pairs * (levels * LATTICE_OPS + rebuild_ops))
+        bounds[name] = moe_bound(name, pairs, experts, levels, tables.shape[3])
         shapes[name] = {"tiles": n_tiles, "live_tiles": live, "pairs": pts.shape[1] * 2,
-                        "live_fields": experts}
+                        "live_pairs": live_pairs, "live_fields": experts, **field_runs(torch, te, live)}
+        if name == "encode_fwd_moe_rays":
+            variant = permuto_cuda.encode_fwd_moe_rays_variant(tables)
+            rows[-1][3].update(variant=variant, device_kernels=[RAY_DEVICE_KERNELS[variant]])
+            check_moe_rays_direct(torch, permuto_cuda, ngm._fset.prototype.encoding, c_args, c_kw, sel,
+                                  gen, shapes[name])
     return report_rows(rows, shapes, bounds)
+
+
+# The device kernel of each encode_fwd_moe_rays design.
+RAY_DEVICE_KERNELS = {"staged": "encode_fwd_moe_rays_staged_kernel", "direct": "encode_fwd_moe_rays_kernel"}
+
+
+def check_moe(torch, permuto_cuda, name: str, args, kw, sel) -> float:
+    """A MoE encode (``name``) on a render block's inputs against its plain
+    version on the live tiles ``sel`` -> max abs error; raises above 1e-5."""
+    full = getattr(permuto_cuda, name)(*args, **kw)
+    per_tile = (1, 2, 3) if name == "encode_fwd_moe_rays" else (1, 2)  # tile-major inputs
+    sub_args = tuple(a[sel].contiguous() if j in per_tile else a for j, a in enumerate(args))
+    sub_kw = {k: v for k, v in kw.items() if k != "num_live_tiles"}
+    ref = getattr(permuto_cuda, name + "_plain")(*sub_args, **sub_kw)
+    err = float((full[sel] - ref).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{name} max abs err {err} > 1e-5 on {sel.numel()} live tiles")
+    return err
+
+
+def moe_bound(name: str, pairs: int, experts: int, levels: int, t: int):
+    """(least ms, what bounds it) of a MoE encode over ``pairs`` pairs of
+    live tiles: their inputs (an index and a distance, or xyz) and the
+    fields' tables in, the features out; the lattice (and the ray rebuild)."""
+    rays = name == "encode_fwd_moe_rays"
+    return bound(pairs * (8 if rays else 12) + experts * 2 * levels * t * 4 + pairs * 2 * levels * 4,
+                 pairs * (levels * LATTICE_OPS + (40 if rays else 0)))
+
+
+def check_moe_rays_direct(torch, permuto_cuda, enc, args, kw, sel, gen, shape) -> None:
+    """Phase kernel_variant: encode_fwd_moe_rays' direct design (corners
+    read through L2) on the render block's inputs with tables of
+    log2_hashmap_size 14 (T = 16,384: two levels' rows above the staged
+    design's shared memory), against its plain version on the same live
+    tiles, timed."""
+    big, consts = big_table_consts(enc)
+    tables = torch.rand(args[0].shape[:3] + (big.capacity,), generator=gen, device=args[0].device) * 2 - 1
+    big_args = (tables,) + tuple(args[1:7]) + consts
+    variant = permuto_cuda.encode_fwd_moe_rays_variant(tables)
+    if variant != "direct":
+        raise AssertionError(f"encode_fwd_moe_rays took the {variant} design at T = {big.capacity}")
+    err = check_moe(torch, permuto_cuda, "encode_fwd_moe_rays", big_args, kw, sel)
+    timing = measure(torch, lambda: permuto_cuda.encode_fwd_moe_rays(*big_args, **kw),
+                     lambda: permuto_cuda.encode_fwd_moe_rays_plain(*big_args, **kw), plain_window=True)
+    pairs = shape["live_tiles"] * permuto_cuda.TILE
+    bound_ms, bound_by = moe_bound("encode_fwd_moe_rays", pairs, shape["live_fields"], big.nr_levels,
+                                   big.capacity)
+    phase("kernel_variant", name="encode_fwd_moe_rays", variant=variant,
+          device_kernels=[RAY_DEVICE_KERNELS[variant]],
+          case=f"level rows above the staged shared memory (log2_hashmap_size 14, T = {big.capacity})",
+          tolerance=f"max abs <= 1e-5 on {sel.numel()} live tiles", max_abs_err=err,
+          shape=dict(shape, table=big.capacity), **timing,
+          bound_ms=bound_ms, bound_by=bound_by)
 
 
 def render_kernel_launches(permuto_cuda, topk):
@@ -1283,8 +1434,8 @@ def check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi):
     never the unfused encodes; steady ms a frame beside the unfused slice's
     (``unfused``: its median and mean); then one production-width iteration
     against the CPU and against the unfused route on the card -> (launches,
-    steady mean ms a frame, the (args, kwargs) of that iteration's
-    encode_mlp_bwd call on the card)."""
+    steady mean ms a frame, {name: (args, kwargs)} of that iteration's
+    encode_mlp_fwd and encode_mlp_bwd calls on the card)."""
     ngm = engine.NeuralGraphMap(dict(CONFIG, fused_mlp=True), device="cuda")
     torch.cuda.synchronize()
     permuto_cuda.reset_launch_counts()
@@ -1304,12 +1455,12 @@ def check_fused_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi):
         last_losses=all_losses[-1], card=smi,
     )
     results = []
-    calls = capture_calls(permuto_cuda, ("encode_mlp_bwd",), lambda: results.append(
+    calls = capture_calls(permuto_cuda, ("encode_mlp_fwd", "encode_mlp_bwd"), lambda: results.append(
         check_iteration_against_cpu(torch, engine, ngm, against_unfused=True)))
     worst_cpu, worst_unfused, losses = results[0]
     phase("fused_iteration_vs_cpu", max_rel_diff_cpu=worst_cpu, max_rel_diff_unfused_card=worst_unfused,
           tolerance="rel <= 1e-3", losses=losses)
-    return {k: launches[k] for k in names[:2]}, statistics.mean(steady) * 1e3, calls["encode_mlp_bwd"]
+    return {k: launches[k] for k in names[:2]}, statistics.mean(steady) * 1e3, calls
 
 
 def ab_training_routes(torch, engine, ds, frames, rounds: int, smi) -> None:
@@ -1586,7 +1737,7 @@ def main() -> None:
     from neural_graph_mapping_tpu_torch.eval import render_metrics
     from neural_graph_mapping_tpu_torch.mapping import engine, optimizer
     from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
-    from neural_graph_mapping_tpu_torch.ops import cuda_build, permuto_cuda, topk
+    from neural_graph_mapping_tpu_torch.ops import cuda_build, dispatch, permuto_cuda, topk
     from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
     from neural_graph_mapping_tpu_torch.ops.encodings import PermutohedralEncoding
 
@@ -1650,7 +1801,10 @@ def main() -> None:
     unfused = (statistics.median(steady) * 1e3, statistics.mean(steady) * 1e3)
     fused_launches, fused_mean_ms, captured = check_fused_slice(torch, engine, permuto_cuda, ds, frames,
                                                                 unfused, smi)
-    kernel_rows["encode_mlp_bwd"].update(check_captured_encode_mlp_bwd(torch, permuto_cuda, captured))
+    kernel_rows["encode_mlp_fwd"].update(check_captured_encode_mlp_fwd(torch, permuto_cuda,
+                                                                       captured["encode_mlp_fwd"]))
+    kernel_rows["encode_mlp_bwd"].update(check_captured_encode_mlp_bwd(torch, permuto_cuda,
+                                                                       captured["encode_mlp_bwd"]))
     launches.update(fused_launches)
     if args.profile is not None:
         profile_slice(torch, engine, ds, frames, fused_mean_ms, args.profile.with_name(args.profile.name + ".fused"),
@@ -1659,7 +1813,7 @@ def main() -> None:
         ab_training_routes(torch, engine, ds, frames, args.ab, smi)
 
     # -- 5-8. the render path on the trained map ------------------------------
-    kernel_rows.update(check_render_kernels(torch, engine, permuto_cuda, topk, ngm, ds))
+    kernel_rows.update(check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds))
     ray_launches, render_ms = check_render(torch, permuto_cuda, topk, render_metrics, ngm, ds, smi)
     carried_launches = check_render_carried(torch, permuto_cuda, topk, ngm, ds)
     check_render_block_against_cpu(torch, engine, ngm, ds)

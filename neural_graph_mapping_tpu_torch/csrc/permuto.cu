@@ -46,43 +46,18 @@ struct LevelConsts {
   uint32_t mask[kMaxLevels];  // level capacity - 1 (capacities are 2^k)
 };
 
-__device__ __constant__ uint32_t kHashPrimes[kDim] = {1u, 2654435761u, 805459861u};
+// The corner hash's primes, one a coordinate (immediates once unrolled).
+__host__ __device__ constexpr uint32_t hash_prime(int i) {
+  return i == 0 ? 1u : (i == 1 ? 2654435761u : 805459861u);
+}
 
-// The permutohedral lattice of one point at one level: hash-table indices of
-// the d+1 enclosing simplex corners and their barycentric weights. Same
-// arithmetic, in the same order, as lattice_keys_and_weights_soa in
-// ops/permuto.py (Adams, Baek, Davis 2010): elevate onto the sum-zero
-// hyperplane, round to the nearest remainder-0 point (rintf: half to even,
-// like torch.round and jnp.round), rank the residuals, fix points rounded
-// off the hyperplane, then weights and corner hashes.
-//
-// Every array here is indexed by compile-time constants once the loops are
-// unrolled, so all of it lives in registers. The barycentric sums take
-// selects, bary[b] = (bary[b] + (hit ? v : 0)) - (hit' ? v : 0), which is
-// the plain version's torch.where form and rounds the same (adding an exact
-// zero changes nothing). The first design's bary[d - rank[i]] += v, an
-// array indexed by a runtime rank, put bary in local memory (PERF.md §6).
-__device__ __forceinline__ void lattice_level(
-    float x, float y, float z, const LevelConsts& c, int l,
-    uint32_t idx[kCorners], float w[kCorners]) {
-  const float cf[kDim] = {
-      (x / c.scale[l] + c.shift[l][0]) * c.elev[0],
-      (y / c.scale[l] + c.shift[l][1]) * c.elev[1],
-      (z / c.scale[l] + c.shift[l][2]) * c.elev[2],
-  };
-  float suffix[kDim + 1];
-  suffix[kDim] = 0.0f;
-#pragma unroll
-  for (int i = kDim - 1; i >= 0; --i) suffix[i] = suffix[i + 1] + cf[i];
-  float elevated[kCorners];
-  elevated[0] = suffix[0];
-#pragma unroll
-  for (int i = 1; i <= kDim; ++i) elevated[i] = suffix[i] - (float)i * cf[i - 1];
-
+// Rounds an elevated point to the nearest remainder-0 lattice point and
+// ranks the residuals from the largest (rank 0; equal residuals in index
+// order) -> rem0, rank, and the remainder sum.
+__device__ __forceinline__ float lattice_round_and_rank(const float elevated[kCorners],
+                                                        float rem0[kCorners], int rank[kCorners]) {
   const float down = 1.0f / (float)(kDim + 1);
-  float rem0[kCorners];
   float diff[kCorners];
-  int rank[kCorners];
   float rem_sum = 0.0f;
 #pragma unroll
   for (int i = 0; i < kCorners; ++i) {
@@ -95,14 +70,33 @@ __device__ __forceinline__ void lattice_level(
   for (int i = 0; i < kCorners; ++i) {
 #pragma unroll
     for (int j = i + 1; j < kCorners; ++j) {
-      if (diff[i] < diff[j]) {
-        rank[i] += 1;
-      } else {
-        rank[j] += 1;
-      }
+      const int smaller = diff[i] < diff[j];
+      rank[i] += smaller;
+      rank[j] += 1 - smaller;
     }
   }
-  const int s = (int)rintf(rem_sum * down);
+  return rem_sum;
+}
+
+// Corner indices and barycentric weights of one point at one level.
+struct Corners {
+  uint32_t idx[kCorners];
+  float w[kCorners];
+};
+
+// lattice_level for the points its short form cannot take: the plain
+// version's own form, fix-up by branches and the barycentric sums as
+// bary[b] = (bary[b] + (hit ? v : 0)) - (hit' ? v : 0) over the corners in
+// order. Out of line, so a kernel that unrolls several levels carries one
+// copy of it, not one a level (the direct encode_fwd: 1,725 SASS
+// instructions, 2,289 with the copies inline).
+__device__ __noinline__ Corners lattice_level_select_form(float e0, float e1, float e2, float e3,
+                                                          uint32_t mask) {
+  const float elevated[kCorners] = {e0, e1, e2, e3};
+  const float down = 1.0f / (float)(kDim + 1);
+  float rem0[kCorners];
+  int rank[kCorners];
+  const int s = (int)rintf(lattice_round_and_rank(elevated, rem0, rank) * down);
 #pragma unroll
   for (int i = 0; i < kCorners; ++i) {
     const int r = rank[i] + s;
@@ -128,6 +122,7 @@ __device__ __forceinline__ void lattice_level(
   }
   bary[0] = (bary[0] + 1.0f) + bary[kDim + 1];
 
+  Corners out;
 #pragma unroll
   for (int k = 0; k < kCorners; ++k) {
     uint32_t h = 0u;
@@ -135,29 +130,142 @@ __device__ __forceinline__ void lattice_level(
     for (int i = 0; i < kDim; ++i) {
       const int offset = rank[i] < (kDim + 1 - k) ? k : k - (kDim + 1);
       const int key = (int)rem0[i] + offset;
-      h ^= (uint32_t)key * kHashPrimes[i];  // wraps mod 2^32, as uint32 does
+      h ^= (uint32_t)key * hash_prime(i);  // wraps mod 2^32, as uint32 does
+    }
+    out.idx[k] = h & mask;
+    out.w[k] = bary[k];
+  }
+  return out;
+}
+
+// The permutohedral lattice of one point at one level: hash-table indices of
+// the d+1 enclosing simplex corners and their barycentric weights. Same
+// arithmetic, in the same order, as lattice_keys_and_weights_soa in
+// ops/permuto.py (Adams, Baek, Davis 2010): elevate onto the sum-zero
+// hyperplane, round to the nearest remainder-0 point (rintf: half to even,
+// like torch.round and jnp.round), rank the residuals, fix points rounded
+// off the hyperplane, then weights and corner hashes.
+//
+// Every array here is indexed by compile-time constants once the loops are
+// unrolled, so all of it lives in registers (an array indexed by a runtime
+// rank went to local memory, PERF.md §6). The kernels that call this spent
+// most of their time issuing its instructions (PERF.md §6: 410 SASS
+// instructions a level, issued at 85% of an H100's rate in the ray
+// encode), so the steps are written to take few of them (~280 a level on
+// the usual path) and give the same floats:
+// - The fix-up is selects, not branches.
+// - The ranks are a permutation of 0..d, and the fix-up shifts them
+//   cyclically, so bin b of the barycentric sums receives exactly one +v
+//   (from the corner of rank d - b) and one -v (rank d + 1 - b); the
+//   plain version's select form adds only exact zeros besides, so
+//   bary[b] = (0 + v_a) - v_b, rounded once, whichever comes first. The
+//   corner of each rank is picked by three selects (the inverse
+//   permutation) instead of 40 select-and-add pairs.
+// - The corner hashes add a rank-dependent offset to each rounded
+//   coordinate: offset_i(k) = ((rank_i + k) mod (d + 1)) - rank_i.
+// The ranks are a permutation where every residual is a number (else a
+// comparison with NaN breaks the order) and the shift s is in [-(d+1), d+1]
+// (else the fix-up leaves ranks outside 0..d): both hold where the
+// remainder sum is within (d+1)^2, and it is within 2(d+1) unless the
+// elevated sums lose whole units (coordinates some 2^22 lattice cells
+// out). Any other point takes lattice_level_select_form.
+__device__ __forceinline__ void lattice_level(
+    float x, float y, float z, const LevelConsts& c, int l,
+    uint32_t idx[kCorners], float w[kCorners]) {
+  const float cf[kDim] = {
+      (x / c.scale[l] + c.shift[l][0]) * c.elev[0],
+      (y / c.scale[l] + c.shift[l][1]) * c.elev[1],
+      (z / c.scale[l] + c.shift[l][2]) * c.elev[2],
+  };
+  float suffix[kDim + 1];
+  suffix[kDim] = 0.0f;
+#pragma unroll
+  for (int i = kDim - 1; i >= 0; --i) suffix[i] = suffix[i + 1] + cf[i];
+  float elevated[kCorners];
+  elevated[0] = suffix[0];
+#pragma unroll
+  for (int i = 1; i <= kDim; ++i) elevated[i] = suffix[i] - (float)i * cf[i - 1];
+
+  const float down = 1.0f / (float)(kDim + 1);
+  float rem0[kCorners];
+  int rank[kCorners];
+  const float rem_sum = lattice_round_and_rank(elevated, rem0, rank);
+  if (!(fabsf(rem_sum) <= (float)(kCorners * (kDim + 1)))) {
+    const Corners plain = lattice_level_select_form(elevated[0], elevated[1], elevated[2], elevated[3],
+                                                    c.mask[l]);
+#pragma unroll
+    for (int k = 0; k < kCorners; ++k) {
+      idx[k] = plain.idx[k];
+      w[k] = plain.w[k];
+    }
+    return;
+  }
+  const int s = (int)rintf(rem_sum * down);
+#pragma unroll
+  for (int i = 0; i < kCorners; ++i) {
+    const int r = rank[i] + s;
+    const bool low = r < 0;
+    const bool high = r > kDim;
+    rank[i] = r & kDim;  // r + 4, r - 4 or r: r is in [-4, 7]
+    const float up = rem0[i] + (float)(kDim + 1);
+    const float dn = rem0[i] - (float)(kDim + 1);
+    rem0[i] = low ? up : (high ? dn : rem0[i]);
+  }
+  float v[kCorners];
+#pragma unroll
+  for (int i = 0; i < kCorners; ++i) v[i] = (elevated[i] - rem0[i]) * down;
+  float by_rank[kCorners];  // by_rank[q] = v of the corner of rank q
+#pragma unroll
+  for (int q = 0; q < kCorners; ++q) {
+    float t = v[kDim];
+#pragma unroll
+    for (int i = kDim - 1; i >= 0; --i) t = rank[i] == q ? v[i] : t;
+    by_rank[q] = t;
+  }
+  // bary[0] = ((0 + v_rank3) + 1) + (0 - v_rank0): adding the exact zeros
+  // leaves v_rank3 + 1 and subtracts v_rank0 once
+  w[0] = (by_rank[kDim] + 1.0f) - by_rank[0];
+#pragma unroll
+  for (int k = 1; k < kCorners; ++k) w[k] = (0.0f + by_rank[kDim - k]) - by_rank[kDim + 1 - k];
+#pragma unroll
+  for (int k = 0; k < kCorners; ++k) {
+    uint32_t h = 0u;
+#pragma unroll
+    for (int i = 0; i < kDim; ++i) {
+      const uint32_t key = (uint32_t)(int)rem0[i] - (uint32_t)rank[i] + (uint32_t)((rank[i] + k) & kDim);
+      h ^= key * hash_prime(i);  // wraps mod 2^32, as uint32 does
     }
     idx[k] = h & c.mask[l];
-    w[k] = bary[k];
   }
+}
+
+// p itself, hidden from the compiler's address arithmetic: a read at
+// opaque(p) + i is one address instruction, where the compiler would
+// otherwise rebuild p's 64-bit sum at every read.
+template <class T>
+__device__ __forceinline__ const T* opaque(const T* p) {
+  asm("" : "+l"(p));
+  return p;
 }
 
 // One level of one point from one field's feature-major (2, L, T) table,
 // read through L2: o[(2l + f) * stride + p] = sum_k w_k * tab[f, l, idx_k].
+// Feature 1's row is addressed from feature 0's by a 32-bit offset (one
+// address instruction a read).
 __device__ __forceinline__ void encode_level(const float* __restrict__ tab, int T, int L, int l,
                                              float x, float y, float z, const LevelConsts& c,
                                              float* __restrict__ o, size_t stride, int p) {
   uint32_t idx[kCorners];
   float w[kCorners];
   lattice_level(x, y, z, c, l, idx, w);
-  const float* t0 = tab + (size_t)l * T;
-  const float* t1 = tab + (size_t)(L + l) * T;
+  const float* t0 = opaque(tab + (size_t)l * T);
+  const uint32_t f1 = (uint32_t)L * (uint32_t)T;
   float acc0 = 0.0f;
   float acc1 = 0.0f;
 #pragma unroll
   for (int k = 0; k < kCorners; ++k) {
     acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
-    acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
+    acc1 = acc1 + w[k] * __ldg(t0 + (idx[k] + f1));
   }
   o[(size_t)(2 * l) * stride + p] = acc0;
   o[(size_t)(2 * l + 1) * stride + p] = acc1;
@@ -198,10 +306,16 @@ __device__ __forceinline__ void encode_point(const float* __restrict__ tab, int 
 // one thread a (field, point, group of kFwdDirectLevels levels), grid
 // (points, level groups, fields), corners read through L2; 4 levels a
 // thread was the fastest of 1, 2, 4 and 16 in an A/B on an H100 (PERF.md §6).
+// Its blocks take 1024 points: the larger the block, the fewer (field,
+// level group) tables an SM's blocks read at once and the more of their
+// corners its L1 holds; 256, 384, 512, 768 and 1024 threads took 0.274,
+// 0.252, 0.227, 0.184 and 0.158 ms at 32 fields x 12,288 points, T = 16,384
+// (PERF.md §6).
 // The TPU's 128-lane chunk sweep and bf16 pair packing existed to emulate a
 // gather the TPU lacks and are not carried over.
 constexpr int kFwdThreads = 512;  // 16 warps a (field, level) block
 constexpr int kFwdDirectLevels = 4;
+constexpr int kFwdDirectThreads = 1024;
 
 __global__ void __launch_bounds__(kFwdThreads) encode_fwd_staged_kernel(
     const float* __restrict__ table, const float* __restrict__ coords,
@@ -264,10 +378,9 @@ __global__ void __launch_bounds__(kFwdThreads) encode_fwd_staged_kernel(
   }
 }
 
-__global__ void encode_fwd_kernel(const float* __restrict__ table,
-                                  const float* __restrict__ coords,
-                                  float* __restrict__ out, int P, int T,
-                                  __grid_constant__ const LevelConsts c) {
+__global__ void __launch_bounds__(kFwdDirectThreads) encode_fwd_kernel(
+    const float* __restrict__ table, const float* __restrict__ coords, float* __restrict__ out, int P,
+    int T, __grid_constant__ const LevelConsts c) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const int l0 = blockIdx.y * kFwdDirectLevels;
   const int b = blockIdx.z;
@@ -612,17 +725,18 @@ __global__ void batched_gather_kernel(const float* __restrict__ values,
 // host never waits for it) hold only invalid pairs and padding: their
 // output is never written and every consumer masks it by select.
 //
-// Bound: the same random 8-byte table gathers as encode_fwd_kernel, now
-// ~1.07 G per 8,388,608-pair render block (16 levels x 4 corners x 2
-// features a pair), plus the 1.07 GB (tiles, 2L, 1024) f32 output, which is
-// the least traffic the block needs (~0.32 ms at 3.35 TB/s). Consecutive
-// tiles mostly share a field, so a field's 512 KiB table is reused from L2;
-// even 1000 fields' tables (512 MB) are gathered straight from device
-// memory through L2 without staging. Design: one block of kThreads threads
-// per quarter tile (grid = tiles x kTile / kThreads), one thread per pair,
-// the tile's field read once per thread from tile_experts; coordinates and
-// outputs are coalesced along the tile's lanes. The TPU kernel's table DMA
-// per grid step and its 128-lane sweep are not carried over.
+// Bound: bytes, the live tiles' inputs and their (tiles, 2L, 1024) f32
+// output (~0.25 ms at 3.35 TB/s for the smoke's 8,388,608-pair render
+// block). What the first designs spend their time on is issuing the
+// lattice's instructions: 410 SASS instructions a (pair, level) at 85% of
+// the card's issue rate (PERF.md §6); the corner reads through L2 came
+// second. Consecutive tiles mostly share a field (the dispatch sorts
+// them), so a field's 512 KiB table is reused. encode_fwd_moe_kernel's
+// design, the first one: one block of kThreads threads per quarter tile
+// (grid = tiles x kTile / kThreads), one thread per pair, all levels, the
+// corners read through L2; coordinates and outputs coalesced along the
+// tile's lanes. The TPU kernel's table DMA per grid step and its 128-lane
+// sweep are not carried over.
 constexpr int kTile = 1024;  // pairs per tile (permuto_pallas.TILE_M)
 
 // Replaces permuto_pallas.encode_fwd_moe (_encode_fwd_moe_kernel): the MoE
@@ -654,17 +768,77 @@ struct RayConsts {
   float coord_shift;
 };
 
-// Replaces permuto_pallas.encode_fwd_moe_rays (_encode_fwd_moe_rays_kernel):
-// the MoE encode that rebuilds each sample point from its k-minor pair index
-// and span distance, in the TPU kernel's order of operations:
+// One pair's field-local point, rebuilt from its k-minor pair index and
+// span distance in the TPU kernel's order of operations:
 //   ray = orig >> log2_ks; pixel = block_offset + ray; row = pixel / width
 //   (an exact integer division, no f32 reciprocal); direction
 //   (R @ ((j - cx)/fx, -(i - cy)/fy, -1)) / norm; world = origin + dir * dist;
 //   local = conj(q) * (world - p_field) * coord_scale + coord_shift.
 // rayp (16,) f32 on the device: R row-major (9), origin (3), 1/fx, 1/fy, cx,
-// cy. poses (N, 7): position, wxyz quaternion. The norm is 1 / sqrtf(...)
+// cy. pose (7,): position, wxyz quaternion. The norm is 1 / sqrtf(...)
 // (IEEE sqrt and division, no rsqrtf approximation) so the coordinates are
 // bit-identical to the plain version's and land on the same simplex corners.
+__device__ __forceinline__ void ray_point(int orig, float d, const float* __restrict__ rayp,
+                                          const float* __restrict__ pose, const RayConsts& rc,
+                                          float& xs, float& ys, float& zs) {
+  const int ray = (int)((uint32_t)orig >> rc.log2_ks);
+  const int pix = ray + rc.block_offset;
+  const int iy_i = pix / rc.width;
+  const float iy = (float)iy_i;
+  const float jx = (float)(pix - iy_i * rc.width);
+  const float dx = (jx - __ldg(rayp + 14)) * __ldg(rayp + 12);
+  const float dy = -(iy - __ldg(rayp + 15)) * __ldg(rayp + 13);
+  const float inv_n = 1.0f / sqrtf(dx * dx + dy * dy + 1.0f);
+  const float dwx = (__ldg(rayp + 0) * dx + __ldg(rayp + 1) * dy - __ldg(rayp + 2)) * inv_n;
+  const float dwy = (__ldg(rayp + 3) * dx + __ldg(rayp + 4) * dy - __ldg(rayp + 5)) * inv_n;
+  const float dwz = (__ldg(rayp + 6) * dx + __ldg(rayp + 7) * dy - __ldg(rayp + 8)) * inv_n;
+  const float px = __ldg(rayp + 9) + dwx * d - __ldg(pose + 0);
+  const float py = __ldg(rayp + 10) + dwy * d - __ldg(pose + 1);
+  const float pz = __ldg(rayp + 11) + dwz * d - __ldg(pose + 2);
+  // inverse quaternion rotate (conjugate), as fields.world_to_local_soa
+  const float qw = __ldg(pose + 3);
+  const float qx = -__ldg(pose + 4);
+  const float qy = -__ldg(pose + 5);
+  const float qz = -__ldg(pose + 6);
+  const float tx = 2.0f * (qy * pz - qz * py);
+  const float ty = 2.0f * (qz * px - qx * pz);
+  const float tz = 2.0f * (qx * py - qy * px);
+  xs = (px + qw * tx + (qy * tz - qz * ty)) * rc.coord_scale + rc.coord_shift;
+  ys = (py + qw * ty + (qz * tx - qx * tz)) * rc.coord_scale + rc.coord_shift;
+  zs = (pz + qw * tz + (qx * ty - qy * tx)) * rc.coord_scale + rc.coord_shift;
+}
+
+// Replaces permuto_pallas.encode_fwd_moe_rays (_encode_fwd_moe_rays_kernel):
+// the MoE encode that rebuilds each sample point from its pair index and
+// span distance (ray_point).
+//
+// Design, staged (encode_fwd_moe_rays_staged_kernel): a block of
+// kRayThreads threads takes kRayTiles consecutive tiles and every level.
+// It rebuilds each of its pairs once into shared memory (the first design
+// rebuilt a pair's ray once, but read its corners through L2; staging by
+// (tiles, level) on the grid rebuilds a pair once a level group), then
+// walks the levels kRayLevels at a time: it copies the tile's field's rows
+// of those levels into shared memory interleaved as (cap_l, 2), so a corner
+// is one 8-byte shared load (two 4-byte L2 reads before), and copies again
+// only where tile_experts changes within its tiles (the field runs are
+// ~200 tiles long in a render block). 2 levels at a time and 4 tiles a
+// block (112 KB of shared memory at T = 4,096, 2 blocks an SM) were the
+// fastest of 1, 2 or 4 levels and 2, 4 or 8 tiles in an A/B on an H100
+// (PERF.md §6). Tables whose rows do not fit (ray_staged_fits: T > 11,456)
+// take the direct design, encode_fwd_moe_rays_kernel: one thread a pair,
+// all levels, the corners read through L2. Blocks past the live tiles
+// return at once.
+constexpr int kRayThreads = 512;
+constexpr int kRayLevels = 2;  // levels staged at a time
+constexpr int kRayTiles = 4;   // tiles a block
+constexpr int kMaxSharedBytes = 227 * 1024;  // dynamic shared memory a block may take
+// shared memory of the staged design: kRayLevels (T, 2) rows, then the
+// points (3, kRayTiles x kTile)
+size_t ray_staged_bytes(int T) {
+  return 8 * (size_t)kRayLevels * T + 12 * (size_t)kRayTiles * kTile;
+}
+bool ray_staged_fits(int T) { return T >= 1 && ray_staged_bytes(T) <= (size_t)kMaxSharedBytes; }
+
 __global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
                                            const int* __restrict__ orig,
                                            const float* __restrict__ dist,
@@ -680,36 +854,85 @@ __global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
   const int lane = blockIdx.y * blockDim.x + threadIdx.x;
   const size_t i = (size_t)t * kTile + lane;
   const int e = __ldg(tile_experts + t);
-  const int ray = (int)((uint32_t)orig[i] >> rc.log2_ks);
-  const int pix = ray + rc.block_offset;
-  const int iy_i = pix / rc.width;
-  const float iy = (float)iy_i;
-  const float jx = (float)(pix - iy_i * rc.width);
-  const float dx = (jx - __ldg(rayp + 14)) * __ldg(rayp + 12);
-  const float dy = -(iy - __ldg(rayp + 15)) * __ldg(rayp + 13);
-  const float inv_n = 1.0f / sqrtf(dx * dx + dy * dy + 1.0f);
-  const float dwx = (__ldg(rayp + 0) * dx + __ldg(rayp + 1) * dy - __ldg(rayp + 2)) * inv_n;
-  const float dwy = (__ldg(rayp + 3) * dx + __ldg(rayp + 4) * dy - __ldg(rayp + 5)) * inv_n;
-  const float dwz = (__ldg(rayp + 6) * dx + __ldg(rayp + 7) * dy - __ldg(rayp + 8)) * inv_n;
-  const float d = dist[i];
-  const float* pose = poses + (size_t)e * 7;
-  const float px = __ldg(rayp + 9) + dwx * d - __ldg(pose + 0);
-  const float py = __ldg(rayp + 10) + dwy * d - __ldg(pose + 1);
-  const float pz = __ldg(rayp + 11) + dwz * d - __ldg(pose + 2);
-  // inverse quaternion rotate (conjugate), as fields.world_to_local_soa
-  const float qw = __ldg(pose + 3);
-  const float qx = -__ldg(pose + 4);
-  const float qy = -__ldg(pose + 5);
-  const float qz = -__ldg(pose + 6);
-  const float tx = 2.0f * (qy * pz - qz * py);
-  const float ty = 2.0f * (qz * px - qx * pz);
-  const float tz = 2.0f * (qx * py - qy * px);
-  const float xs = (px + qw * tx + (qy * tz - qz * ty)) * rc.coord_scale + rc.coord_shift;
-  const float ys = (py + qw * ty + (qz * tx - qx * tz)) * rc.coord_scale + rc.coord_shift;
-  const float zs = (pz + qw * tz + (qx * ty - qy * tx)) * rc.coord_scale + rc.coord_shift;
+  float xs, ys, zs;
+  ray_point(orig[i], dist[i], rayp, poses + (size_t)e * 7, rc, xs, ys, zs);
   const int L = c.n_levels;
   encode_point(tables + (size_t)e * 2 * L * T, T, xs, ys, zs, c,
                out + (size_t)t * 2 * L * kTile, kTile, lane);
+}
+
+__global__ void __launch_bounds__(kRayThreads) encode_fwd_moe_rays_staged_kernel(
+    const float* __restrict__ tables, const int* __restrict__ orig,
+    const float* __restrict__ dist, const int* __restrict__ tile_experts,
+    const int* __restrict__ num_live, const float* __restrict__ rayp,
+    const float* __restrict__ poses, float* __restrict__ out, int T, int tiles,
+    __grid_constant__ const RayConsts rc, __grid_constant__ const LevelConsts c) {
+  extern __shared__ __align__(16) float2 srows[];  // kRayLevels x (cap_l, 2), then the points
+  float* spts = reinterpret_cast<float*>(srows + kRayLevels * (size_t)T);
+  constexpr int kPairs = kRayTiles * kTile;
+  const int live = min(__ldg(num_live), tiles);
+  const int t0 = blockIdx.x * kRayTiles;
+  if (t0 >= live) return;
+  const int nt = min(kRayTiles, live - t0);
+  const int L = c.n_levels;
+  for (int q = threadIdx.x; q < nt * kTile; q += kRayThreads) {
+    const size_t i = (size_t)t0 * kTile + q;
+    const int e = __ldg(tile_experts + t0 + q / kTile);
+    ray_point(orig[i], dist[i], rayp, poses + (size_t)e * 7, rc, spts[q], spts[kPairs + q],
+              spts[2 * kPairs + q]);
+  }
+  for (int l0 = 0; l0 < L; l0 += kRayLevels) {
+    int offs[kRayLevels];
+    int caps[kRayLevels];
+    int o = 0;
+#pragma unroll
+    for (int g = 0; g < kRayLevels; ++g) {
+      offs[g] = o;
+      caps[g] = l0 + g < L ? (int)c.mask[l0 + g] + 1 : 0;
+      o += caps[g];
+    }
+    int cur = -1;
+    for (int j = 0; j < nt; ++j) {
+      const int e = __ldg(tile_experts + t0 + j);
+      if (e != cur) {  // the same for every thread of the block
+        __syncthreads();  // the points are written; the last rows are read
+#pragma unroll
+        for (int g = 0; g < kRayLevels; ++g) {
+          const float* r0 = tables + ((size_t)e * 2 * L + l0 + g) * T;
+          const float* r1 = r0 + (size_t)L * T;
+          for (int q = threadIdx.x; q < caps[g]; q += kRayThreads) {
+            srows[offs[g] + q] = make_float2(__ldg(r0 + q), __ldg(r1 + q));
+          }
+        }
+        __syncthreads();
+        cur = e;
+      }
+      float* ot = out + (size_t)(t0 + j) * 2 * L * kTile;
+      for (int lane = threadIdx.x; lane < kTile; lane += kRayThreads) {
+        const int q = j * kTile + lane;
+        const float x = spts[q], y = spts[kPairs + q], z = spts[2 * kPairs + q];
+#pragma unroll
+        for (int g = 0; g < kRayLevels; ++g) {
+          const int l = l0 + g;
+          if (l < L) {
+            uint32_t idx[kCorners];
+            float w[kCorners];
+            lattice_level(x, y, z, c, l, idx, w);
+            float acc0 = 0.0f;
+            float acc1 = 0.0f;
+#pragma unroll
+            for (int k = 0; k < kCorners; ++k) {
+              const float2 f = srows[offs[g] + idx[k]];
+              acc0 = acc0 + w[k] * f.x;
+              acc1 = acc1 + w[k] * f.y;
+            }
+            ot[(size_t)(2 * l) * kTile + lane] = acc0;
+            ot[(size_t)(2 * l + 1) * kTile + lane] = acc1;
+          }
+        }
+      }
+    }
+  }
 }
 
 // -- gather route: per-(row, pair) lookups and their histogram ----------------
@@ -1032,76 +1255,90 @@ __device__ __forceinline__ void load_mlp_weights(
 
 // Replaces permuto_pallas.encode_mlp_fwd (_encode_mlp_fwd_kernel):
 // out[b, :, p] = w1^T relu(w0^T f + b0) + b1 with f = the encode of
-// encode_fwd_kernel, and f written once as the (B, D, P) residual.
+// encode_fwd, and f written once as the (B, D, P) residual.
 //
-// Bound: the encode's random table gathers (as encode_fwd_kernel) plus the
-// residual and outputs streamed once; the MLP's 2 x (D x H + H x O) f32
-// operations a point are a few percent of the card's f32 rate at the
-// training shape. Design: one thread per (field, point), grid y = field; the
-// field's weights in shared memory (read as broadcasts), the D features and
-// H hidden units in registers; plain fmaf products, no tensor cores. The
-// TPU kernel's slab relayouts and ones-row bias folding are not carried
-// over: the biases are added directly.
-__global__ void __launch_bounds__(kMlpThreads) encode_mlp_fwd_kernel(
-    const float* __restrict__ table, const float* __restrict__ coords,
-    const float* __restrict__ w0, const float* __restrict__ b0,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    float* __restrict__ out, float* __restrict__ feats, int P, int T, int H,
-    int O, __grid_constant__ const LevelConsts c) {
-  __shared__ float sw0[kMlpMaxD][kMlpMaxH];
-  __shared__ float sb0[kMlpMaxH];
-  __shared__ float sw1[kMlpMaxH][kMlpMaxO];
+// Bound: operations, the lattice of 16 levels and the MLP's
+// 2 x (D x H + H x O) f32 operations a point; then the bytes of the tables,
+// the coordinates in and the residual and outputs out. The residual is
+// written in any design (the backward reads it), so the encode's kernel can
+// write it and a second kernel read it back (50 MB at the training shape,
+// ~0.015 ms at 3.35 TB/s). What limited the first design (one kernel, one
+// thread a (field, point) walking 16 levels, the MLP in registers) was the
+// encode, as in encode_fwd's first design: its corners read through L2.
+// Design, as encode_mlp_bwd's: two device kernels on the stream, one
+// counted launch. encode_fwd's kernel for the shape (launch_encode_fwd:
+// staged up to kMaxStagedBytes, direct above; unchanged, so the residual is
+// encode_fwd's output bit for bit) writes the residual, then mlp_fwd_kernel
+// takes one thread a (field, point) and kMlpFwdRounds rounds of
+// kMlpThreads points a block: the field's weights in shared memory (read
+// 16 bytes at a time, each round: a compiler barrier keeps the compiler
+// from hoisting all 1,152 of them into registers, which spilled 4 KB a
+// thread), the D features and H hidden units in registers, held to
+// kMlpFwdBlocks blocks an SM, plain fmaf products in f32 (no tensor cores,
+// no TF32, as the plain version computes on the CPU) in the first design's
+// order, so the outputs are its outputs bit for bit, and one coalesced
+// store an output. 2 rounds at 6 blocks an SM beat 1 or 4 rounds and 1 or 4
+// blocks, and the two kernels beat the first design at T = 16,384 too, in
+// an A/B on an H100 (PERF.md §6). The TPU kernel's slab relayouts and
+// ones-row bias folding are not carried over: the biases are added
+// directly.
+constexpr int kMlpFwdRounds = 2;
+constexpr int kMlpFwdBlocks = 6;  // blocks an SM: at most 85 registers a thread
+
+__global__ void __launch_bounds__(kMlpThreads, kMlpFwdBlocks) mlp_fwd_kernel(
+    const float* __restrict__ feats, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ w1,
+    const float* __restrict__ b1, float* __restrict__ out, int P, int L, int H, int O) {
+  __shared__ __align__(16) float sw0[kMlpMaxD][kMlpMaxH];
+  __shared__ __align__(16) float sb0[kMlpMaxH];
+  __shared__ __align__(16) float sw1[kMlpMaxH][kMlpMaxO];
+  static_assert(kMlpMaxH % 4 == 0 && kMlpMaxO == 4, "16-byte weight reads");
   const int b = blockIdx.y;
-  const int L = c.n_levels;
   const int D = 2 * L;
   load_mlp_weights(w0 + (size_t)b * D * H, b0 + (size_t)b * H, w1 + (size_t)b * H * O,
                    D, H, O, sw0, sb0, sw1);
+  float bias[kMlpMaxO];
+#pragma unroll
+  for (int q = 0; q < kMlpMaxO; ++q) bias[q] = q < O ? b1[(size_t)b * O + q] : 0.0f;
   __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const size_t cbase = (size_t)b * kDim * P;
-  const float x = coords[cbase + p];
-  const float y = coords[cbase + P + p];
-  const float z = coords[cbase + 2 * (size_t)P + p];
-  const float* tab = table + (size_t)b * 2 * L * T;
-  float* fo = feats + (size_t)b * D * P;
-  float f[kMlpMaxD];
-#pragma unroll
-  for (int l = 0; l < kMlpMaxLevels; ++l) {
-    float acc0 = 0.0f;
-    float acc1 = 0.0f;
-    if (l < L) {  // the blend of encode_point, kept in registers
-      uint32_t idx[kCorners];
-      float w[kCorners];
-      lattice_level(x, y, z, c, l, idx, w);
-      const float* t0 = tab + (size_t)l * T;
-      const float* t1 = tab + (size_t)(L + l) * T;
-      for (int k = 0; k < kCorners; ++k) {
-        acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
-        acc1 = acc1 + w[k] * __ldg(t1 + idx[k]);
-      }
-      fo[(size_t)(2 * l) * P + p] = acc0;
-      fo[(size_t)(2 * l + 1) * P + p] = acc1;
-    }
-    f[2 * l] = acc0;
-    f[2 * l + 1] = acc1;
-  }
-  float o[kMlpMaxO];
-#pragma unroll
-  for (int q = 0; q < kMlpMaxO; ++q) o[q] = q < O ? b1[(size_t)b * O + q] : 0.0f;
-#pragma unroll
-  for (int j = 0; j < kMlpMaxH; ++j) {
-    float a = sb0[j];
-#pragma unroll
-    for (int d = 0; d < kMlpMaxD; ++d) a = fmaf(sw0[d][j], f[d], a);
-    a = fmaxf(a, 0.0f);
-#pragma unroll
-    for (int q = 0; q < kMlpMaxO; ++q) o[q] = fmaf(sw1[j][q], a, o[q]);
-  }
+  const float* fb = feats + (size_t)b * D * P;
   float* ob = out + (size_t)b * O * P;
+  for (int r = 0; r < kMlpFwdRounds; ++r) {
+    const int p = (blockIdx.x * kMlpFwdRounds + r) * kMlpThreads + threadIdx.x;
+    if (p >= P) return;
+    asm volatile("" ::: "memory");  // the compiler barrier: weights read each round
+    float f[kMlpMaxD];
 #pragma unroll
-  for (int q = 0; q < kMlpMaxO; ++q) {
-    if (q < O) ob[(size_t)q * P + p] = o[q];
+    for (int d = 0; d < kMlpMaxD; ++d) f[d] = d < D ? fb[(size_t)d * P + p] : 0.0f;
+    // a0[j] = b0[j] + sum_d w0[d][j] f[d], d in order
+    float a0[kMlpMaxH];
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; ++j) a0[j] = sb0[j];
+#pragma unroll
+    for (int d = 0; d < kMlpMaxD; ++d) {
+#pragma unroll
+      for (int j = 0; j < kMlpMaxH; j += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(&sw0[d][j]);
+        a0[j] = fmaf(w.x, f[d], a0[j]);
+        a0[j + 1] = fmaf(w.y, f[d], a0[j + 1]);
+        a0[j + 2] = fmaf(w.z, f[d], a0[j + 2]);
+        a0[j + 3] = fmaf(w.w, f[d], a0[j + 3]);
+      }
+    }
+    float o[kMlpMaxO] = {bias[0], bias[1], bias[2], bias[3]};
+#pragma unroll
+    for (int j = 0; j < kMlpMaxH; ++j) {
+      const float h = fmaxf(a0[j], 0.0f);
+      const float4 w = *reinterpret_cast<const float4*>(sw1[j]);
+      o[0] = fmaf(w.x, h, o[0]);
+      o[1] = fmaf(w.y, h, o[1]);
+      o[2] = fmaf(w.z, h, o[2]);
+      o[3] = fmaf(w.w, h, o[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) {
+      if (q < O) ob[(size_t)q * P + p] = o[q];
+    }
   }
 }
 
@@ -1408,6 +1645,22 @@ __global__ void __launch_bounds__(kMlpThreads) encode_mlp_bwd_kernel(
   }
 }
 
+// encode_fwd's launch: the staged design for (2, T) level rows up to
+// kMaxStagedBytes, the direct one above.
+void launch_encode_fwd(const float* table, const float* coords, float* out, int B, int P, int L,
+                       int T, const LevelConsts& c, cudaStream_t s) {
+  if (staged_fits(T)) {
+    const int chunks = hist_chunks((int64_t)B * L, P, kStagedPoints);
+    const int chunk = (P + chunks - 1) / chunks;
+    const dim3 grid((unsigned)((int64_t)B * L), (P + chunk - 1) / chunk);
+    encode_fwd_staged_kernel<<<grid, kFwdThreads, 8 * (size_t)T, s>>>(table, coords, out, P, T, chunk, c);
+  } else {
+    const dim3 grid((P + kFwdDirectThreads - 1) / kFwdDirectThreads,
+                    (L + kFwdDirectLevels - 1) / kFwdDirectLevels, B);
+    encode_fwd_kernel<<<grid, kFwdDirectThreads, 0, s>>>(table, coords, out, P, T, c);
+  }
+}
+
 int fill_consts(LevelConsts* c, int L, const float* scales, const float* shifts,
                 const float* elev, const int* caps) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
@@ -1459,16 +1712,7 @@ int ngm_encode_fwd(const float* table, const float* coords, float* out, int B,
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (staged_fits(T)) {
-    const int chunks = hist_chunks((int64_t)B * L, P, kStagedPoints);
-    const int chunk = (P + chunks - 1) / chunks;
-    const dim3 grid((unsigned)((int64_t)B * L), (P + chunk - 1) / chunk);
-    encode_fwd_staged_kernel<<<grid, kFwdThreads, 8 * (size_t)T, s>>>(table, coords, out, P, T, chunk, c);
-  } else {
-    const dim3 grid((P + kThreads - 1) / kThreads, (L + kFwdDirectLevels - 1) / kFwdDirectLevels, B);
-    encode_fwd_kernel<<<grid, kThreads, 0, s>>>(table, coords, out, P, T, c);
-  }
+  launch_encode_fwd(table, coords, out, B, P, L, T, c, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -1537,6 +1781,10 @@ int ngm_permuto_init() {
                                  kMaxStagedBytes + 16);
     }
   }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&encode_fwd_moe_rays_staged_kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  }
   return (int)err;
 }
 
@@ -1571,6 +1819,10 @@ int ngm_encode_fwd_moe(const float* tables, const float* coords,
   return (int)cudaGetLastError();
 }
 
+// 1 if ngm_encode_fwd_moe_rays takes the staged design for tables of T
+// entries a level row, 0 if the direct one.
+int ngm_encode_fwd_moe_rays_staged(int T) { return ray_staged_fits(T) ? 1 : 0; }
+
 // tables (N, 2, L, T), orig (tiles, kTile) int32 k-minor pair indices, dist
 // (tiles, kTile), tile_experts (tiles,), num_live (), rayp (16,), poses
 // (N, 7), all on the device -> out (tiles, 2L, kTile).
@@ -1587,9 +1839,16 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
   if (err) return err;
   if (width < 1 || log2_ks < 0 || log2_ks > 30) return (int)cudaErrorInvalidValue;
   const RayConsts rc = {block_offset, log2_ks, width, coord_scale, coord_shift};
-  const dim3 grid(tiles, kTile / kThreads);
-  encode_fwd_moe_rays_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, rc, c);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (ray_staged_fits(T)) {
+    const dim3 grid((tiles + kRayTiles - 1) / kRayTiles);
+    encode_fwd_moe_rays_staged_kernel<<<grid, kRayThreads, ray_staged_bytes(T), s>>>(
+        tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, tiles, rc, c);
+  } else {
+    const dim3 grid(tiles, kTile / kThreads);
+    encode_fwd_moe_rays_kernel<<<grid, kThreads, 0, s>>>(
+        tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, rc, c);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1658,13 +1917,17 @@ int ngm_encode_mlp_fwd(const float* table, const float* coords, const float* w0,
                        float* feats, int B, int P, int L, int T, int H, int O,
                        const float* scales, const float* shifts, const float* elev,
                        const int* caps, void* stream) {
-  if (!mlp_widths_ok(L, H, O)) return (int)cudaErrorInvalidValue;
+  if (!mlp_widths_ok(L, H, O) || B > kMaxGridY) return (int)cudaErrorInvalidValue;
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const dim3 grid((P + kMlpThreads - 1) / kMlpThreads, B);
-  encode_mlp_fwd_kernel<<<grid, kMlpThreads, 0, (cudaStream_t)stream>>>(
-      table, coords, w0, b0, w1, b1, out, feats, P, T, H, O, c);
+  const cudaStream_t s = (cudaStream_t)stream;
+  launch_encode_fwd(table, coords, feats, B, P, L, T, c, s);
+  const cudaError_t enc_err = cudaGetLastError();
+  if (enc_err != cudaSuccess) return (int)enc_err;
+  const int per_block = kMlpThreads * kMlpFwdRounds;
+  const dim3 grid((P + per_block - 1) / per_block, B);
+  mlp_fwd_kernel<<<grid, kMlpThreads, 0, s>>>(feats, w0, b0, w1, b1, out, P, L, H, O);
   return (int)cudaGetLastError();
 }
 

@@ -83,6 +83,7 @@ def load_library() -> cuda_build.Library:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         *consts, ptr,
     ]
+    lib.ngm_encode_fwd_moe_rays_staged.argtypes = [i32]
     lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32]
     lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_table_grad_plan.argtypes = [i32, i32, i32]
@@ -93,7 +94,8 @@ def load_library() -> cuda_build.Library:
     for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd_staged, lib.ngm_encode_fwd,
                lib.ngm_lattice_debug, lib.ngm_encode_bwd_table_plan,
                lib.ngm_encode_bwd_table, lib.ngm_batched_gather, lib.ngm_encode_fwd_moe,
-               lib.ngm_encode_fwd_moe_rays, lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs,
+               lib.ngm_encode_fwd_moe_rays, lib.ngm_encode_fwd_moe_rays_staged,
+               lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs,
                lib.ngm_table_grad_plan, lib.ngm_table_grad, lib.ngm_encode_mlp_fwd,
                lib.ngm_encode_mlp_bwd_plan, lib.ngm_encode_mlp_bwd):
         fn.restype = i32
@@ -448,7 +450,9 @@ def encode_fwd_moe_rays(
     1/fx, 1/fy, cx, cy (pixel centre 0); field_poses (N, 7) position + wxyz
     quaternion; block_offset: pixel index of the block's first ray (render
     blocks are row-major); width: image width. -> (tiles, 2L, TILE); tiles
-    at or past ``num_live_tiles`` are never written.
+    at or past ``num_live_tiles`` are never written. The C entry point
+    stages the level rows in shared memory where they fit and reads them
+    through L2 above (:func:`encode_fwd_moe_rays_variant`).
     """
     tiles = buf_orig.shape[0]
     if buf_orig.shape != (tiles, TILE) or buf_orig.dtype != torch.int32 or not buf_orig.is_contiguous():
@@ -484,6 +488,13 @@ def encode_fwd_moe_rays(
     cuda_build.check(rc, "encode_fwd_moe_rays")
     LAUNCHES["encode_fwd_moe_rays"] += 1
     return out
+
+
+def encode_fwd_moe_rays_variant(tables) -> str:
+    """'staged' or 'direct': the design :func:`encode_fwd_moe_rays` takes by
+    shape for (N, 2, L, T) tables (``csrc/permuto.cu``; staged while two
+    levels' rows and a block's points fit in shared memory, T <= 11,456)."""
+    return "staged" if load_library().lib.ngm_encode_fwd_moe_rays_staged(tables.shape[-1]) else "direct"
 
 
 # -- gather_pairs / table_grad (the gather route of gather_blend) -------------
@@ -619,7 +630,10 @@ def encode_mlp_fwd(
     table (..., 2, L, T), w0 (..., 2L, H), b0 (..., H), w1 (..., H, O),
     b1 (..., O), coords (..., 3, P) -> (out (..., O, P), feats (..., 2L, P));
     ``feats`` is the backward's residual in the canonical feature-major
-    layout."""
+    layout, :func:`encode_fwd`'s output bit for bit. Two device kernels, one
+    launch of the wrapper: :func:`encode_fwd`'s kernel for the shape writes
+    ``feats``, then an MLP pass reads it (:func:`encode_mlp_fwd_variant`
+    names the encode's design)."""
     lead = coords.shape[:-2]
     if coords.shape[-2] != 3 or table.shape[:-3] != lead or table.shape[-3] != 2:
         raise ValueError(f"shapes table {tuple(table.shape)} / coords {tuple(coords.shape)}")
@@ -651,6 +665,12 @@ def encode_mlp_fwd(
     cuda_build.check(rc, "encode_mlp_fwd")
     LAUNCHES["encode_mlp_fwd"] += 1
     return out, feats
+
+
+def encode_mlp_fwd_variant(table) -> str:
+    """'staged' or 'direct': the encode design :func:`encode_mlp_fwd` takes
+    by shape for a (..., 2, L, T) table, :func:`encode_fwd`'s."""
+    return encode_fwd_variant(table)
 
 
 def encode_mlp_bwd_plain(coords, feats, g, w0, b0, w1, scales, shifts, elev, t_size):

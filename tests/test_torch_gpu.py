@@ -603,3 +603,132 @@ def test_encode_mlp_bwd_by_shape_over_a_stale_block(cuda, b, p, log2_t, variant)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     for level, cap in enumerate(consts[3]):
         assert float(got[:, :, level, cap:].abs().sum()) == 0.0
+
+
+# -- encode_mlp_fwd's designs, the ray encode's tile runs, the lattice's fallback --
+
+
+@pytest.mark.parametrize("log2_t,variant", [(12, "staged"), (14, "direct")])
+@pytest.mark.parametrize("b,p,h,o", [
+    (32, 12288, 32, 4),  # the training shape at the production widths
+    (3, 1000, 32, 4),  # P not a multiple of a block's points
+    (2, 777, 20, 3),  # H < 32 and O < 4: the zero-padded weights
+])
+def test_encode_mlp_fwd_by_shape_over_a_stale_block(cuda, log2_t, variant, b, p, h, o):
+    """encode_mlp_fwd's design taken by shape (staged at T = 4,096, direct
+    at T = 16,384), right after a freed block of the output's size was
+    filled with NaN: outputs within 1e-5 of the plain version, every entry
+    written, the residual equal to encode_fwd's output bit for bit, one
+    launch a call."""
+    widths = dict(PRODUCTION, log2_hashmap_size=log2_t)
+    (table, w0, b0, w1, b1, coords), _, consts = _mlp_inputs(cuda, b, p, 26, widths=widths, h=h, o=o)
+    assert permuto_cuda.encode_mlp_fwd_variant(table) == variant
+    before = permuto_cuda.LAUNCHES["encode_mlp_fwd"]
+    got = {}
+    out = _over_stale_nan(cuda, (b, o, p), lambda: got.setdefault(
+        "fwd", permuto_cuda.encode_mlp_fwd(table, w0, b0, w1, b1, coords, *consts))[0])
+    assert permuto_cuda.LAUNCHES["encode_mlp_fwd"] == before + 1
+    feats = got["fwd"][1]
+    want_out, want_feats = permuto_cuda.encode_mlp_fwd_plain(table, w0, b0, w1, b1, coords, *consts)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - want_out).abs().max()) <= 1e-5
+    assert float((feats - want_feats).abs().max()) <= 1e-5
+    assert torch.equal(feats, permuto_cuda.encode_fwd(table, coords, *consts))
+
+
+def _ray_inputs(dev, experts, seed, log2_t=12):
+    """The ray encode's arguments for tiles owned by ``experts`` (int32,
+    sorted), tables U(-1, 1) at the production encoding (with
+    ``log2_hashmap_size`` log2_t)."""
+    n = int(experts.max()) + 1
+    gen, tables, _, consts = _moe_inputs(dev, 1, n, seed)
+    if log2_t != 12:
+        enc = PermutohedralEncoding(**dict(PRODUCTION, log2_hashmap_size=log2_t))
+        consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+        tables = torch.rand((n, 2, 16, enc.capacity), generator=gen, device=dev) * 2 - 1
+    tiles = experts.shape[0]
+    orig = torch.randint(0, 8192 * 1024, (tiles, 1024), generator=gen, device=dev, dtype=torch.int32)
+    dist = torch.rand((tiles, 1024), generator=gen, device=dev) * 4 + 0.5
+    q = torch.randn((n, 4), generator=gen, device=dev)
+    poses = torch.cat([torch.randn((n, 3), generator=gen, device=dev) * 0.3,
+                       q / q.norm(dim=-1, keepdim=True)], 1).contiguous()
+    rot = torch.linalg.qr(torch.randn((3, 3), generator=gen, device=dev))[0]
+    rayp = torch.cat([rot.reshape(-1), torch.tensor([0.3, -0.2, 3.0, 1 / 560.0, 1 / 560.0, 320.0, 240.0],
+                                                     device=dev)]).contiguous()
+    args = (tables, orig, dist, experts, rayp, poses, 4096, *consts)
+    return args, dict(log2_ks=10, width=640, coord_scale=0.5, coord_shift=0.5)
+
+
+@pytest.mark.parametrize("t,mlp_fwd,rays", [
+    (256, "staged", "staged"),
+    (4096, "staged", "staged"),  # the production tables
+    (8192, "staged", "staged"),
+    (11456, "staged", "staged"),  # the ray encode's largest staged rows: 2 levels + 4 tiles' points in 227 KB
+    (11457, "staged", "direct"),
+    (12288, "staged", "direct"),  # encode_fwd's largest staged rows: (2, T) f32 in 96 KB
+    (12289, "direct", "direct"),
+    (16384, "direct", "direct"),
+])
+def test_encode_mlp_fwd_and_ray_variants_by_shape(cuda, t, mlp_fwd, rays):
+    """The designs encode_mlp_fwd and encode_fwd_moe_rays take for tables
+    of T entries a level row, on each side of each staged maximum."""
+    table = torch.zeros((1, 2, 16, t), device=cuda)
+    assert permuto_cuda.encode_mlp_fwd_variant(table) == mlp_fwd
+    assert permuto_cuda.encode_fwd_moe_rays_variant(table) == rays
+
+
+# tiles' owners: field changes inside a run of consecutive tiles, a field
+# that owns a single tile, and a long run
+RAY_EXPERTS = [0, 0, 0, 1, 2, 2, 2, 2, 2, 3, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 5, 6, 6]
+
+
+@pytest.mark.parametrize("log2_t,variant", [(12, "staged"), (14, "direct")])
+@pytest.mark.parametrize("live", [0, 11, len(RAY_EXPERTS)])
+def test_encode_fwd_moe_rays_tile_runs_and_live_count(cuda, live, log2_t, variant):
+    """The ray encode's design taken by shape (staged at T = 4,096, direct
+    at T = 16,384) over tiles whose field changes inside a block's tiles, a
+    field of one tile, and num_live at 0, in the middle (a block cut short)
+    and at all tiles: live tiles within 1e-5 of the plain version, dead
+    tiles never written (they keep the NaN of a freed block), one launch a
+    call, no host sync."""
+    experts = torch.tensor(RAY_EXPERTS, dtype=torch.int32, device=cuda)
+    args, kw = _ray_inputs(cuda, experts, 27, log2_t)
+    assert permuto_cuda.encode_fwd_moe_rays_variant(args[0]) == variant
+    num_live = torch.tensor(live, dtype=torch.int32, device=cuda)
+    before = permuto_cuda.LAUNCHES["encode_fwd_moe_rays"]
+    shape = (len(RAY_EXPERTS), 32, 1024)
+
+    def call():
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the wrapper raises
+        try:
+            return permuto_cuda.encode_fwd_moe_rays(*args, **kw, num_live_tiles=num_live)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    got = _over_stale_nan(cuda, shape, call)
+    assert permuto_cuda.LAUNCHES["encode_fwd_moe_rays"] == before + 1
+    want = permuto_cuda.encode_fwd_moe_rays_plain(*args, **kw)
+    assert bool(torch.isnan(got[live:]).all())
+    if live:
+        assert float((got[:live] - want[:live]).abs().max()) <= 1e-5
+
+
+def test_lattice_far_out_takes_the_select_form(cuda):
+    """Points so far out that the elevated sums lose whole units (the
+    remainder sum leaves the fast form's range) and non-finite points: the
+    kernels' lattice still equals the plain version's, indices exactly and
+    weights within 1e-6 where they are finite."""
+    enc = PermutohedralEncoding(**PRODUCTION)
+    consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+    rng = np.random.default_rng(32)
+    pts = np.concatenate([
+        rng.uniform(-1.0, 1.0, (3, 4000)) * 10.0 ** rng.integers(0, 5, (1, 4000)),
+        np.array([[np.nan, 0.5, 0.5], [0.5, np.inf, 0.5], [0.5, 0.5, -np.inf]]).T,
+    ], axis=1).astype(np.float32)
+    coords = torch.from_numpy(pts).to(cuda)
+    idx, w = permuto_cuda.lattice_debug(coords, *consts)
+    s, sh, el = (torch.tensor(v, dtype=torch.float32, device=cuda) for v in consts[:3])
+    want_idx, want_w = permuto.lattice_keys_and_weights_soa(coords.unbind(0), s, sh, el, consts[3])
+    finite = torch.isfinite(coords).all(0)
+    assert torch.equal(idx[..., finite], want_idx[..., finite])
+    assert float((w[..., finite] - want_w[..., finite]).abs().max()) <= 1e-6

@@ -61,18 +61,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 5. kernels (render): the three render kernels against their plain versions
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
-   all 4,194,304 points, the two MoE encodes within 1e-5 on 256 live tiles
-   (tables U(-1, 1)), timed; their lines give the block's live tiles, live
-   pairs and field runs. ``encode_fwd_moe_rays``' line names its variant
-   (staged) and device kernel; a ``kernel_variant`` line checks and times
-   its direct design on the same block with tables of T = 16,384.
+   all 4,194,304 points, with the share of (point, centre) pairs it
+   evaluated (each box's surviving centres, counted by the kernel in a
+   launch of its own and equal to its plain model's), the two
+   MoE encodes within 1e-5 on 256 live tiles (tables U(-1, 1)), timed;
+   their lines give the block's live tiles, live pairs and field runs and
+   name their device kernel (one body, by point source). ``kernel_variant``
+   lines check and time ``topk2_fields`` at 1,024 centres (the map's slots
+   and seeded centres in its box, as ``benchmarks/scale_sweep.py`` grows a
+   map), both MoE encodes on the same block with tables of T = 16,384, and
+   the carried encode with a field change at every tile.
 6. render: ``NeuralGraphMap.render_image`` of frame 11's pose on the trained
    map at 160x120 (PSNR and depth-L1 against the frame, median ms of 5
    renders, each render kernel launched once per block) and at 640x480
    (ms per image, rays/s, samples/s).
-7. render_carried: one 160x120 render at ``eval_span_samples: 768`` (k * S
+7. render_carried: a 160x120 render at ``eval_span_samples: 768`` (k * S
    not a power of two): ``encode_fwd_moe`` once per block, the ray kernel
-   never.
+   never; median ms of 5 renders.
 8. render_vs_cpu: one 512-ray block at 512 samples on the card and on the
    CPU (plain versions), same state and jitter, max abs <= 1e-4; the card's
    block runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
@@ -1177,7 +1182,12 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds):
     shapes of the first 8192-ray block of the trained map's 160x120 render.
     Each MoE encode's line also gives the block's live pairs (its valid
     (sample, field) pairs, counted from the dispatch's arguments) and its
-    field runs (:func:`field_runs`)."""
+    field runs (:func:`field_runs`), and names its device kernel;
+    ``topk2_fields``' line gives the share of (point, centre) pairs it
+    evaluated (:func:`topk_evaluated_pairs`). Then the
+    ``kernel_variant`` lines: ``topk2_fields`` at 1,024 centres, both MoE
+    encodes at T = 16,384, and the carried encode with a field change at
+    every tile."""
     dev = ngm._params["w0"].device
     gen = torch.Generator(dev).manual_seed(4321)
     block = min(ngm.render_block_size(), ds.camera.height * ds.camera.width)
@@ -1197,20 +1207,17 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds):
     rows, shapes, bounds = [], {}, {}
 
     # topk2_fields: bit-identical on every point
-    d, i = topk.topk2_fields(pts, cen, valid)
-    wd, wi = topk.topk2_fields_plain(pts, cen, valid)
-    finite = torch.isfinite(wd)
-    if not (torch.equal(i, wi) and torch.equal(torch.isfinite(d), finite)
-            and torch.equal(d[finite], wd[finite])):
-        raise AssertionError("topk2_fields differs from its plain version")
+    check_topk(torch, topk, pts, cen, valid)
     n_pts, n_cen, n_valid = pts.shape[1], cen.shape[0], int(valid.sum())
     rows.append(("topk2_fields", 0.0, "exact (distances and indices)",
                  measure(torch, lambda: topk.topk2_fields(pts, cen, valid),
                          lambda: topk.topk2_fields_plain(pts, cen, valid), plain_window=True)))
-    shapes["topk2_fields"] = {"points": n_pts, "centres": n_cen, "valid_centres": n_valid}
-    # points + centres (xyz, valid) in, 2 distances + 2 indices out; 8 f32
-    # operations per (point, valid centre)
-    bounds["topk2_fields"] = bound(n_pts * 12 + n_cen * 13 + n_pts * 16, n_pts * n_valid * 8)
+    evaluated = topk_evaluated_pairs(torch, topk, pts, cen, valid)
+    rows[-1][3].update(pairs_evaluated_share=evaluated / (n_pts * n_cen))
+    shapes["topk2_fields"] = {"points": n_pts, "centres": n_cen, "valid_centres": n_valid,
+                              "box_points": topk.BOX_POINTS}
+    bounds["topk2_fields"] = topk_bound(n_pts, n_cen, evaluated)
+    check_topk_many_centres(torch, topk, pts, cen, valid)
 
     # the MoE encodes on tables U(-1, 1), compared on 256 live tiles
     for name, (c_args, c_kw) in (("encode_fwd_moe_rays", (rays_args, rays_kw)),
@@ -1233,16 +1240,84 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds):
         bounds[name] = moe_bound(name, pairs, experts, levels, tables.shape[3])
         shapes[name] = {"tiles": n_tiles, "live_tiles": live, "pairs": pts.shape[1] * 2,
                         "live_pairs": live_pairs, "live_fields": experts, **field_runs(torch, te, live)}
-        if name == "encode_fwd_moe_rays":
-            variant = permuto_cuda.encode_fwd_moe_rays_variant(tables)
-            rows[-1][3].update(variant=variant, device_kernels=[RAY_DEVICE_KERNELS[variant]])
-            check_moe_rays_direct(torch, permuto_cuda, ngm._fset.prototype.encoding, c_args, c_kw, sel,
-                                  gen, shapes[name])
+        rows[-1][3].update(device_kernels=[MOE_DEVICE_KERNELS[name]])
+        check_moe_big_tables(torch, permuto_cuda, name, ngm._fset.prototype.encoding, c_args, c_kw, sel,
+                             gen, shapes[name])
+        if name == "encode_fwd_moe":
+            check_moe_field_changes(torch, permuto_cuda, c_args, c_kw, sel, shapes[name])
     return report_rows(rows, shapes, bounds)
 
 
-# The device kernel of each encode_fwd_moe_rays design.
-RAY_DEVICE_KERNELS = {"staged": "encode_fwd_moe_rays_staged_kernel", "direct": "encode_fwd_moe_rays_kernel"}
+def check_topk(torch, topk, pts, cen, valid) -> None:
+    """topk2_fields against its plain version: distances and indices
+    bit-identical on every point, or raise."""
+    d, i = topk.topk2_fields(pts, cen, valid)
+    wd, wi = topk.topk2_fields_plain(pts, cen, valid)
+    finite = torch.isfinite(wd)
+    if not (torch.equal(i, wi) and torch.equal(torch.isfinite(d), finite)
+            and torch.equal(d[finite], wd[finite])):
+        raise AssertionError(f"topk2_fields differs from its plain version at {cen.shape[0]} centres")
+
+
+def topk_bound(n_pts: int, n_cen: int, evaluated: int):
+    """topk2_fields' least time: points + centres (xyz, valid) in, 2
+    distances + 2 indices out; 8 f32 operations for each (point, centre)
+    pair the kernel evaluated (``evaluated``, measured), not for every
+    pair: the pairs its pruning drops need no operation."""
+    return bound(n_pts * 12 + n_cen * 13 + n_pts * 16, evaluated * 8)
+
+
+def topk_evaluated_pairs(torch, topk, pts, cen, valid) -> int:
+    """The (point, centre) pairs topk2_fields evaluated: each box's
+    surviving centres, counted by the kernel (topk.topk2_box_survivors),
+    times the box's points. Raises unless every box kept exactly the
+    centres the plain model of the pruning rule (topk2_survivors_plain)
+    keeps."""
+    counts = topk.topk2_box_survivors(pts, cen, valid)
+    want = topk.topk2_survivors_plain(pts, cen, valid).sum(1, dtype=torch.int32)
+    if not torch.equal(counts, want):
+        bad = int((counts != want).sum())
+        raise AssertionError(f"topk2_fields' pruning kept other counts than its plain model in {bad} "
+                             f"of {counts.numel()} boxes at {cen.shape[0]} centres")
+    per_box = torch.full_like(counts, topk.BOX_POINTS)
+    per_box[-1] = pts.shape[1] - (counts.numel() - 1) * topk.BOX_POINTS
+    return int((counts.long() * per_box).sum())
+
+
+MANY_CENTRES = 1024
+
+
+def check_topk_many_centres(torch, topk, pts, cen, valid) -> None:
+    """Phase kernel_variant: topk2_fields on the render block's points
+    against a map grown to MANY_CENTRES fields, as benchmarks/scale_sweep.py
+    grows one: the map's centre slots, then seeded centres uniform in the
+    valid centres' bounding box widened by 1 m, all valid. Exact against
+    the plain version, with the share of pairs evaluated, timed."""
+    dev = pts.device
+    gen = torch.Generator(dev).manual_seed(1024)
+    lo = cen[valid].amin(0) - 1.0
+    hi = cen[valid].amax(0) + 1.0
+    extra = lo + (hi - lo) * torch.rand((MANY_CENTRES - cen.shape[0], 3), generator=gen, device=dev)
+    many = torch.cat([cen, extra]).contiguous()
+    many_valid = torch.cat([valid, torch.ones(extra.shape[0], dtype=torch.bool, device=dev)])
+    check_topk(torch, topk, pts, many, many_valid)
+    timing = measure(torch, lambda: topk.topk2_fields(pts, many, many_valid),
+                     lambda: topk.topk2_fields_plain(pts, many, many_valid), plain_window=True)
+    n_valid = int(many_valid.sum())
+    evaluated = topk_evaluated_pairs(torch, topk, pts, many, many_valid)
+    bound_ms, bound_by = topk_bound(pts.shape[1], MANY_CENTRES, evaluated)
+    phase("kernel_variant", name="topk2_fields", case=f"{MANY_CENTRES} centres (the map's "
+          f"{cen.shape[0]} slots and {extra.shape[0]} uniform in its box + 1 m)",
+          tolerance="exact (distances and indices)", max_abs_err=0.0,
+          shape={"points": pts.shape[1], "centres": MANY_CENTRES, "valid_centres": n_valid,
+                 "box_points": topk.BOX_POINTS},
+          pairs_evaluated_share=evaluated / (pts.shape[1] * MANY_CENTRES), **timing,
+          bound_ms=bound_ms, bound_by=bound_by)
+
+
+# The device kernel of each MoE encode: one body, by point source.
+MOE_DEVICE_KERNELS = {"encode_fwd_moe": "encode_fwd_moe_kernel<CarriedPoints>",
+                      "encode_fwd_moe_rays": "encode_fwd_moe_kernel<RayPoints>"}
 
 
 def check_moe(torch, permuto_cuda, name: str, args, kw, sel) -> float:
@@ -1268,30 +1343,49 @@ def moe_bound(name: str, pairs: int, experts: int, levels: int, t: int):
                  pairs * (levels * LATTICE_OPS + (40 if rays else 0)))
 
 
-def check_moe_rays_direct(torch, permuto_cuda, enc, args, kw, sel, gen, shape) -> None:
-    """Phase kernel_variant: encode_fwd_moe_rays' direct design (corners
-    read through L2) on the render block's inputs with tables of
-    log2_hashmap_size 14 (T = 16,384: two levels' rows above the staged
-    design's shared memory), against its plain version on the same live
-    tiles, timed."""
+def check_moe_big_tables(torch, permuto_cuda, name: str, enc, args, kw, sel, gen, shape) -> None:
+    """Phase kernel_variant: a MoE encode on the render block's inputs with
+    tables of log2_hashmap_size 14 (T = 16,384, rows four times the
+    production's: more of the corners miss L1), against its plain version
+    on the same live tiles, timed."""
     big, consts = big_table_consts(enc)
     tables = torch.rand(args[0].shape[:3] + (big.capacity,), generator=gen, device=args[0].device) * 2 - 1
-    big_args = (tables,) + tuple(args[1:7]) + consts
-    variant = permuto_cuda.encode_fwd_moe_rays_variant(tables)
-    if variant != "direct":
-        raise AssertionError(f"encode_fwd_moe_rays took the {variant} design at T = {big.capacity}")
-    err = check_moe(torch, permuto_cuda, "encode_fwd_moe_rays", big_args, kw, sel)
-    timing = measure(torch, lambda: permuto_cuda.encode_fwd_moe_rays(*big_args, **kw),
-                     lambda: permuto_cuda.encode_fwd_moe_rays_plain(*big_args, **kw), plain_window=True)
+    consts_at = 7 if name == "encode_fwd_moe_rays" else 3  # scales, shifts, elev, t_size
+    big_args = (tables,) + tuple(args[1:consts_at]) + consts
+    err = check_moe(torch, permuto_cuda, name, big_args, kw, sel)
+    timing = measure(torch, lambda: getattr(permuto_cuda, name)(*big_args, **kw),
+                     lambda: getattr(permuto_cuda, name + "_plain")(*big_args, **kw), plain_window=True)
     pairs = shape["live_tiles"] * permuto_cuda.TILE
-    bound_ms, bound_by = moe_bound("encode_fwd_moe_rays", pairs, shape["live_fields"], big.nr_levels,
-                                   big.capacity)
-    phase("kernel_variant", name="encode_fwd_moe_rays", variant=variant,
-          device_kernels=[RAY_DEVICE_KERNELS[variant]],
-          case=f"level rows above the staged shared memory (log2_hashmap_size 14, T = {big.capacity})",
+    bound_ms, bound_by = moe_bound(name, pairs, shape["live_fields"], big.nr_levels, big.capacity)
+    phase("kernel_variant", name=name, device_kernels=[MOE_DEVICE_KERNELS[name]],
+          case=f"tables of log2_hashmap_size 14 (T = {big.capacity})",
           tolerance=f"max abs <= 1e-5 on {sel.numel()} live tiles", max_abs_err=err,
           shape=dict(shape, table=big.capacity), **timing,
           bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_moe_field_changes(torch, permuto_cuda, args, kw, sel, shape) -> None:
+    """Phase kernel_variant: the carried encode with every live tile owned
+    by another field than the tile before it (the render block's live
+    fields in turn), so an SM's two tiles never share a table. The
+    dispatch sorts tiles by field, so runs this short come only from fields
+    with fewer than 1,024 pairs. Against its plain version on the same live
+    tiles, timed."""
+    te = args[2]
+    live = shape["live_tiles"]
+    fields = torch.unique(te[:live])
+    turns = fields[torch.arange(te.shape[0], device=te.device) % fields.numel()].to(torch.int32)
+    r_args = (args[0], args[1], turns.contiguous()) + tuple(args[3:])
+    err = check_moe(torch, permuto_cuda, "encode_fwd_moe", r_args, kw, sel)
+    timing = measure(torch, lambda: permuto_cuda.encode_fwd_moe(*r_args, **kw),
+                     lambda: permuto_cuda.encode_fwd_moe_plain(*r_args, **kw), plain_window=True)
+    bound_ms, bound_by = moe_bound("encode_fwd_moe", live * permuto_cuda.TILE, int(fields.numel()),
+                                   args[0].shape[2], args[0].shape[3])
+    phase("kernel_variant", name="encode_fwd_moe", device_kernels=[MOE_DEVICE_KERNELS["encode_fwd_moe"]],
+          case="a field change at every tile",
+          tolerance=f"max abs <= 1e-5 on {sel.numel()} live tiles", max_abs_err=err,
+          shape=dict(shape, field_runs=live, mean_run_tiles=1.0, min_run_tiles=1, max_run_tiles=1),
+          **timing, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def render_kernel_launches(permuto_cuda, topk):
@@ -1358,9 +1452,10 @@ def check_render(torch, permuto_cuda, topk, render_metrics, ngm, ds, smi):
     return launches, ms
 
 
-def check_render_carried(torch, permuto_cuda, topk, ngm, ds):
+def check_render_carried(torch, permuto_cuda, topk, ngm, ds, smi):
     """Phase 7: the carried-coordinate route, as eval_span_samples: 768 with
-    eval_num_samples: 768 (the quality recipe) set it -> launches."""
+    eval_num_samples: 768 (the quality recipe) set it, at 160x120: launches
+    and median ms of 5 renders -> launches."""
     saved = ngm._eval_span_samples
     ngm._eval_span_samples = 768
     try:
@@ -1373,13 +1468,15 @@ def check_render_carried(torch, permuto_cuda, topk, ngm, ds):
         rgbd = ngm.render_image(ds[RENDER_FRAME]["c2w"], ds.camera)[0]
         torch.cuda.synchronize()
         launches = render_kernel_launches(permuto_cuda, topk)
+        ms, all_ms = timed_renders(torch, ngm, ds[RENDER_FRAME]["c2w"], ds.camera, 5)
     finally:
         ngm._eval_span_samples = saved
     if launches != {"topk2_fields": blocks, "encode_fwd_moe_rays": 0, "encode_fwd_moe": blocks}:
         raise AssertionError(f"carried route launches {launches}, expected {blocks} blocks")
     if not bool(torch.isfinite(rgbd).all()):
         raise AssertionError("carried route render is not finite")
-    phase("render_carried", span_samples=768, rays_per_block=block, blocks=blocks, launches=launches)
+    phase("render_carried", span_samples=768, rays_per_block=block, blocks=blocks, launches=launches,
+          median_ms_per_image=ms, ms=all_ms, card=smi)
     return launches
 
 
@@ -1815,7 +1912,7 @@ def main() -> None:
     # -- 5-8. the render path on the trained map ------------------------------
     kernel_rows.update(check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds))
     ray_launches, render_ms = check_render(torch, permuto_cuda, topk, render_metrics, ngm, ds, smi)
-    carried_launches = check_render_carried(torch, permuto_cuda, topk, ngm, ds)
+    carried_launches = check_render_carried(torch, permuto_cuda, topk, ngm, ds, smi)
     check_render_block_against_cpu(torch, engine, ngm, ds)
     if args.profile is not None:
         profile_render(torch, ngm, ds, render_ms, args.profile.with_name(args.profile.name + ".render"))

@@ -725,38 +725,32 @@ __global__ void batched_gather_kernel(const float* __restrict__ values,
 // host never waits for it) hold only invalid pairs and padding: their
 // output is never written and every consumer masks it by select.
 //
-// Bound: bytes, the live tiles' inputs and their (tiles, 2L, 1024) f32
+// One kernel body, encode_fwd_moe_kernel, replaces both TPU kernels. It is
+// templated on where a pair's field-local point comes from: CarriedPoints,
+// the (tiles, 3, kTile) coordinates the caller carries
+// (permuto_pallas.encode_fwd_moe), or RayPoints, rebuilt from the pair's
+// index and span distance (permuto_pallas.encode_fwd_moe_rays).
+//
+// Bound: bytes, the live tiles' inputs and their (tiles, 2L, kTile) f32
 // output (~0.25 ms at 3.35 TB/s for the smoke's 8,388,608-pair render
-// block). What the first designs spend their time on is issuing the
-// lattice's instructions: 410 SASS instructions a (pair, level) at 85% of
-// the card's issue rate (PERF.md §6); the corner reads through L2 came
-// second. Consecutive tiles mostly share a field (the dispatch sorts
-// them), so a field's 512 KiB table is reused. encode_fwd_moe_kernel's
-// design, the first one: one block of kThreads threads per quarter tile
-// (grid = tiles x kTile / kThreads), one thread per pair, all levels, the
-// corners read through L2; coordinates and outputs coalesced along the
-// tile's lanes. The TPU kernel's table DMA per grid step and its 128-lane
-// sweep are not carried over.
-constexpr int kTile = 1024;  // pairs per tile (permuto_pallas.TILE_M)
-
-// Replaces permuto_pallas.encode_fwd_moe (_encode_fwd_moe_kernel): the MoE
-// encode from carried field-local coordinates (tiles, 3, kTile).
-__global__ void encode_fwd_moe_kernel(const float* __restrict__ tables,
-                                      const float* __restrict__ coords,
-                                      const int* __restrict__ tile_experts,
-                                      const int* __restrict__ num_live,
-                                      float* __restrict__ out, int T,
-                                      __grid_constant__ const LevelConsts c) {
-  const int t = blockIdx.x;
-  if (t >= __ldg(num_live)) return;
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  const int L = c.n_levels;
-  const float* xyz = coords + (size_t)t * kDim * kTile;
-  const int e = __ldg(tile_experts + t);
-  encode_point(tables + (size_t)e * 2 * L * T, T, xyz[lane], xyz[kTile + lane],
-               xyz[2 * kTile + lane], c, out + (size_t)t * 2 * L * kTile, kTile,
-               lane);
-}
+// block). What they spend their time on is the lattice, ~280 SASS
+// instructions a (pair, level) (the ray encode issued them at ~75% of the
+// card's rate in its earlier staged design, PERF.md §6), then the corner
+// reads. Design: a block of kTile threads takes one tile, a
+// thread one pair and every level, the corners read through L1 and L2.
+// Consecutive tiles mostly share a field (the dispatch sorts them; a
+// render block's field runs are ~200 tiles long), and an SM's two blocks
+// hold two tiles, so the SM reads one or two fields' tables at a time and
+// its L1 keeps their corners. That block size decided the design: in an
+// A/B on an H100 (PERF.md §6) the same kernel in 256-thread blocks (four a
+// tile, the first design) took 1.26 ms on the render block, a staged design
+// (a block's points and two levels' rows at a time in shared memory, the
+// ray encode's earlier design) 1.03-1.06 ms, and 1024-thread blocks
+// 0.96-1.03 ms; at T = 16,384, 2.44 and 1.44-1.51 ms; with a field change
+// at every tile the staged design lost 31%, the direct one nothing. The
+// TPU kernel's table DMA per grid step and its 128-lane sweep are not
+// carried over.
+constexpr int kTile = 1024;  // pairs per tile (permuto_pallas.TILE_M), threads a block
 
 // Launch constants of the ray rebuild (everything but the camera/extrinsics
 // vector, which lives on the device because it comes from the pose).
@@ -808,131 +802,50 @@ __device__ __forceinline__ void ray_point(int orig, float d, const float* __rest
   zs = (pz + qw * tz + (qx * ty - qy * tx)) * rc.coord_scale + rc.coord_shift;
 }
 
-// Replaces permuto_pallas.encode_fwd_moe_rays (_encode_fwd_moe_rays_kernel):
-// the MoE encode that rebuilds each sample point from its pair index and
-// span distance (ray_point).
-//
-// Design, staged (encode_fwd_moe_rays_staged_kernel): a block of
-// kRayThreads threads takes kRayTiles consecutive tiles and every level.
-// It rebuilds each of its pairs once into shared memory (the first design
-// rebuilt a pair's ray once, but read its corners through L2; staging by
-// (tiles, level) on the grid rebuilds a pair once a level group), then
-// walks the levels kRayLevels at a time: it copies the tile's field's rows
-// of those levels into shared memory interleaved as (cap_l, 2), so a corner
-// is one 8-byte shared load (two 4-byte L2 reads before), and copies again
-// only where tile_experts changes within its tiles (the field runs are
-// ~200 tiles long in a render block). 2 levels at a time and 4 tiles a
-// block (112 KB of shared memory at T = 4,096, 2 blocks an SM) were the
-// fastest of 1, 2 or 4 levels and 2, 4 or 8 tiles in an A/B on an H100
-// (PERF.md §6). Tables whose rows do not fit (ray_staged_fits: T > 11,456)
-// take the direct design, encode_fwd_moe_rays_kernel: one thread a pair,
-// all levels, the corners read through L2. Blocks past the live tiles
-// return at once.
-constexpr int kRayThreads = 512;
-constexpr int kRayLevels = 2;  // levels staged at a time
-constexpr int kRayTiles = 4;   // tiles a block
-constexpr int kMaxSharedBytes = 227 * 1024;  // dynamic shared memory a block may take
-// shared memory of the staged design: kRayLevels (T, 2) rows, then the
-// points (3, kRayTiles x kTile)
-size_t ray_staged_bytes(int T) {
-  return 8 * (size_t)kRayLevels * T + 12 * (size_t)kRayTiles * kTile;
-}
-bool ray_staged_fits(int T) { return T >= 1 && ray_staged_bytes(T) <= (size_t)kMaxSharedBytes; }
+// Point sources of the MoE encode: point() gives pair `lane` of tile t,
+// owned by field e.
 
-__global__ void encode_fwd_moe_rays_kernel(const float* __restrict__ tables,
-                                           const int* __restrict__ orig,
-                                           const float* __restrict__ dist,
-                                           const int* __restrict__ tile_experts,
-                                           const int* __restrict__ num_live,
-                                           const float* __restrict__ rayp,
-                                           const float* __restrict__ poses,
-                                           float* __restrict__ out, int T,
-                                           __grid_constant__ const RayConsts rc,
-                                           __grid_constant__ const LevelConsts c) {
+// Carried field-local coordinates, (tiles, 3, kTile) f32.
+struct CarriedPoints {
+  const float* coords;
+  __device__ __forceinline__ void point(int t, int lane, int /*e*/, float& x, float& y,
+                                        float& z) const {
+    const float* xyz = coords + (size_t)t * kDim * kTile;
+    x = __ldg(xyz + lane);
+    y = __ldg(xyz + kTile + lane);
+    z = __ldg(xyz + 2 * kTile + lane);
+  }
+};
+
+// Points rebuilt by ray_point from each pair's k-minor index (orig,
+// (tiles, kTile) int32) and span distance (dist, (tiles, kTile) f32), with
+// the owning field's pose (poses, (N, 7)).
+struct RayPoints {
+  const int* orig;
+  const float* dist;
+  const float* rayp;
+  const float* poses;
+  RayConsts rc;
+  __device__ __forceinline__ void point(int t, int lane, int e, float& x, float& y, float& z) const {
+    const size_t i = (size_t)t * kTile + lane;
+    ray_point(__ldg(orig + i), __ldg(dist + i), rayp, poses + (size_t)e * 7, rc, x, y, z);
+  }
+};
+
+template <class Points>
+__global__ void __launch_bounds__(kTile) encode_fwd_moe_kernel(
+    const float* __restrict__ tables, __grid_constant__ const Points src,
+    const int* __restrict__ tile_experts, const int* __restrict__ num_live,
+    float* __restrict__ out, int T, __grid_constant__ const LevelConsts c) {
   const int t = blockIdx.x;
   if (t >= __ldg(num_live)) return;
-  const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-  const size_t i = (size_t)t * kTile + lane;
+  const int lane = threadIdx.x;
   const int e = __ldg(tile_experts + t);
-  float xs, ys, zs;
-  ray_point(orig[i], dist[i], rayp, poses + (size_t)e * 7, rc, xs, ys, zs);
+  float x, y, z;
+  src.point(t, lane, e, x, y, z);
   const int L = c.n_levels;
-  encode_point(tables + (size_t)e * 2 * L * T, T, xs, ys, zs, c,
-               out + (size_t)t * 2 * L * kTile, kTile, lane);
-}
-
-__global__ void __launch_bounds__(kRayThreads) encode_fwd_moe_rays_staged_kernel(
-    const float* __restrict__ tables, const int* __restrict__ orig,
-    const float* __restrict__ dist, const int* __restrict__ tile_experts,
-    const int* __restrict__ num_live, const float* __restrict__ rayp,
-    const float* __restrict__ poses, float* __restrict__ out, int T, int tiles,
-    __grid_constant__ const RayConsts rc, __grid_constant__ const LevelConsts c) {
-  extern __shared__ __align__(16) float2 srows[];  // kRayLevels x (cap_l, 2), then the points
-  float* spts = reinterpret_cast<float*>(srows + kRayLevels * (size_t)T);
-  constexpr int kPairs = kRayTiles * kTile;
-  const int live = min(__ldg(num_live), tiles);
-  const int t0 = blockIdx.x * kRayTiles;
-  if (t0 >= live) return;
-  const int nt = min(kRayTiles, live - t0);
-  const int L = c.n_levels;
-  for (int q = threadIdx.x; q < nt * kTile; q += kRayThreads) {
-    const size_t i = (size_t)t0 * kTile + q;
-    const int e = __ldg(tile_experts + t0 + q / kTile);
-    ray_point(orig[i], dist[i], rayp, poses + (size_t)e * 7, rc, spts[q], spts[kPairs + q],
-              spts[2 * kPairs + q]);
-  }
-  for (int l0 = 0; l0 < L; l0 += kRayLevels) {
-    int offs[kRayLevels];
-    int caps[kRayLevels];
-    int o = 0;
-#pragma unroll
-    for (int g = 0; g < kRayLevels; ++g) {
-      offs[g] = o;
-      caps[g] = l0 + g < L ? (int)c.mask[l0 + g] + 1 : 0;
-      o += caps[g];
-    }
-    int cur = -1;
-    for (int j = 0; j < nt; ++j) {
-      const int e = __ldg(tile_experts + t0 + j);
-      if (e != cur) {  // the same for every thread of the block
-        __syncthreads();  // the points are written; the last rows are read
-#pragma unroll
-        for (int g = 0; g < kRayLevels; ++g) {
-          const float* r0 = tables + ((size_t)e * 2 * L + l0 + g) * T;
-          const float* r1 = r0 + (size_t)L * T;
-          for (int q = threadIdx.x; q < caps[g]; q += kRayThreads) {
-            srows[offs[g] + q] = make_float2(__ldg(r0 + q), __ldg(r1 + q));
-          }
-        }
-        __syncthreads();
-        cur = e;
-      }
-      float* ot = out + (size_t)(t0 + j) * 2 * L * kTile;
-      for (int lane = threadIdx.x; lane < kTile; lane += kRayThreads) {
-        const int q = j * kTile + lane;
-        const float x = spts[q], y = spts[kPairs + q], z = spts[2 * kPairs + q];
-#pragma unroll
-        for (int g = 0; g < kRayLevels; ++g) {
-          const int l = l0 + g;
-          if (l < L) {
-            uint32_t idx[kCorners];
-            float w[kCorners];
-            lattice_level(x, y, z, c, l, idx, w);
-            float acc0 = 0.0f;
-            float acc1 = 0.0f;
-#pragma unroll
-            for (int k = 0; k < kCorners; ++k) {
-              const float2 f = srows[offs[g] + idx[k]];
-              acc0 = acc0 + w[k] * f.x;
-              acc1 = acc1 + w[k] * f.y;
-            }
-            ot[(size_t)(2 * l) * kTile + lane] = acc0;
-            ot[(size_t)(2 * l + 1) * kTile + lane] = acc1;
-          }
-        }
-      }
-    }
-  }
+  encode_point(tables + (size_t)e * 2 * L * T, T, x, y, z, c, out + (size_t)t * 2 * L * kTile, kTile,
+               lane);
 }
 
 // -- gather route: per-(row, pair) lookups and their histogram ----------------
@@ -1781,10 +1694,6 @@ int ngm_permuto_init() {
                                  kMaxStagedBytes + 16);
     }
   }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&encode_fwd_moe_rays_staged_kernel),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
-  }
   return (int)err;
 }
 
@@ -1813,15 +1722,10 @@ int ngm_encode_fwd_moe(const float* tables, const float* coords,
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  const dim3 grid(tiles, kTile / kThreads);
-  encode_fwd_moe_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      tables, coords, tile_experts, num_live, out, T, c);
+  encode_fwd_moe_kernel<CarriedPoints><<<tiles, kTile, 0, (cudaStream_t)stream>>>(
+      tables, CarriedPoints{coords}, tile_experts, num_live, out, T, c);
   return (int)cudaGetLastError();
 }
-
-// 1 if ngm_encode_fwd_moe_rays takes the staged design for tables of T
-// entries a level row, 0 if the direct one.
-int ngm_encode_fwd_moe_rays_staged(int T) { return ray_staged_fits(T) ? 1 : 0; }
 
 // tables (N, 2, L, T), orig (tiles, kTile) int32 k-minor pair indices, dist
 // (tiles, kTile), tile_experts (tiles,), num_live (), rayp (16,), poses
@@ -1838,17 +1742,9 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
   if (width < 1 || log2_ks < 0 || log2_ks > 30) return (int)cudaErrorInvalidValue;
-  const RayConsts rc = {block_offset, log2_ks, width, coord_scale, coord_shift};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (ray_staged_fits(T)) {
-    const dim3 grid((tiles + kRayTiles - 1) / kRayTiles);
-    encode_fwd_moe_rays_staged_kernel<<<grid, kRayThreads, ray_staged_bytes(T), s>>>(
-        tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, tiles, rc, c);
-  } else {
-    const dim3 grid(tiles, kTile / kThreads);
-    encode_fwd_moe_rays_kernel<<<grid, kThreads, 0, s>>>(
-        tables, orig, dist, tile_experts, num_live, rayp, poses, out, T, rc, c);
-  }
+  const RayPoints src = {orig, dist, rayp, poses, {block_offset, log2_ks, width, coord_scale, coord_shift}};
+  encode_fwd_moe_kernel<RayPoints><<<tiles, kTile, 0, (cudaStream_t)stream>>>(
+      tables, src, tile_experts, num_live, out, T, c);
   return (int)cudaGetLastError();
 }
 

@@ -83,7 +83,6 @@ def load_library() -> cuda_build.Library:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         *consts, ptr,
     ]
-    lib.ngm_encode_fwd_moe_rays_staged.argtypes = [i32]
     lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32]
     lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.ngm_table_grad_plan.argtypes = [i32, i32, i32]
@@ -94,7 +93,7 @@ def load_library() -> cuda_build.Library:
     for fn in (lib.ngm_permuto_init, lib.ngm_encode_fwd_staged, lib.ngm_encode_fwd,
                lib.ngm_lattice_debug, lib.ngm_encode_bwd_table_plan,
                lib.ngm_encode_bwd_table, lib.ngm_batched_gather, lib.ngm_encode_fwd_moe,
-               lib.ngm_encode_fwd_moe_rays, lib.ngm_encode_fwd_moe_rays_staged,
+               lib.ngm_encode_fwd_moe_rays,
                lib.ngm_gather_pairs_staged, lib.ngm_gather_pairs,
                lib.ngm_table_grad_plan, lib.ngm_table_grad, lib.ngm_encode_mlp_fwd,
                lib.ngm_encode_mlp_bwd_plan, lib.ngm_encode_mlp_bwd):
@@ -366,7 +365,9 @@ def encode_fwd_moe(
     TILE-pair tile of ``coords`` (tiles, 3, TILE), field-local, is encoded
     against the (2, L, T) table of its field ``tile_experts[t]`` (int32) ->
     (tiles, 2L, TILE). Tiles at or past ``num_live_tiles`` (a () int32
-    tensor, read by the kernel on the device) are never written."""
+    tensor, read by the kernel on the device) are never written. Both MoE
+    encodes run one kernel body, a block a tile (``csrc/permuto.cu``
+    ``encode_fwd_moe_kernel``); this one reads each pair's point."""
     tiles = coords.shape[0]
     if coords.shape != (tiles, 3, TILE):
         raise ValueError(f"coords must be (tiles, 3, {TILE}), got {tuple(coords.shape)}")
@@ -396,7 +397,7 @@ def ray_local_coords(
 ) -> torch.Tensor:
     """The ray kernel's point rebuild in plain PyTorch -> (tiles, 3, TILE)
     field-local coordinates; the same operations in the same order as
-    ``encode_fwd_moe_rays_kernel`` (IEEE sqrt and reciprocal, no rsqrt)."""
+    ``ray_point`` in ``csrc/permuto.cu`` (IEEE sqrt and reciprocal, no rsqrt)."""
     rp = ray_params
     pix = (buf_orig >> log2_ks).long() + block_offset
     iy_i = torch.div(pix, width, rounding_mode="floor")
@@ -450,9 +451,7 @@ def encode_fwd_moe_rays(
     1/fx, 1/fy, cx, cy (pixel centre 0); field_poses (N, 7) position + wxyz
     quaternion; block_offset: pixel index of the block's first ray (render
     blocks are row-major); width: image width. -> (tiles, 2L, TILE); tiles
-    at or past ``num_live_tiles`` are never written. The C entry point
-    stages the level rows in shared memory where they fit and reads them
-    through L2 above (:func:`encode_fwd_moe_rays_variant`).
+    at or past ``num_live_tiles`` are never written.
     """
     tiles = buf_orig.shape[0]
     if buf_orig.shape != (tiles, TILE) or buf_orig.dtype != torch.int32 or not buf_orig.is_contiguous():
@@ -488,13 +487,6 @@ def encode_fwd_moe_rays(
     cuda_build.check(rc, "encode_fwd_moe_rays")
     LAUNCHES["encode_fwd_moe_rays"] += 1
     return out
-
-
-def encode_fwd_moe_rays_variant(tables) -> str:
-    """'staged' or 'direct': the design :func:`encode_fwd_moe_rays` takes by
-    shape for (N, 2, L, T) tables (``csrc/permuto.cu``; staged while two
-    levels' rows and a block's points fit in shared memory, T <= 11,456)."""
-    return "staged" if load_library().lib.ngm_encode_fwd_moe_rays_staged(tables.shape[-1]) else "direct"
 
 
 # -- gather_pairs / table_grad (the gather route of gather_blend) -------------

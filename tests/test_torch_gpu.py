@@ -659,22 +659,19 @@ def _ray_inputs(dev, experts, seed, log2_t=12):
     return args, dict(log2_ks=10, width=640, coord_scale=0.5, coord_shift=0.5)
 
 
-@pytest.mark.parametrize("t,mlp_fwd,rays", [
-    (256, "staged", "staged"),
-    (4096, "staged", "staged"),  # the production tables
-    (8192, "staged", "staged"),
-    (11456, "staged", "staged"),  # the ray encode's largest staged rows: 2 levels + 4 tiles' points in 227 KB
-    (11457, "staged", "direct"),
-    (12288, "staged", "direct"),  # encode_fwd's largest staged rows: (2, T) f32 in 96 KB
-    (12289, "direct", "direct"),
-    (16384, "direct", "direct"),
+@pytest.mark.parametrize("t,mlp_fwd", [
+    (256, "staged"),
+    (4096, "staged"),  # the production tables
+    (8192, "staged"),
+    (12288, "staged"),  # encode_fwd's largest staged rows: (2, T) f32 in 96 KB
+    (12289, "direct"),
+    (16384, "direct"),
 ])
-def test_encode_mlp_fwd_and_ray_variants_by_shape(cuda, t, mlp_fwd, rays):
-    """The designs encode_mlp_fwd and encode_fwd_moe_rays take for tables
-    of T entries a level row, on each side of each staged maximum."""
+def test_encode_mlp_fwd_variant_by_shape(cuda, t, mlp_fwd):
+    """The design encode_mlp_fwd takes for tables of T entries a level row,
+    on each side of the staged maximum."""
     table = torch.zeros((1, 2, 16, t), device=cuda)
     assert permuto_cuda.encode_mlp_fwd_variant(table) == mlp_fwd
-    assert permuto_cuda.encode_fwd_moe_rays_variant(table) == rays
 
 
 # tiles' owners: field changes inside a run of consecutive tiles, a field
@@ -682,18 +679,16 @@ def test_encode_mlp_fwd_and_ray_variants_by_shape(cuda, t, mlp_fwd, rays):
 RAY_EXPERTS = [0, 0, 0, 1, 2, 2, 2, 2, 2, 3, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 5, 6, 6]
 
 
-@pytest.mark.parametrize("log2_t,variant", [(12, "staged"), (14, "direct")])
+@pytest.mark.parametrize("log2_t", [12, 14])
 @pytest.mark.parametrize("live", [0, 11, len(RAY_EXPERTS)])
-def test_encode_fwd_moe_rays_tile_runs_and_live_count(cuda, live, log2_t, variant):
-    """The ray encode's design taken by shape (staged at T = 4,096, direct
-    at T = 16,384) over tiles whose field changes inside a block's tiles, a
-    field of one tile, and num_live at 0, in the middle (a block cut short)
-    and at all tiles: live tiles within 1e-5 of the plain version, dead
-    tiles never written (they keep the NaN of a freed block), one launch a
-    call, no host sync."""
+def test_encode_fwd_moe_rays_tile_runs_and_live_count(cuda, live, log2_t):
+    """The ray encode at T = 4,096 and T = 16,384 over tiles whose field
+    changes inside a run of consecutive tiles, a field of one tile, and
+    num_live at 0, in the middle and at all tiles: live tiles within 1e-5
+    of the plain version, dead tiles never written (they keep the NaN of a
+    freed block), one launch a call, no host sync."""
     experts = torch.tensor(RAY_EXPERTS, dtype=torch.int32, device=cuda)
     args, kw = _ray_inputs(cuda, experts, 27, log2_t)
-    assert permuto_cuda.encode_fwd_moe_rays_variant(args[0]) == variant
     num_live = torch.tensor(live, dtype=torch.int32, device=cuda)
     before = permuto_cuda.LAUNCHES["encode_fwd_moe_rays"]
     shape = (len(RAY_EXPERTS), 32, 1024)
@@ -732,3 +727,102 @@ def test_lattice_far_out_takes_the_select_form(cuda):
     finite = torch.isfinite(coords).all(0)
     assert torch.equal(idx[..., finite], want_idx[..., finite])
     assert float((w[..., finite] - want_w[..., finite]).abs().max()) <= 1e-6
+
+
+def _topk_case(dev, case):
+    """(points (3, P), centres (N, 3), valid (N,)) of one topk2_fields case."""
+    gen = torch.Generator(dev).manual_seed(81)
+    pts = torch.randn((3, 5000), generator=gen, device=dev) * 0.05 + 1.0
+    if case == "ties":  # duplicates and pairs equidistant from points that sit on their middle
+        mid = pts[:, :4].T
+        v = torch.randn((4, 3), generator=gen, device=dev)
+        cen = torch.cat([mid + v, mid - v, mid + v, torch.randn((6, 3), generator=gen, device=dev)])
+        valid = torch.ones(cen.shape[0], dtype=torch.bool, device=dev)
+    elif case in ("one centre", "one invalid centre"):
+        cen = torch.randn((1, 3), generator=gen, device=dev)
+        valid = torch.tensor([case == "one centre"], device=dev)
+    elif case in ("all invalid", "one valid"):
+        cen = torch.randn((9, 3), generator=gen, device=dev)
+        valid = torch.zeros(9, dtype=torch.bool, device=dev)
+        valid[5] = case == "one valid"
+    else:  # 1,024 centres in clusters, some near the points, a quarter invalid
+        hubs = torch.randn((16, 3), generator=gen, device=dev) * 3 + 1.0
+        cen = hubs.repeat_interleave(64, 0) + torch.randn((1024, 3), generator=gen, device=dev) * 0.2
+        valid = torch.rand(1024, generator=gen, device=dev) > 0.25
+        pts = torch.cat([pts, hubs.T.repeat_interleave(300, 1) + torch.randn((3, 4800), generator=gen,
+                                                                            device=dev) * 0.3], 1)
+    return pts.contiguous(), cen.contiguous(), valid
+
+
+@pytest.mark.parametrize("case", ["ties", "one centre", "one invalid centre", "all invalid", "one valid",
+                                  "1024 clustered"])
+def test_topk2_fields_exact_on_edge_cases(cuda, case):
+    """The branch-free, pruned kernel against the plain version, bit for bit
+    (distances and indices): ties go to the lower index (duplicate and
+    equidistant centres), N = 1 pads with (+inf, 0), fewer than two valid
+    centres give the first invalid indices, and 1,024 clustered centres
+    are pruned box by box without losing a winner. Each box kept as many
+    centres as the plain model of the pruning keeps (the kernel's own
+    counts, from a launch that LAUNCHES does not count)."""
+    pts, cen, valid = _topk_case(cuda, case)
+    before = topk.LAUNCHES["topk2_fields"]
+    d, i = topk.topk2_fields(pts, cen, valid)
+    assert topk.LAUNCHES["topk2_fields"] == before + 1
+    wd, wi = topk.topk2_fields_plain(pts, cen, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+    counts = topk.topk2_box_survivors(pts, cen, valid)
+    assert topk.LAUNCHES["topk2_fields"] == before + 1
+    keep = topk.topk2_survivors_plain(pts, cen, valid)
+    assert torch.equal(counts, keep.sum(1, dtype=torch.int32))
+    if case == "1024 clustered":  # the pruning drops most centres here
+        assert float(counts.float().mean()) < 0.5 * cen.shape[0]
+
+
+# tiles' owners of the carried encode's tests: fields of one tile at every
+# position of a group of 4 consecutive tiles, runs across such groups, and
+# a field change at every tile
+MOE_EXPERTS = [0, 1, 1, 1, 1, 2, 3, 3, 3, 4, 5, 5, 5, 5, 5, 5, 5, 5, 5, 6, 7, 8, 9, 10, 10, 10, 10]
+
+
+@pytest.mark.parametrize("log2_t", [12, 14])
+@pytest.mark.parametrize("live", [0, 13, len(MOE_EXPERTS)])
+def test_encode_fwd_moe_tile_runs_and_live_count(cuda, live, log2_t):
+    """The carried encode at T = 4,096 and T = 16,384 over field runs of
+    one tile and runs across groups of 4 tiles, num_live at 0, in the middle
+    and at all tiles: live tiles within 1e-5 of the plain version, dead
+    tiles never written (they keep the NaN of a freed block), one launch a
+    call, no host sync."""
+    experts = torch.tensor(MOE_EXPERTS, dtype=torch.int32, device=cuda)
+    args = _ray_inputs(cuda, experts, 28, log2_t)[0]
+    tables, consts = args[0], args[7:]
+    gen = torch.Generator(cuda).manual_seed(28)
+    coords = torch.rand((len(MOE_EXPERTS), 3, 1024), generator=gen, device=cuda) * 1.5 - 0.25
+    num_live = torch.tensor(live, dtype=torch.int32, device=cuda)
+    before = permuto_cuda.LAUNCHES["encode_fwd_moe"]
+
+    def call():
+        torch.cuda.set_sync_debug_mode("error")  # a host sync in the wrapper raises
+        try:
+            return permuto_cuda.encode_fwd_moe(tables, coords, experts, *consts, num_live_tiles=num_live)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    got = _over_stale_nan(cuda, (len(MOE_EXPERTS), 32, 1024), call)
+    assert permuto_cuda.LAUNCHES["encode_fwd_moe"] == before + 1
+    want = permuto_cuda.encode_fwd_moe_plain(tables, coords, experts, *consts)
+    assert bool(torch.isnan(got[live:]).all())
+    if live:
+        assert float((got[:live] - want[:live]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("log2_t", [12, 14])
+def test_encode_fwd_moe_rays_bit_for_bit(cuda, log2_t):
+    """The ray encode's output at T = 4,096 and T = 16,384 on a fixed seed
+    equals the plain version's bit for bit, as the kernel's did before the
+    two MoE encodes shared one body (the lattice and the ray rebuild round
+    as the plain version does, and each feature sums its corners in the
+    same order)."""
+    args, kw = _ray_inputs(cuda, torch.tensor(RAY_EXPERTS, dtype=torch.int32, device=cuda), 30, log2_t)
+    got = permuto_cuda.encode_fwd_moe_rays(*args, **kw)
+    assert torch.equal(got, permuto_cuda.encode_fwd_moe_rays_plain(*args, **kw))

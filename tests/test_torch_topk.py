@@ -86,3 +86,55 @@ def test_topk2_rejects_bad_inputs():
     before = dict(topk.LAUNCHES)
     topk.topk2_fields(torch.zeros((3, 4)), torch.zeros((2, 3)), torch.ones(2, dtype=torch.bool))
     assert topk.LAUNCHES == before  # the plain version is no launch
+
+
+def test_fold_validity_gives_the_plain_top2():
+    """The kernel's centres, validity folded in (an invalid centre's x is
+    +inf), give the plain top-2 bit for bit with every centre taken as
+    valid: the same distances (+inf for an invalid winner) and indices
+    (ties to the lower index, clamped to N - 1), also for N = 1 and with
+    fewer than two valid centres."""
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy((rng.normal(size=(3, 500)) * 2).astype(np.float32))
+    for n, valid in ((1, [True]), (1, [False]), (4, [False] * 4), (4, [False, True, False, False]),
+                     (64, list(rng.random(64) > 0.3))):
+        cen = torch.from_numpy((rng.normal(size=(n, 3)) * 2).astype(np.float32))
+        if n > 8:
+            cen[7] = cen[3]
+        valid = torch.tensor(valid)
+        folded = topk.fold_validity(cen, valid)
+        assert folded.shape == (n, 4) and folded.dtype == torch.float32
+        assert torch.isinf(folded[:, 0]).tolist() == (~valid).tolist()
+        got = topk.topk2_fields_plain(pts, folded[:, :3], torch.ones(n, dtype=torch.bool))
+        want = topk.topk2_fields_plain(pts, cen, valid)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_pruning_model_drops_far_centres():
+    """Four points in a small box and centres around it: the far one is
+    dropped, the two near ones and the duplicate of one of them survive,
+    and the invalid one goes with the far one."""
+    pts = torch.tensor([[0.0, 0.1, 0.2, 0.1], [0.0, 0.0, 0.1, 0.1], [0.0, 0.0, 0.0, 0.1]])
+    cen = torch.tensor([[0.0, 0.0, 0.5], [10.0, 0, 0], [0.1, 0.1, -0.4], [0.0, 0.0, 0.5], [0.0, 0, 0]])
+    valid = torch.tensor([True, True, True, True, False])
+    keep = topk.topk2_survivors_plain(pts, cen, valid, 4)
+    assert keep.tolist() == [[True, False, True, True, False]]
+
+
+def test_box_survivors_on_cpu_take_the_plain_model():
+    """topk2_box_survivors on CPU tensors: each box's surviving centres as
+    the plain model counts them, one count a box of BOX_POINTS points (the
+    last box short), no launch."""
+    rng = np.random.default_rng(12)
+    p = 3 * topk.BOX_POINTS + 5
+    pts = torch.from_numpy((rng.normal(size=(3, p)) * 0.05 + np.repeat(rng.normal(size=(3, 4)), 64, 1)[:, :p])
+                           .astype(np.float32))
+    cen = torch.from_numpy((rng.normal(size=(40, 3)) * 2).astype(np.float32))
+    valid = torch.from_numpy(rng.random(40) > 0.2)
+    before = dict(topk.LAUNCHES)
+    counts = topk.topk2_box_survivors(pts, cen, valid)
+    assert topk.LAUNCHES == before
+    assert counts.shape == (4,) and counts.dtype == torch.int32
+    keep = topk.topk2_survivors_plain(pts, cen, valid)
+    assert counts.tolist() == keep.sum(1).tolist()
+    assert 0 < int(counts.min()) and int(counts.max()) < 40  # the far centres are dropped

@@ -92,6 +92,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    direct variant at T = 16,384 (``kernel_variant`` lines),
    five Adam steps of a fit that must lower its loss.
 10. geometry_gradients: one trained field at 4,096 points, card against CPU.
+11. cli: the port's CLI runner (``run_mapping.NeuralGraphMapRunner``) on the
+    card at config/synthetic.yaml's own settings (60 frames, eval_ratio 0.1,
+    eval_chunk_freq 5, psnr and depth-L1, a mesh at 0.04 m, frames read and
+    uploaded ahead by the prefetcher, a full checkpoint) in a temporary
+    directory: fit wall s, ``fps_estimate`` / ``spf_estimate``, the host
+    phases, online and final PSNR and depth-L1, the mesh's vertices and
+    faces, ``extract_mesh`` seconds split into field evaluation (the card)
+    and marching tetrahedra (the host), and the launches meshing made:
+    ``topk2_fields`` and ``encode_fwd_moe`` (carried points) each > 0, the
+    ray encode none.
+12. cli_mesh_vs_cpu: of the CLI's meshing launches (262,144 grid points of
+    a block 128 voxels a side), the one with the most points near the
+    surface, at its own shape: its volume on the card against the CPU's
+    plain route, max abs <= 1e-4, and the CPU's seconds.
+13. cli_resume: a fresh runner on the card loads the full checkpoint; its
+    render of a held-out frame equals the saving runner's within 1e-4 (the
+    same generator state), then it trains two more frames, losses finite.
 
 Kernel times: ``ms`` is device time a launch, with the host's issue hidden:
 a device-side delay long enough for the host to queue 20 launches, then
@@ -124,8 +141,9 @@ unfused), each run's steady median ms a frame, and in how many of the
 The line before the last is a JSON summary of the ten kernels (launches
 from the path that runs each: training kernels from the 12 frames, the
 fused pair from the fused slice, the render kernels from one render of
-their route, the gather route's pair from the 2D fit); the last line is
-``{"ok": true, "device": {...}}``.
+their route, the gather route's pair from the 2D fit; ``topk2_fields`` and
+``encode_fwd_moe`` also give ``meshing_launches``, from the cli phase's
+mesh); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -137,6 +155,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1807,6 +1826,160 @@ def check_geometry_gradients(torch, permuto_cuda, losses, ngm):
           eikonal=eikonal, gather_pairs_launches=launches)
 
 
+
+def all_launches(permuto_cuda, topk):
+    return {**permuto_cuda.LAUNCHES, **topk.LAUNCHES}
+
+
+def check_cli(torch, permuto_cuda, topk, run_mapping, out_dir: pathlib.Path, smi):
+    """Phase cli: the port's CLI runner on the card at config/synthetic.yaml's
+    own settings (60 frames; held-out renders; mesh at 0.04 m; a full
+    checkpoint) -> (runner, the run's launches, meshing's launches, checkpoint)."""
+    import numpy as np
+
+    cfg = dict(CONFIG, out_dir=str(out_dir), checkpoint_full=True, eval_store_details=False,
+               render_vis=False, host_prefetch_depth=2)
+    runner = run_mapping.NeuralGraphMapRunner(cfg, device="cuda")
+    extract = runner.extract_mesh
+    meshing = {}
+
+    def counted_extract_mesh(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = all_launches(permuto_cuda, topk)
+        t0 = time.perf_counter()
+        mesh = extract(*args, **kwargs)
+        torch.cuda.synchronize()
+        meshing["seconds"] = time.perf_counter() - t0
+        meshing["launches"] = {k: v - before[k] for k, v in all_launches(permuto_cuda, topk).items()}
+        meshing["mesh"] = mesh
+        return mesh
+
+    runner.extract_mesh = counted_extract_mesh
+    save = runner.save_model
+
+    def timed_save_model(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        meshing["save_s"] = time.perf_counter() - t0
+        return path
+
+    runner.save_model = timed_save_model
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = runner.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = all_launches(permuto_cuda, topk)
+
+    mesh = meshing.get("mesh")
+    mesh_launches = meshing.get("launches", {})
+    ckpts = list(runner._out_dir.glob("*.npz"))
+    want = ["online_psnr", "online_depthl1", "final_psnr", "final_depthl1", "fps_estimate", "spf_estimate"]
+    bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    if bad or runner.engine.num_fields < CONFIG["num_train_fields"]:
+        raise AssertionError(f"cli: non-finite or missing metrics {bad}, {runner.engine.num_fields} fields")
+    if mesh is None or len(mesh.vertices) == 0 or len(mesh.faces) == 0:
+        raise AssertionError("cli: the final mesh is empty")
+    if not (mesh_launches["topk2_fields"] > 0 and mesh_launches["encode_fwd_moe"] > 0
+            and mesh_launches["encode_fwd_moe_rays"] == 0):
+        raise AssertionError(f"cli: meshing launches {mesh_launches}")
+    for name in ("encode_fwd", "encode_bwd_table", "batched_gather", "encode_fwd_moe_rays"):
+        if launches[name] < 1:
+            raise AssertionError(f"cli: {name} never launched in the run ({launches})")
+    if len(ckpts) != 1:
+        raise AssertionError(f"cli: checkpoints {ckpts}")
+    with np.load(ckpts[0]) as data:
+        if "resume.frame_gen_state" not in data.files:
+            raise AssertionError("cli: the checkpoint is not a full one")
+    phase(
+        "cli", frames=CONFIG["dataset_config"]["num_frames"], trained_frames=runner.engine.throughput.frames,
+        eval_frames=sorted(runner.eval_frame_ids), fields=runner.engine.num_fields,
+        fit_seconds=fit_s, fit_loop_wall_s=runner._loop_wall_s,
+        fps_estimate=metrics["fps_estimate"], spf_estimate=metrics["spf_estimate"],
+        wall_fps=metrics.get("wall_fps"),
+        phases_s={k: v for k, v in metrics.items() if k.startswith("phase_")},
+        online_psnr=metrics["online_psnr"], online_depthl1=metrics["online_depthl1"],
+        final_psnr=metrics["final_psnr"], final_depthl1=metrics["final_depthl1"],
+        mesh_vertices=len(mesh.vertices), mesh_faces=len(mesh.faces),
+        extract_mesh_s=meshing["seconds"], mesh_eval_s=runner.mesh_stats["eval_s"],
+        mesh_march_s=runner.mesh_stats["march_s"], mesh_blocks=runner.mesh_stats["blocks"],
+        mesh_blocks_evaluated=runner.mesh_stats["blocks_evaluated"], save_model_s=meshing["save_s"],
+        checkpoint_mb=ckpts[0].stat().st_size / 2**20,
+        meshing_launches={k: mesh_launches[k] for k in ("topk2_fields", "encode_fwd_moe", "encode_fwd_moe_rays")},
+        run_launches={k: v for k, v in launches.items() if v}, checkpoint=ckpts[0].name, card=smi,
+    )
+    return runner, launches, mesh_launches, ckpts[0]
+
+
+def check_cli_mesh_vs_cpu(torch, meshing, runner):
+    """Phase cli_mesh_vs_cpu: one whole meshing launch, on the card against
+    the CPU's plain route. The CLI meshes blocks of 128 voxels a side in
+    launches of ``eval_chunk`` (262,144) grid points; of those launches,
+    the one with the most points near the surface is held at its own shape,
+    volume max abs <= 1e-4."""
+    import numpy as np
+
+    e = runner.engine
+    valid = torch.arange(e.capacity, device=e._device) < e.num_fields
+    active = e._map_arrays.positions[valid].cpu().numpy()
+    chunk = runner._block_size
+    args = (e._map_arrays.positions, e._map_arrays.orientations, valid)
+    best, best_near = None, -1
+    for _, _, _, pts in meshing.mesh_blocks(active, e._field_radius, CONFIG["mesh_resolution"], 128):
+        if pts is None:
+            continue
+        # the block's launches as meshing makes them: the last one padded with zeros
+        pts = np.concatenate([pts, np.zeros(((-len(pts)) % chunk, 3), np.float32)])
+        for start in range(0, len(pts), chunk):
+            geo = e._fset.apply_knn_tiled(e._params, torch.from_numpy(pts[start : start + chunk]).cuda(), *args)
+            near = int((geo[:, 3].abs() < 0.05).sum())
+            if near > best_near:
+                best, best_near = pts[start : start + chunk], near
+    gpu = e._fset.apply_knn_tiled(e._params, torch.from_numpy(best).cuda(), *args)
+    torch.cuda.synchronize()
+    cpu_fset = copy.deepcopy(e._fset).to("cpu")
+    t0 = time.perf_counter()
+    cpu = cpu_fset.apply_knn_tiled(to_cpu(e._params), torch.from_numpy(best), *to_cpu(args))
+    cpu_s = time.perf_counter() - t0
+    err = float((gpu[:, 3].cpu() - cpu[:, 3]).abs().max())
+    color_err = float((gpu[:, :3].cpu() - cpu[:, :3]).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"cli_mesh_vs_cpu: volume max abs {err} > 1e-4")
+    phase("cli_mesh_vs_cpu", points=len(best), points_near_surface=best_near, max_abs_volume=err,
+          max_abs_color=color_err, cpu_plain_s=cpu_s, tolerance="volume max abs <= 1e-4")
+
+
+def check_cli_resume(torch, run_mapping, runner, ckpt, out_dir: pathlib.Path):
+    """Phase cli_resume: a fresh runner on the card loads the full
+    checkpoint; its render of a held-out frame equals the saving runner's
+    (the same generator state: nothing drew since the save); then it trains
+    two more frames."""
+    fresh = run_mapping.NeuralGraphMapRunner(dict(runner.config, out_dir=str(out_dir)), device="cuda")
+    t0 = time.perf_counter()
+    fresh.load_model(ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ds = runner.dataset
+    fid = sorted(runner.eval_frame_ids)[0]
+    c2w = ds.get_slam_c2ws(fid, len(ds) - 1)
+    want = runner.engine.render_image(c2w, ds.camera)[0]
+    got = fresh.engine.render_image(c2w, ds.camera)[0]
+    err = float((got - want).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"cli_resume: render of frame {fid} differs by {err} > 1e-4")
+    fresh.dataset = ds
+    frames = [f for f in sorted(runner.train_frame_ids) if not ds.is_keyframe(f)][-2:]
+    losses = [fresh.engine.process_frame(ds, f, torch.from_numpy(ds[f]["rgbd"]).cuda()) for f in frames]
+    bad = [(f, k, v) for f, d in zip(frames, losses) for k, v in d.items() if not math.isfinite(v)]
+    if bad or not all(losses):
+        raise AssertionError(f"cli_resume: losses after the resume {bad or losses}")
+    phase("cli_resume", load_model_s=load_s, render_frame=fid, max_abs_render=err, tolerance="max abs <= 1e-4",
+          frame_counter=fresh.engine._frame_counter, trained_frames=frames,
+          combined_losses=[d["combined"] for d in losses])
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=pathlib.Path, default=None, metavar="PATH",
@@ -1925,12 +2098,25 @@ def main() -> None:
     kernel_rows.update(gather_rows)
     check_geometry_gradients(torch, permuto_cuda, losses_mod, ngm)
 
+    # -- 11-13. the CLI: fit, held-out eval, meshing, checkpoint, resume -------
+    from neural_graph_mapping_tpu_torch import run_mapping
+    from neural_graph_mapping_tpu_torch.mapping import meshing
+
+    with tempfile.TemporaryDirectory(prefix="ngm_cli_") as tmp:
+        runner, _, mesh_launches, ckpt = check_cli(torch, permuto_cuda, topk, run_mapping,
+                                                   pathlib.Path(tmp) / "runs", smi)
+        check_cli_mesh_vs_cpu(torch, meshing, runner)
+        check_cli_resume(torch, run_mapping, runner, ckpt, pathlib.Path(tmp) / "resumed")
+
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"{name} was never launched on its path")
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **kernel_rows[name]})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], **kernel_rows[name]}
+        if name in ("topk2_fields", "encode_fwd_moe"):
+            row["meshing_launches"] = mesh_launches[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

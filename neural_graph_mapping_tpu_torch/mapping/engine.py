@@ -13,14 +13,22 @@ Randomness comes from ``torch.Generator``s on the engine's device; every
 ported function also takes its draws as optional tensors
 (:class:`IterationDraws`), which is how the tests replay JAX's draws.
 
+Time accounting: ``phase_times`` sums the host phases of
+:meth:`NeuralGraphMap.process_frame` (graph, alloc, host_misc; the CLI
+runner adds data_wait and h2d), and ``throughput`` (a
+:class:`~neural_graph_mapping_tpu_torch.utils.profiling.ThroughputTracker`)
+gives ``fps_estimate`` / ``spf_estimate`` from the frames processed and their
+optimization seconds.
+
 Not ported here (see ROADMAP.md): the single-view update mode, field-axis
-sharding over several devices, the capacity-buffer render fallback (other
-encodings), and meshing.
+sharding over several devices and the capacity-buffer render fallback
+(other encodings).
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, NamedTuple, Optional, Set
 
 import numpy as np
@@ -31,7 +39,7 @@ from neural_graph_mapping_tpu_torch.mapping import map_state, optimizer, render,
 from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
 from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
 from neural_graph_mapping_tpu_torch.ops import quadrature as quad_mod
-from neural_graph_mapping_tpu_torch.utils import chunking, transforms
+from neural_graph_mapping_tpu_torch.utils import chunking, profiling, transforms
 
 logger = logging.getLogger(__name__)
 
@@ -573,6 +581,7 @@ class NeuralGraphMap:
         self._prev_kf2w_slots: Optional[np.ndarray] = None
 
         # keyframe cache; slot 0 = current frame
+        self._camera = None  # the dataset's, from the first frame on
         self._cache_rgb = None  # allocated lazily once H, W known
         self._cache_depth = None
         self._cache_c2w_np = np.tile(np.eye(4, dtype=np.float32), (self._num_kf_slots, 1, 1))
@@ -591,6 +600,9 @@ class NeuralGraphMap:
         self._observed_mask = None
         self._bb_min = np.full((3,), np.inf, np.float32)
         self._bb_max = np.full((3,), -np.inf, np.float32)
+        # per-frame host phase accounting (seconds, cumulative)
+        self.phase_times: Dict[str, float] = {}
+        self.throughput = profiling.ThroughputTracker()
 
     # -- capacity management ----------------------------------------------------
 
@@ -725,15 +737,22 @@ class NeuralGraphMap:
             ids |= self._kf2fields.get(kf, set())
         return np.fromiter(ids, np.int64) if ids else np.zeros((0,), np.int64)
 
+    def _add_phase(self, name: str, t0: float) -> None:
+        self.phase_times[name] = self.phase_times.get(name, 0.0) + time.perf_counter() - t0
+
     def process_frame(self, dataset, frame_id: int, rgbd) -> dict:
-        """Ingest one frame (H, W, 4 RGB-D, numpy or tensor) and run the
-        per-frame optimization. Returns the last iteration's losses as
-        floats (one device sync per frame)."""
+        """Ingest one frame (H, W, 4 RGB-D) and run the per-frame
+        optimization. ``rgbd`` is a numpy array (uploaded here) or a float32
+        tensor already on the map's device (used as it is, no copy, as the
+        CLI's prefetcher hands it over). Returns the last iteration's losses
+        as floats (one device sync per frame)."""
+        t_start = time.time()
         self._frame_counter += 1
         rgbd = self._to_device(rgbd).float()
         h, w = rgbd.shape[0], rgbd.shape[1]
         if self._cache_rgb is None:
             self._init_cache(h, w)
+        if self._camera is None:  # a loaded full checkpoint brings its cache
             self._camera = dataset.camera
 
         if self._max_depth is not None:
@@ -745,8 +764,11 @@ class NeuralGraphMap:
         c2w_missing = not np.isfinite(c2w_np).all()
         c2w = self._to_device(c2w_np if not c2w_missing else np.eye(4, dtype=np.float32))
 
+        t_phase = time.perf_counter()
         self._update_graph(dataset, frame_id)
+        self._add_phase("graph", t_phase)
 
+        t_phase = time.perf_counter()
         is_kf = dataset.is_keyframe(frame_id)
         kf_slot = -1
         if is_kf:
@@ -759,7 +781,9 @@ class NeuralGraphMap:
             self._cache_valid_dirty = True
             if not c2w_missing:
                 self._allocate_new_fields(frame_id, rgbd[..., 3], c2w, kf_slot)
+        self._add_phase("alloc", t_phase)
 
+        t_phase = time.perf_counter()
         # current frame occupies slot 0
         write_current = not self._keyframes_only and not c2w_missing
         if not self._keyframes_only:
@@ -791,6 +815,8 @@ class NeuralGraphMap:
         if self._cache_valid_dirty or self._cache_valid_dev is None:
             self._cache_valid_dev = self._to_device(self._cache_valid_np.copy())
             self._cache_valid_dirty = False
+        allocated = self._allocated_mask()
+        self._add_phase("host_misc", t_phase)
 
         (
             self._params,
@@ -815,7 +841,7 @@ class NeuralGraphMap:
             self._map_arrays.training_iterations,
             self._map_arrays.positions,
             self._map_arrays.orientations,
-            self._allocated_mask(),
+            allocated,
             self._cache_rgb,
             self._cache_depth,
             self._cache_c2w_dev,
@@ -826,10 +852,14 @@ class NeuralGraphMap:
             self._frame_gen,
         )
         self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
-        if not loss_dict:
-            return {}
-        values = torch.stack(list(loss_dict.values())).tolist()
-        return dict(zip(loss_dict.keys(), values))
+        losses = {}
+        if loss_dict:
+            values = torch.stack(list(loss_dict.values())).tolist()
+            losses = dict(zip(loss_dict.keys(), values))
+        # the frame's time ends after the losses' copy, which waits for the
+        # device: the JAX engine stops its clock before that wait
+        self.throughput.add_frame(time.time() - t_start)
+        return losses
 
     def _allocate_new_fields(self, frame_id, depth, c2w, kf_slot) -> None:
         active_ids = self._active_field_ids(frame_id)
@@ -860,6 +890,16 @@ class NeuralGraphMap:
         )
         self._num_fields += n_new
 
+    # -- throughput accounting ---------------------------------------------------
+
+    @property
+    def fps_estimate(self) -> float:
+        return self.throughput.fps_estimate
+
+    @property
+    def spf_estimate(self) -> float:
+        return self.throughput.spf_estimate
+
     # -- rendering ---------------------------------------------------------------
 
     def render_block_size(self) -> int:
@@ -870,6 +910,7 @@ class NeuralGraphMap:
             block = max(1024, int(block * 512 / self._eval_span_samples))
         return block
 
+    @profiling.benchmark
     def render_image(self, c2w, camera, capacity_per_field: Optional[int] = None):
         """Render an RGB-D image from pose ``c2w`` (4, 4) with ``camera``
         through the span-restricted tiled KNN path, block by block

@@ -243,6 +243,11 @@ class NeuralFieldSet(nn.Module):
         """Stacked parameters for ``num_fields`` fields (independent draws)."""
         return self.prototype.init(num_fields, generator, device)
 
+    def numel_per_field(self) -> int:
+        """Parameter count of one field."""
+        params = self.prototype.init(1, torch.Generator().manual_seed(0), "cpu")
+        return int(sum(v[0].numel() for v in params.values()))
+
     def gather_fields(self, stacked_params: Params, field_ids: torch.Tensor) -> Params:
         """Slice out a subset of fields (a gather along the field axis)."""
         return {k: v.index_select(0, field_ids) for k, v in stacked_params.items()}
@@ -338,10 +343,15 @@ class NeuralFieldSet(nn.Module):
         field_positions: torch.Tensor,  # (N, 3)
         field_orientations: torch.Tensor,  # (N, 4) wxyz
         field_valid: torch.Tensor,  # (N,) bool
+        field_radius: Optional[float] = None,
         ray_ctx: Optional[dict] = None,
     ) -> torch.Tensor:
         """KNN-blended evaluation through the tile-sorted MoE dispatch
         (fields.apply_knn_tiled) -> (P, dim_out).
+
+        ``field_radius`` overrides the radius of the inside test (meshing's
+        recolour pass takes the field set's radius + 0.1); field-local
+        coordinates keep the field set's own scale.
 
         Every valid (point, neighbour) pair is sorted by field into
         TILE-pair tiles that each belong to one field, encoded by one MoE
@@ -360,7 +370,8 @@ class NeuralFieldSet(nn.Module):
         (``encode_fwd_moe``). No host sync: the live-tile count stays on the
         device.
         """
-        radius, k = self.field_radius, self.num_knn
+        radius = self.field_radius if field_radius is None else field_radius
+        k = self.num_knn
         n = stacked_params["enc.table"].shape[0]
         p = query_points.shape[0]
         tile = permuto_cuda.TILE

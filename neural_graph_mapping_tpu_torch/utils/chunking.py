@@ -36,3 +36,12 @@ def batched_evaluation(
             for parts in zip(*outs)
         )
     return torch.cat(outs)[:n]
+
+
+def save_image(img, file_path) -> None:
+    """Save an (H, W, 3) [0, 1] array as a PNG."""
+    import numpy as np
+    import PIL.Image
+
+    arr = (np.clip(np.asarray(img), 0.0, 1.0) * 255).astype(np.uint8)
+    PIL.Image.fromarray(arr).save(file_path)

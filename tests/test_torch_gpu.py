@@ -826,3 +826,84 @@ def test_encode_fwd_moe_rays_bit_for_bit(cuda, log2_t):
     args, kw = _ray_inputs(cuda, torch.tensor(RAY_EXPERTS, dtype=torch.int32, device=cuda), 30, log2_t)
     got = permuto_cuda.encode_fwd_moe_rays(*args, **kw)
     assert torch.equal(got, permuto_cuda.encode_fwd_moe_rays_plain(*args, **kw))
+
+
+def test_prefetched_frames_equal_synchronous_frames(cuda, monkeypatch):
+    """Frames copied ahead from pinned memory on the prefetcher's side
+    stream equal the synchronous upload byte for byte, over 12 frames of
+    the production scene. The side stream is the slow one: each copy is
+    queued behind ~50 ms of device sleep while the consumer's stream is
+    idle, so a frame read without waiting on its event would be read
+    before its copy ran."""
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+    from neural_graph_mapping_tpu_torch.utils.prefetch import FramePrefetcher
+
+    upload = FramePrefetcher._upload
+
+    def slow_upload(self, rgbd):
+        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+            torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's ~2 GHz clock
+        return upload(self, rgbd)
+
+    monkeypatch.setattr(FramePrefetcher, "_upload", slow_upload)
+    ds = str_to_object(chip_smoke.CONFIG["dataset_type"])(chip_smoke.CONFIG["dataset_config"])
+    ds.load_slam_results()
+    want = [torch.from_numpy(ds[fid]["rgbd"]).to(cuda) for fid in range(12)]
+    torch.cuda.synchronize()
+    pf = FramePrefetcher(ds, range(12), depth=2, to_device=True, device=cuda)
+    assert pf._stream is not None and pf._stream != torch.cuda.current_stream(cuda)
+    try:
+        for fid in range(12):
+            got = pf.get(fid)["rgbd_dev"]
+            assert got.is_cuda and got.dtype == torch.float32
+            copied = got.clone()  # on the current stream, right after get's wait
+            assert torch.equal(copied, want[fid]), fid
+    finally:
+        pf.close()
+
+
+def test_extract_mesh_on_card_matches_cpu_route(cuda, monkeypatch):
+    """A map trained on the card for 4 frames, meshed on the card and on the
+    CPU (plain versions) from the same state: every block's volume within
+    1e-4, and meshing launches the top-2 and carried MoE encode kernels."""
+    import copy
+
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+    from neural_graph_mapping_tpu_torch.mapping import engine, meshing
+
+    cfg = dict(chip_smoke.CONFIG, dataset_config={"num_frames": 4, "width": 40, "height": 30,
+                                                  "fx": 35.0, "fy": 35.0})
+    ds = str_to_object(cfg["dataset_type"])(cfg["dataset_config"])
+    ds.load_slam_results()
+    ngm = engine.NeuralGraphMap(cfg, device="cuda")
+    for fid in range(4):
+        ngm.process_frame(ds, fid, ds[fid]["rgbd"])
+    volumes = []
+    orig = meshing.native.marching_tetrahedra
+
+    def record(vol, iso):
+        volumes.append(np.array(vol))
+        return orig(vol, iso)
+
+    monkeypatch.setattr(meshing.native, "marching_tetrahedra", record)
+    m = ngm._map_arrays
+    valid = torch.arange(ngm.capacity, device=cuda) < ngm.num_fields
+    kw = dict(field_radius=ngm._field_radius, geometry_mode="nrgbd", geometry_factor=20.0,
+              resolution=0.3, block_size=16, eval_chunk=16384)
+    before = {"topk2_fields": topk.LAUNCHES["topk2_fields"], "moe": permuto_cuda.LAUNCHES["encode_fwd_moe"]}
+    got = meshing.extract_mesh(ngm._fset, ngm._params, m.positions, m.orientations, valid, **kw)
+    torch.cuda.synchronize()
+    assert topk.LAUNCHES["topk2_fields"] > before["topk2_fields"]
+    assert permuto_cuda.LAUNCHES["encode_fwd_moe"] > before["moe"]
+    gpu_volumes, volumes[:] = list(volumes), []
+    cpu = {k: v.cpu() for k, v in ngm._params.items()}
+    want = meshing.extract_mesh(copy.deepcopy(ngm._fset).to("cpu"), cpu, m.positions.cpu(),
+                                m.orientations.cpu(), valid.cpu(), **kw)
+    assert got is not None and want is not None
+    assert len(gpu_volumes) == len(volumes) > 1
+    for g, w in zip(gpu_volumes, volumes):
+        assert float(np.abs(g - w).max()) <= 1e-4

@@ -58,6 +58,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    plain version and timed, and ``encode_mlp_bwd`` at its inputs, against its
    plain version with the cotangent off the ReLU kink (the error on the
    inputs as given beside it) and timed (``captured_ms`` in its line).
+   slice_single_view: fresh maps with ``update_mode: single_view`` over the
+   same frames, unfused and with ``fused_mlp: true``: fields, finite
+   losses, training counts rising, encode_fwd / encode_bwd_table (or the
+   fused pair) once per iteration and nothing else, steady ms a frame beside
+   the multi-view slice's; one single-view iteration of each route against
+   the CPU (same weights, injected draws), relative 1e-3.
 5. kernels (render): the three render kernels against their plain versions
    at the shapes of one production render block of the trained map (8192
    rays x 512 samples x k = 2 = 8,388,608 pairs): ``topk2_fields`` exact on
@@ -82,6 +88,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    CPU (plain versions), same state and jitter, max abs <= 1e-4; the card's
    block runs under ``torch.cuda.set_sync_debug_mode("error")``, so a host
    sync inside it fails the run.
+   render_capacity: the trained map at 160x120 through
+   ``render_image(capacity_per_field=2^16)``, the capacity-buffer route
+   (uniform sweep at eval_num_samples, 640; kernel 7 through
+   ``dispatch.expert_eval``, in slices of 2^21 buffer points): capacity,
+   dropped pairs, gather_pairs launches an image, peak device memory,
+   median ms of 5 after a warm-up beside the tiled route's; one 8192-ray
+   block against the CPU's plain route with the same jitter, max abs
+   <= 1e-4. kernel_captured: gather_pairs at one expert_eval slice's
+   inputs, exact and timed beside torch.gather.
 9. field2d: a 2D permutohedral field set at the production encoding widths
    (32 fields x 12,288 points) through ``apply_vmap``, the gather route:
    forward and backward on the card against the CPU, ``gather_pairs`` and
@@ -92,6 +107,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    direct variant at T = 16,384 (``kernel_variant`` lines),
    five Adam steps of a fit that must lower its loss.
 10. geometry_gradients: one trained field at 4,096 points, card against CPU.
+    capacity_probe: a map identical but for ``concat_points: true`` (the
+    tiled route cannot take it) trained over the 12 frames: render_image
+    takes the demand probe (its max count, the capacity it chose, drops);
+    extract_mesh at 0.04 m takes the ``apply_knn`` fallback (32,768 slots a
+    field; vertices, seconds, drops, only gather_pairs launched); the
+    meshing chunk with the most points near the surface against the CPU's
+    plain route, volume max abs <= 1e-5 apart from points at a distance
+    tie (second and third field equally far to 1e-5).
+    field_encodings: 3D field sets of 64 fields with the triplane, Fourier
+    and NeRF encodings through ``apply_knn`` at 65,536 points, card
+    against CPU, max abs <= 1e-5 (plain PyTorch: no kernel of the JAX
+    package computes them).
 11. cli: the port's CLI runner (``run_mapping.NeuralGraphMapRunner``) on the
     card at config/synthetic.yaml's own settings (60 frames, eval_ratio 0.1,
     eval_chunk_freq 5, psnr and depth-L1, a mesh at 0.04 m, frames read and
@@ -143,7 +170,10 @@ from the path that runs each: training kernels from the 12 frames, the
 fused pair from the fused slice, the render kernels from one render of
 their route, the gather route's pair from the 2D fit; ``topk2_fields`` and
 ``encode_fwd_moe`` also give ``meshing_launches``, from the cli phase's
-mesh); the last line is ``{"ok": true, "device": {...}}``.
+mesh; the training kernels ``single_view_<route>_launches`` from the
+single-view slices; ``gather_pairs`` its launches per capacity-route image
+and in the capacity route's mesh); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
@@ -1413,15 +1443,15 @@ def render_kernel_launches(permuto_cuda, topk):
             "encode_fwd_moe": permuto_cuda.LAUNCHES["encode_fwd_moe"]}
 
 
-def timed_renders(torch, ngm, c2w, camera, runs: int):
+def timed_renders(torch, ngm, c2w, camera, runs: int, **kw):
     """Median wall ms of ``runs`` renders after one warm-up (host clock
     around a render that ends in a synchronize)."""
-    ngm.render_image(c2w, camera)
+    ngm.render_image(c2w, camera, **kw)
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         t0 = time.perf_counter()
-        ngm.render_image(c2w, camera)
+        ngm.render_image(c2w, camera, **kw)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), times
@@ -1524,15 +1554,18 @@ def check_render_block_against_cpu(torch, engine, ngm, ds):
           host_syncs_in_block=0)
 
 
-def run_frames(torch, ngm, ds, frames):
+def run_frames(torch, ngm, ds, frames, ti_sums=None):
     """process_frame over ``frames`` -> (trained frames, seconds a frame,
-    the trained frames' loss dicts)."""
+    the trained frames' loss dicts); ``ti_sums``, if given, gets the map's
+    summed training counts after each frame (read outside the timing)."""
     trained, frame_s, all_losses = 0, [], []
     for fid, rgbd in enumerate(frames):
         t0 = time.perf_counter()
         losses = ngm.process_frame(ds, fid, rgbd)
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
+        if ti_sums is not None:
+            ti_sums.append(int(ngm._map_arrays.training_iterations.sum()))
         if losses:
             trained += 1
             all_losses.append(losses)
@@ -1826,6 +1859,375 @@ def check_geometry_gradients(torch, permuto_cuda, losses, ngm):
           eikonal=eikonal, gather_pairs_launches=launches)
 
 
+# -- single view, the capacity-buffer route, the other encodings ---------------------
+
+
+def check_sv_iteration_against_cpu(torch, engine, permuto_cuda, ngm):
+    """One single-view iteration (iteration 1: the current frame, slot 0) at
+    production width on the card and on the CPU (plain versions), from the
+    same state and the same injected draws (the cloud drawn among slot 0's
+    depth pixels) -> (worst relative loss difference, the card's losses,
+    the kernel launches of the card's iteration)."""
+    dev = ngm._params["w0"].device
+    gen = torch.Generator(dev).manual_seed(98)
+    n = ngm.capacity
+    f, r = ngm._num_train_fields, ngm._loss_cfg.num_rays_per_field
+    rc = ngm._rcfg
+    depth0 = ngm._cache_depth[0].reshape(-1)
+    draws = engine.IterationDraws(
+        slot_gumbel=-torch.log(-torch.log(torch.rand((ngm._num_kf_slots,), generator=gen, device=dev).clamp_min(1e-30))),
+        cloud_idx=torch.multinomial((depth0 != 0).float() + 1e-20, 50_000, replacement=True, generator=gen),
+        u_fields=torch.rand((n,), generator=gen, device=dev),
+        u_rays=torch.rand((f, r), generator=gen, device=dev),
+        u_coarse=torch.rand((f, r, rc.num_samples_coarse), generator=gen, device=dev),
+        u_guided=torch.rand((f, r, rc.num_samples_depth_guided), generator=gen, device=dev),
+    )
+    state = (
+        ngm._params, ngm._adam, ngm._map_arrays.training_iterations, ngm._map_arrays.positions,
+        ngm._map_arrays.orientations, ngm._allocated_mask(), ngm._cache_rgb, ngm._cache_depth,
+        ngm._cache_c2w_dev, ngm._cache_valid_dev,
+    )
+
+    def run(fset, st, dr):
+        return engine.optimization_iteration_sv(
+            fset, ngm._camera, ngm._rcfg, ngm._ocfg, ngm._loss_cfg, f, 1, *st, draws=dr)[3]
+
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    gpu = run(ngm._fset, clone(state), draws)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in permuto_cuda.LAUNCHES.items() if v}
+    cpu_fset = copy.deepcopy(ngm._fset).to("cpu")
+    worst = compare_losses(gpu, run(cpu_fset, to_cpu(state), to_cpu(draws)), "cpu")
+    return worst, {k: v.item() for k, v in gpu.items()}, launches
+
+
+def check_single_view_slice(torch, engine, permuto_cuda, ds, frames, multi_view, smi):
+    """Phase slice_single_view: fresh production maps with ``update_mode:
+    single_view`` over the 12 frames, unfused and with ``fused_mlp: true``:
+    fields allocated, finite losses, training counts rising, every
+    iteration through encode_fwd / encode_bwd_table (unfused) or the fused
+    pair, never the multi-view sampler's batched_gather; steady ms a frame
+    beside the multi-view slice's (``multi_view``: its median and mean);
+    one iteration of each against the CPU -> ({route: launches}, {route:
+    steady mean ms})."""
+    iters = CONFIG["num_iterations_per_frame"]
+    out, launches_by_route, mean_ms = {}, {}, {}
+    for route, extra in (("unfused", {}), ("fused_mlp", {"fused_mlp": True})):
+        ngm = engine.NeuralGraphMap(dict(CONFIG, update_mode="single_view", **extra), device="cuda")
+        torch.cuda.synchronize()
+        permuto_cuda.reset_launch_counts()
+        ti_sums = []
+        trained, frame_s, all_losses = run_frames(torch, ngm, ds, frames, ti_sums)
+        launches = {k: v for k, v in permuto_cuda.LAUNCHES.items() if v}
+        want = iters * trained
+        pair = ("encode_mlp_fwd", "encode_mlp_bwd") if extra else ("encode_fwd", "encode_bwd_table")
+        if launches != {pair[0]: want, pair[1]: want}:
+            raise AssertionError(f"single-view {route} launches {launches}, expected {want} of each of {pair}")
+        rising = [b > a for a, b in zip(ti_sums, ti_sums[1:]) if a > 0]
+        if not (ti_sums[-1] > 0 and all(rising)):
+            raise AssertionError(f"single-view {route}: training counts {ti_sums} do not rise")
+        worst, losses, it_launches = check_sv_iteration_against_cpu(torch, engine, permuto_cuda, ngm)
+        if it_launches != {pair[0]: 1, pair[1]: 1}:
+            raise AssertionError(f"single-view {route} iteration launches {it_launches}")
+        steady = frame_s[STEADY_FROM:]
+        mean_ms[route] = statistics.mean(steady) * 1e3
+        launches_by_route[route] = launches
+        out[route] = dict(
+            trained_frames=trained, fields=ngm.num_fields, launches=launches, training_iterations_sums=ti_sums,
+            frame_ms=[round(x * 1e3, 3) for x in frame_s],
+            steady_ms_per_frame_median=statistics.median(steady) * 1e3, steady_ms_per_frame_mean=mean_ms[route],
+            last_losses=all_losses[-1], iteration_vs_cpu_max_rel_diff=worst, iteration_losses=losses,
+            iteration_launches=it_launches,
+        )
+    phase("slice_single_view", frames=NUM_FRAMES, **out, iteration_tolerance="rel <= 1e-3",
+          multi_view_steady_ms_per_frame_median=multi_view[0], multi_view_steady_ms_per_frame_mean=multi_view[1],
+          card=smi)
+    return launches_by_route, mean_ms
+
+
+RENDER_CAPACITY = 1 << 16  # slots a field of render_capacity's buffer
+MESH_KNN_CAPACITY = 32768  # meshing's capacity route (extract_mesh's default, as JAX's)
+
+
+def check_render_capacity(torch, engine, permuto_cuda, topk, dispatch, ngm, ds, tiled_ms, smi):
+    """Phase render_capacity: the trained production map at 160x120 through
+    render_image(capacity_per_field=2^16) (the capacity-buffer route,
+    kernel 7 through expert_eval): capacity, dropped pairs, gather_pairs
+    launches an image, peak device memory, median ms of 5 after a warm-up
+    beside the tiled route's (``tiled_ms``); then one 8192-ray block against
+    the CPU's plain route with the same jitter, max abs <= 1e-4 ->
+    (gather_pairs launches an image, the captured gather_pairs call)."""
+    cam = ds.camera
+    c2w = ds[RENDER_FRAME]["c2w"]
+    block = ngm.render_block_size()
+    blocks = -(-cam.height * cam.width // block)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    result = []
+    call = capture_call(permuto_cuda, "gather_pairs",
+                        lambda: result.append(ngm.render_image(c2w, cam, capacity_per_field=RENDER_CAPACITY)))
+    rgbd, dv = result[0]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches(permuto_cuda, topk).items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    stats = dict(ngm.render_stats)
+    per_block = -(-ngm.capacity // max(1, dispatch.EXPERT_SLICE_POINTS // RENDER_CAPACITY))  # slices a block
+    if launches != {"gather_pairs": blocks * per_block}:
+        raise AssertionError(f"capacity route launches {launches}, expected {blocks} x {per_block} gather_pairs")
+    if rgbd.shape != (cam.height, cam.width, 4) or not bool(torch.isfinite(rgbd).all() & torch.isfinite(dv).all()):
+        raise AssertionError("capacity route render: wrong shape or non-finite values")
+    ms, all_ms = timed_renders(torch, ngm, c2w, cam, 5, capacity_per_field=RENDER_CAPACITY)
+
+    # one block against the CPU's plain route, the same u
+    args, u = capacity_block_args(torch, ngm, ds, RENDER_CAPACITY)
+    gpu = engine.render_block(*args, u=u)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = engine.render_block(copy.deepcopy(ngm._fset).to("cpu"), *to_cpu(args[1:]), u=u.cpu())
+    cpu_s = time.perf_counter() - t0
+    rgb_err = float((gpu[0][:, :3].cpu() - cpu[0][:, :3]).abs().max())
+    depth_err = float((gpu[0][:, 3].cpu() - cpu[0][:, 3]).abs().max())
+    drops = (int(gpu[3]), int(cpu[3]))
+    if not (rgb_err <= 1e-4 and depth_err <= 1e-4 and drops[0] == drops[1]):
+        raise AssertionError(f"capacity block card vs CPU: rgb {rgb_err}, depth {depth_err}, dropped {drops}")
+    phase("render_capacity", width=cam.width, height=cam.height, blocks=blocks, rays_per_block=block,
+          samples_per_ray=ngm._eval_num_samples, field_capacity=ngm.capacity, fields=ngm.num_fields,
+          capacity_per_field=stats["capacity_per_field"], buffer_slots=stats["capacity_per_field"] * ngm.capacity,
+          dropped_pairs=stats["dropped_pairs"], launches=launches, gather_pairs_per_image=launches["gather_pairs"],
+          peak_device_gb=peak_gb, median_ms_per_image=ms, ms=all_ms, tiled_route_median_ms=tiled_ms,
+          block_vs_cpu={"rays": block, "max_abs_rgb": rgb_err, "max_abs_depth": depth_err,
+                        "dropped_pairs": drops[0], "cpu_plain_s": cpu_s, "tolerance": "max abs <= 1e-4"},
+          card=smi)
+    return launches["gather_pairs"], call
+
+
+def check_capacity_gather_pairs(torch, permuto_cuda, call) -> dict:
+    """Phase kernel_captured: gather_pairs at the inputs the capacity route's
+    render gave it (one slice of expert_eval's buffer: fields x levels
+    rows, 4 corners x capacity pairs a row), exact against its plain
+    version and timed -> the fields it adds to the kernel row."""
+    (table, idx), _ = call
+    if not torch.equal(permuto_cuda.gather_pairs(table, idx), permuto_cuda.gather_pairs_plain(table, idx)):
+        raise AssertionError("gather_pairs (capacity route's inputs) differs from torch.gather")
+    idx_full = idx.unsqueeze(-2).expand(idx.shape[:-1] + (2, idx.shape[-1]))
+    timing = measure(torch, lambda: permuto_cuda.gather_pairs(table, idx),
+                     lambda: permuto_cuda.gather_pairs_plain(table, idx),
+                     library=lambda: torch.gather(table, -1, idx_full))
+    bound_ms, bound_by = bound(table.numel() * 4 + idx.numel() * (8 + 2 * 4), 0)
+    variant = permuto_cuda.gather_pairs_variant(table, idx)
+    phase("kernel_captured", name="gather_pairs", variant=variant, case="capacity route, one expert_eval slice",
+          shape={"rows": int(idx.shape[:-1].numel()), "pairs_per_row": idx.shape[-1], "table": table.shape[-1]},
+          tolerance="exact", max_abs_err=0.0, **timing, bound_ms=bound_ms, bound_by=bound_by)
+    return {"captured_ms": timing["ms"], "captured_library_ms": timing["library_ms"],
+            "captured_bound_ms": bound_ms, "captured_variant": variant}
+
+
+def mesh_ties(points, active, bad, radius: float):
+    """Of the grid points whose values differ (``bad``), those at a distance
+    tie: their second and third nearest fields equally far to 1e-5, or
+    their nearest field at the radius to 1e-5 (numpy)."""
+    import numpy as np
+
+    d = np.sort(np.linalg.norm(points[bad][:, None] - active[None], axis=-1), axis=1)
+    return (d[:, 2] - d[:, 1] < 1e-5) | (np.abs(d[:, 0] - radius) < 1e-5)
+
+
+def capacity_block_args(torch, ngm, ds, capacity: int):
+    """The arguments of engine.render_block for the first block of frame
+    RENDER_FRAME's 160x120 render at ``capacity`` slots a field, and a
+    seeded jitter ``u`` -> (args, u)."""
+    cam = ds.camera
+    block = ngm.render_block_size()
+    dev = ngm._params["w0"].device
+    gen = torch.Generator(dev).manual_seed(78)
+    u = torch.rand((block, ngm._eval_num_samples), generator=gen, device=dev)
+    ii, jj = torch.meshgrid(torch.arange(cam.height, device=dev), torch.arange(cam.width, device=dev), indexing="ij")
+    ijs = torch.stack([ii, jj], -1).reshape(-1, 2).float()[:block]
+    args = (ngm._fset, cam, ngm._rcfg, ngm._eval_num_samples, ngm._eval_near, ngm._eval_far, capacity,
+            ngm._params, ngm._map_arrays.positions, ngm._map_arrays.orientations, ngm._allocated_mask(), ijs,
+            torch.as_tensor(ds[RENDER_FRAME]["c2w"], device=dev, dtype=torch.float32))
+    return args, u
+
+
+def probe_block_against_plain_gather(torch, engine, permuto_cuda, ngm, ds, capacity: int) -> dict:
+    """One 8192-ray block at the probe's capacity on the card, through
+    gather_pairs and again with gather_pairs_plain in its place (the same
+    u), max abs <= 1e-4. At this capacity the buffer holds 2^25 points,
+    which the CPU's plain route takes minutes to evaluate; the route itself
+    is held against the CPU in render_capacity at 2^16 slots."""
+    args, u = capacity_block_args(torch, ngm, ds, capacity)
+    permuto_cuda.reset_launch_counts()
+    got = engine.render_block(*args, u=u)
+    torch.cuda.synchronize()
+    launches = permuto_cuda.LAUNCHES["gather_pairs"]
+    kernel = permuto_cuda.gather_pairs
+    permuto_cuda.gather_pairs = permuto_cuda.gather_pairs_plain
+    try:
+        want = engine.render_block(*args, u=u)
+    finally:
+        permuto_cuda.gather_pairs = kernel
+    torch.cuda.synchronize()
+    rgb_err = float((got[0][:, :3] - want[0][:, :3]).abs().max())
+    depth_err = float((got[0][:, 3] - want[0][:, 3]).abs().max())
+    drops = (int(got[3]), int(want[3]))
+    if not (launches > 0 and rgb_err <= 1e-4 and depth_err <= 1e-4 and drops[0] == drops[1]):
+        raise AssertionError(f"probe-capacity block vs the plain gather: {launches} launches, rgb {rgb_err}, "
+                             f"depth {depth_err}, dropped {drops}")
+    return {"rays": len(u), "capacity_per_field": capacity, "gather_pairs_launches": launches,
+            "max_abs_rgb": rgb_err, "max_abs_depth": depth_err, "dropped_pairs": drops[0],
+            "tolerance": "max abs <= 1e-4"}
+
+
+def check_capacity_probe(torch, engine, permuto_cuda, topk, meshing, ds, frames, smi):
+    """Phase capacity_probe: a map identical to the production one but for
+    ``encoding_kwargs.concat_points: true`` (a field the tiled route cannot
+    take), trained over the 12 frames; its render_image takes the demand
+    probe (max count, capacity, drops, ms); its extract_mesh at 0.04 m takes
+    the apply_knn fallback (vertices, seconds, drops, launches); then the
+    meshing chunk with the most points near the surface on the card against
+    the CPU's plain route: volume max abs <= 1e-5, apart from points at a
+    distance tie (:func:`mesh_ties`) -> meshing's gather_pairs launches."""
+    import numpy as np
+
+    model = copy.deepcopy(CONFIG["model_kwargs"])
+    model["field_kwargs"]["encoding_kwargs"]["concat_points"] = True
+    ngm = engine.NeuralGraphMap(dict(CONFIG, model_kwargs=model), device="cuda")
+    if ngm._fset.supports_tiled_knn():
+        raise AssertionError("the concat_points map takes the tiled route")
+    trained, frame_s, _ = run_frames(torch, ngm, ds, frames)
+    c2w = ds[RENDER_FRAME]["c2w"]
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = []
+    (table, idx), _ = capture_call(permuto_cuda, "gather_pairs",
+                                   lambda: result.append(ngm.render_image(c2w, ds.camera)[0]))
+    rgbd = result[0]
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    render_launches = {k: v for k, v in all_launches(permuto_cuda, topk).items() if v}
+    stats = dict(ngm.render_stats)
+    if not (stats.get("probe_max_count") and render_launches.get("gather_pairs", 0) > 0
+            and bool(torch.isfinite(rgbd).all())):
+        raise AssertionError(f"probe route render: {stats}, launches {render_launches}")
+    # gather_pairs at the probe's capacity (one expert_eval slice), exact against its plain version
+    if not torch.equal(permuto_cuda.gather_pairs(table, idx), permuto_cuda.gather_pairs_plain(table, idx)):
+        raise AssertionError("gather_pairs (the probe render's inputs) differs from torch.gather")
+    captured = {"rows": int(idx.shape[:-1].numel()), "pairs_per_row": idx.shape[-1], "table": table.shape[-1],
+                "variant": permuto_cuda.gather_pairs_variant(table, idx), "tolerance": "exact"}
+    del table, idx
+    block_vs_plain = probe_block_against_plain_gather(torch, engine, permuto_cuda, ngm, ds,
+                                                      stats["capacity_per_field"])
+
+    allocated = ngm._allocated_mask()
+    dev = allocated.device
+    mesh_args = (ngm._fset, ngm._params, ngm._map_arrays.positions, ngm._map_arrays.orientations, allocated,
+                 ngm._field_radius, ngm._rcfg.geometry_mode, ngm._rcfg.geometry_factor)
+    mesh_stats = {}
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    t0 = time.perf_counter()
+    mesh = meshing.extract_mesh(*mesh_args, color_factor=ngm._rcfg.color_factor, resolution=CONFIG["mesh_resolution"],
+                                eval_chunk=CONFIG["block_size"], knn_capacity=MESH_KNN_CAPACITY, stats=mesh_stats)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = {k: v for k, v in all_launches(permuto_cuda, topk).items() if v}
+    if mesh is None or len(mesh.vertices) == 0 or set(mesh_launches) != {"gather_pairs"}:
+        raise AssertionError(f"capacity meshing: mesh {mesh is not None}, launches {mesh_launches}")
+
+    # the meshing chunk with the most points near the surface, card vs CPU
+    active = ngm._map_arrays.positions[allocated].cpu().numpy()
+    chunk, capacity = CONFIG["block_size"], MESH_KNN_CAPACITY
+    args = (ngm._map_arrays.positions, ngm._map_arrays.orientations, allocated)
+    best, best_near = None, -1
+    for _, _, _, pts in meshing.mesh_blocks(active, ngm._field_radius, CONFIG["mesh_resolution"], 128):
+        if pts is None:
+            continue
+        pts = np.concatenate([pts, np.zeros(((-len(pts)) % chunk, 3), np.float32)])
+        for start in range(0, len(pts), chunk):
+            geo = ngm._fset.apply_knn(ngm._params, torch.from_numpy(pts[start : start + chunk]).to(dev), *args,
+                                      capacity=capacity)
+            near = int((geo[:, 3].abs() < 0.05).sum())
+            if near > best_near:
+                best, best_near = pts[start : start + chunk], near
+    gpu, gpu_dropped = ngm._fset.apply_knn(ngm._params, torch.from_numpy(best).to(dev), *args, capacity=capacity,
+                                           with_stats=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu, cpu_dropped = copy.deepcopy(ngm._fset).to("cpu").apply_knn(
+        to_cpu(ngm._params), torch.from_numpy(best), *to_cpu(args), capacity=capacity, with_stats=True)
+    cpu_s = time.perf_counter() - t0
+    diff = (gpu[:, 3].cpu() - cpu[:, 3]).abs().numpy()
+    bad = diff > 1e-5
+    ties = mesh_ties(best, active, bad, ngm._field_radius)
+    err_off_ties = float(diff[bad][~ties].max()) if (~ties).any() else float(diff[~bad].max(initial=0.0))
+    if not ties.all():
+        raise AssertionError(f"capacity meshing chunk card vs CPU: {int((~ties).sum())} points off by up to "
+                             f"{err_off_ties} (> 1e-5) away from distance ties")
+    phase("capacity_probe", trained_frames=trained, fields=ngm.num_fields, field_capacity=ngm.capacity,
+          steady_ms_per_frame_median=statistics.median(frame_s[STEADY_FROM:]) * 1e3,
+          probe_max_count=stats["probe_max_count"], capacity_per_field=stats["capacity_per_field"],
+          render_dropped_pairs=stats["dropped_pairs"], render_ms_first=render_ms, render_launches=render_launches,
+          mesh_resolution=CONFIG["mesh_resolution"], mesh_vertices=len(mesh.vertices), mesh_faces=len(mesh.faces),
+          extract_mesh_s=mesh_s, mesh_eval_s=mesh_stats["eval_s"], mesh_march_s=mesh_stats["march_s"],
+          mesh_dropped_pairs=mesh_stats["dropped_pairs"], mesh_blocks_evaluated=mesh_stats["blocks_evaluated"],
+          mesh_launches=mesh_launches, gather_pairs_captured=captured, block_vs_plain_gather=block_vs_plain,
+          chunk_vs_cpu={"points": len(best), "points_near_surface": best_near, "knn_capacity": capacity,
+                        "dropped_pairs": [int(gpu_dropped), int(cpu_dropped)],
+                        "max_abs_volume": float(diff.max()), "points_above_1e-5": int(bad.sum()),
+                        "of_them_distance_ties": int(ties.sum()), "max_abs_volume_off_ties": err_off_ties,
+                        "cpu_plain_s": cpu_s, "tolerance": "volume max abs <= 1e-5 apart from distance ties"},
+          card=smi)
+    return mesh_launches["gather_pairs"]
+
+
+FIELD_ENCODINGS = {
+    "triplane": ("TriplaneEncoding", {"resolution": 32, "num_components": 64, "init_scale": 0.1, "mode": "sum"}),
+    "fourier": ("PositionalEncodingFourier", {"dim_in": 3, "dim_out": 64, "mu": 0.0, "sigma": 2.0,
+                                             "raw_coords": True}),
+    "nerf": ("PositionalEncodingNeRF", {"dim_in": 3, "num_octaves": 4}),
+}
+
+
+def check_field_encodings(torch, NeuralFieldSet, smi, dev="cuda"):
+    """Phase field_encodings: 3D field sets (64 fields) with each of the
+    triplane, Fourier and NeRF encodings through apply_knn (capacity 8192)
+    at 65,536 points, on the card against the CPU, max abs <= 1e-5. Plain
+    PyTorch on both: the JAX package has no Pallas kernel for them."""
+    dev = torch.device(dev)
+    out = {}
+    for name, (cls, kw) in FIELD_ENCODINGS.items():
+        gen = torch.Generator(dev).manual_seed(7)
+        field = {"encoding_type": f"neural_graph_mapping_tpu.ops.encodings.{cls}", "encoding_kwargs": kw,
+                 "num_layers": 1, "dim_mlp_out": 32, "dim_out": 4}
+        fset = NeuralFieldSet(dim_points=3, field_type="neural_graph_mapping_tpu.models.fields.NeuralField",
+                              field_kwargs=field, num_knn=2, distance_factor=10.0, outside_value=1.0,
+                              field_radius=1.0, scale_mode="unit_ball").to(dev)
+        n, p = 64, 65536
+        params = fset.init_fields(n, gen, dev)
+        pos = torch.rand((n, 3), generator=gen, device=dev) * 6 - 3
+        quat = torch.nn.functional.normalize(torch.randn((n, 4), generator=gen, device=dev), dim=-1)
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        pts = torch.rand((p, 3), generator=gen, device=dev) * 7 - 3.5
+        args = (pts, pos, quat, valid)
+        got, dropped = fset.apply_knn(params, *args, capacity=8192, with_stats=True)
+        torch.cuda.synchronize()
+        want, want_dropped = copy.deepcopy(fset).to("cpu").apply_knn(to_cpu(params), *to_cpu(args), capacity=8192,
+                                                                      with_stats=True)
+        err = float((got.cpu() - want).abs().max())
+        inside = float((got[:, 3] != 1.0).float().mean())
+        if not (err <= 1e-5 and int(dropped) == int(want_dropped) and inside > 0.1):
+            raise AssertionError(f"field_encodings {name}: max abs {err}, dropped {int(dropped)} / "
+                                 f"{int(want_dropped)}, inside share {inside}")
+        out[name] = {"max_abs_vs_cpu": err, "dropped_pairs": int(dropped), "inside_share": inside,
+                     "out_dim": fset.prototype.dim_encoding}
+    phase("field_encodings", fields=64, points=65536, capacity=8192, tolerance="max abs <= 1e-5", **out, card=smi)
+
 
 def all_launches(permuto_cuda, topk):
     return {**permuto_cuda.LAUNCHES, **topk.LAUNCHES}
@@ -1911,6 +2313,50 @@ def check_cli(torch, permuto_cuda, topk, run_mapping, out_dir: pathlib.Path, smi
         run_launches={k: v for k, v in launches.items() if v}, checkpoint=ckpts[0].name, card=smi,
     )
     return runner, launches, mesh_launches, ckpts[0]
+
+
+def check_cli_single_view(torch, permuto_cuda, topk, run_mapping, out_dir: pathlib.Path, smi):
+    """Phase cli_single_view: the CLI's own entry point (``run_mapping.main``
+    with a JSON config and command-line overrides) with ``--update_mode
+    single_view``, the scene cut to NUM_FRAMES frames with every other
+    keyframe held out (``--eval_ratio 0.34``), no mesh: the saved
+    run config says single_view, the metrics are finite, and every training
+    iteration went through encode_fwd / encode_bwd_table, never through the
+    multi-view sampler's batched_gather."""
+    import contextlib
+    import io
+
+    out_dir.mkdir(parents=True)
+    config_path = out_dir / "synthetic.json"
+    config_path.write_text(json.dumps(CONFIG))
+    argv = ["--config", str(config_path), "--device", "cuda", "--out_dir", str(out_dir / "runs"),
+            "--update_mode", "single_view", "--dataset_config.num_frames", str(NUM_FRAMES),
+            "--eval_ratio", "0.34", "--extract_mesh", "false", "--eval_store_details", "false"]
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        run_mapping.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: v for k, v in all_launches(permuto_cuda, topk).items() if v}
+    metrics = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    saved = json.loads(next((out_dir / "runs").glob("*/latest_run.yaml")).read_text())
+    iters = CONFIG["num_iterations_per_frame"]
+    want = ["final_psnr", "final_depthl1", "spf_estimate"]
+    bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    fwd, bwd = launches.get("encode_fwd", 0), launches.get("encode_bwd_table", 0)
+    if bad or saved["update_mode"] != "single_view" or not metrics.get("num_fields"):
+        raise AssertionError(f"cli_single_view: update_mode {saved['update_mode']}, metrics {metrics}")
+    if not (fwd == bwd and fwd >= iters and fwd % iters == 0 and "batched_gather" not in launches):
+        raise AssertionError(f"cli_single_view: launches {launches}")
+    phase("cli_single_view", argv_overrides=argv[6:], frames=NUM_FRAMES, trained_frames=fwd // iters,
+          main_seconds=main_s, fields=metrics["num_fields"], online_psnr=metrics.get("online_psnr"),
+          online_depthl1=metrics.get("online_depthl1"), final_psnr=metrics["final_psnr"],
+          final_depthl1=metrics["final_depthl1"], spf_estimate=metrics["spf_estimate"], launches=launches,
+          card=smi)
 
 
 def check_cli_mesh_vs_cpu(torch, meshing, runner):
@@ -2081,6 +2527,7 @@ def main() -> None:
                       dict(CONFIG, fused_mlp=True), "profile_fused_mlp")
     if args.ab > 0:
         ab_training_routes(torch, engine, ds, frames, args.ab, smi)
+    sv_launches, _ = check_single_view_slice(torch, engine, permuto_cuda, ds, frames, unfused, smi)
 
     # -- 5-8. the render path on the trained map ------------------------------
     kernel_rows.update(check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds))
@@ -2091,22 +2538,31 @@ def main() -> None:
         profile_render(torch, ngm, ds, render_ms, args.profile.with_name(args.profile.name + ".render"))
     launches.update(ray_launches)
     launches["encode_fwd_moe"] = carried_launches["encode_fwd_moe"]
+    capacity_launches, capacity_call = check_render_capacity(torch, engine, permuto_cuda, topk, dispatch, ngm,
+                                                             ds, render_ms, smi)
 
     # -- 9-10. the gather route: 2D field sets, geometry gradients -------------
     gather_launches, gather_rows = check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi)
     launches.update(gather_launches)
     kernel_rows.update(gather_rows)
+    kernel_rows["gather_pairs"].update(check_capacity_gather_pairs(torch, permuto_cuda, capacity_call))
     check_geometry_gradients(torch, permuto_cuda, losses_mod, ngm)
+
+    # -- capacity route on a map the tiled route cannot take; other encodings --
+    from neural_graph_mapping_tpu_torch.mapping import meshing
+
+    capacity_mesh_launches = check_capacity_probe(torch, engine, permuto_cuda, topk, meshing, ds, frames, smi)
+    check_field_encodings(torch, NeuralFieldSet, smi)
 
     # -- 11-13. the CLI: fit, held-out eval, meshing, checkpoint, resume -------
     from neural_graph_mapping_tpu_torch import run_mapping
-    from neural_graph_mapping_tpu_torch.mapping import meshing
 
     with tempfile.TemporaryDirectory(prefix="ngm_cli_") as tmp:
         runner, _, mesh_launches, ckpt = check_cli(torch, permuto_cuda, topk, run_mapping,
                                                    pathlib.Path(tmp) / "runs", smi)
         check_cli_mesh_vs_cpu(torch, meshing, runner)
         check_cli_resume(torch, run_mapping, runner, ckpt, pathlib.Path(tmp) / "resumed")
+        check_cli_single_view(torch, permuto_cuda, topk, run_mapping, pathlib.Path(tmp) / "single_view", smi)
 
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:
@@ -2116,6 +2572,12 @@ def main() -> None:
                "launches": launches[name], **kernel_rows[name]}
         if name in ("topk2_fields", "encode_fwd_moe"):
             row["meshing_launches"] = mesh_launches[name]
+        for route, counts in sv_launches.items():
+            if name in counts:
+                row[f"single_view_{route}_launches"] = counts[name]
+        if name == "gather_pairs":
+            row.update(capacity_render_launches_per_image=capacity_launches,
+                       capacity_meshing_launches=capacity_mesh_launches)
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -119,6 +119,15 @@ class Camera:
         )
         return torch.stack([ii, jj], dim=-1).reshape(-1, 2)
 
+    def distance_to_depth(
+        self, distances: torch.Tensor, ijs: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Convert along-ray distances to z-depths."""
+        if ijs is None:
+            ijs = self._full_ijs(distances.device).reshape(self.height, self.width, 2)
+        dirs = self.ijs_to_directions(ijs, convention="opencv")
+        return distances * dirs[..., 2]
+
     def depth_to_distance(
         self, depths: torch.Tensor, ijs: Optional[torch.Tensor] = None
     ) -> torch.Tensor:

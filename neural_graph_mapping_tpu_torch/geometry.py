@@ -2,7 +2,29 @@
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def spheres_to_aabbs(centers: torch.Tensor, radii) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AABB of each sphere: centers (..., 3), radii scalar or (...)
+    -> (minima, maxima), each (..., 3)."""
+    radii = torch.as_tensor(radii, dtype=centers.dtype, device=centers.device)
+    radii = torch.broadcast_to(radii, centers.shape[:-1])[..., None]
+    return centers - radii, centers + radii
+
+
+def aabbs_intersect(
+    min_a: torch.Tensor, max_a: torch.Tensor, min_b: torch.Tensor, max_b: torch.Tensor
+) -> torch.Tensor:
+    """Which AABBs of set B (...b, 3) intersect which of set A (...a, 3)
+    -> bool (...b, ...a)."""
+    a_lead = min_a.shape[:-1]
+    b_lead = min_b.shape[:-1]
+    min_b = min_b.reshape(b_lead + (1,) * len(a_lead) + (3,))
+    max_b = max_b.reshape(b_lead + (1,) * len(a_lead) + (3,))
+    return torch.all(min_b <= max_a, dim=-1) & torch.all(max_b >= min_a, dim=-1)
 
 
 def closest_points_on_segments(
@@ -34,3 +56,11 @@ def segments_intersect_spheres(
     radii = torch.as_tensor(radii, dtype=dist_sq.dtype, device=dist_sq.device)
     radii = torch.broadcast_to(radii, c_lead).reshape(c_lead + (1,) * len(s_lead))
     return dist_sq <= radii**2
+
+
+def rays_intersect_spheres(
+    origins: torch.Tensor, endpoints: torch.Tensor, centers: torch.Tensor, radii
+) -> torch.Tensor:
+    """The segment-vs-sphere test at the single-view sampler's shapes: one
+    shared origin, P endpoints, F spheres -> bool (F, P)."""
+    return segments_intersect_spheres(origins, endpoints, centers, radii)

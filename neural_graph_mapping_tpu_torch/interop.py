@@ -22,12 +22,25 @@ _LINEAR = re.compile(r"^([wb])(\d+)$")
 
 # features per level: the only count the encode kernels take
 _FEATURES = 2
+# each encoding's parameter leaf -> (its dims with the field axis, its layout)
+_ENCODING_LEAVES = {
+    "enc.table": (4, f"(N, F={_FEATURES}, L, T) (feature-major)"),
+    "enc.planes": (5, "(N, 3, C, R, R)"),
+    "enc.fourier_w": (3, "(N, dim_in, n)"),
+}
 
 
 def _check_params(params: Dict[str, np.ndarray]) -> int:
-    """Validate a stacked field-parameter dict; returns the field count."""
-    if "enc.table" not in params:
-        raise ValueError("params lack 'enc.table'")
+    """Validate a stacked field-parameter dict; returns the field count.
+
+    The encoding's leaves are one of ``enc.table`` (permutohedral),
+    ``enc.planes`` (triplane), ``enc.fourier_w`` (Fourier) or none (NeRF
+    octaves); ``w0`` must be there."""
+    enc = [k for k in params if k.startswith("enc.")]
+    if len(enc) > 1:
+        raise ValueError(f"params hold more than one encoding leaf: {enc}")
+    if "w0" not in params:
+        raise ValueError("params lack 'w0'")
     n = None
     linears: Dict[str, Dict[int, np.ndarray]] = {"w": {}, "b": {}}
     for key, value in params.items():
@@ -37,12 +50,15 @@ def _check_params(params: Dict[str, np.ndarray]) -> int:
         if value.ndim == 0 or value.shape[0] != n:
             raise ValueError(f"{key}: every leaf needs the same leading field axis ({n})")
         match = _LINEAR.match(key)
-        if key == "enc.table":
-            if value.ndim != 4 or value.shape[1] != _FEATURES:
-                raise ValueError(
-                    f"enc.table has shape {value.shape}; expected (N, F={_FEATURES}, L, T) "
-                    "(feature-major)"
-                )
+        if key in _ENCODING_LEAVES:
+            ndim, layout = _ENCODING_LEAVES[key]
+            bad = value.ndim != ndim
+            if key == "enc.table":
+                bad = bad or value.shape[1] != _FEATURES
+            elif key == "enc.planes":
+                bad = bad or value.shape[1] != 3 or value.shape[3] != value.shape[4]
+            if bad:
+                raise ValueError(f"{key} has shape {value.shape}; expected {layout}")
         elif match:
             want_ndim = 3 if match.group(1) == "w" else 2
             if value.ndim != want_ndim:
@@ -67,8 +83,10 @@ def _check_params(params: Dict[str, np.ndarray]) -> int:
 def params_from_jax(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """JAX stacked params (numpy) -> the port's dict on ``device``.
 
-    Keys: ``enc.table`` (N, F, L, T), ``w{i}`` (N, din, dout), ``b{i}``
-    (N, dout), optionally ``rezero`` (N, layers) and ``neus_sd`` (N,).
+    Keys: the encoding's leaf, ``enc.table`` (N, F, L, T), ``enc.planes``
+    (N, 3, C, R, R), ``enc.fourier_w`` (N, dim_in, n) or none; ``w{i}``
+    (N, din, dout), ``b{i}`` (N, dout), optionally ``rezero`` (N, layers)
+    and ``neus_sd`` (N,).
     """
     _check_params(params)
     return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device) for k, v in params.items()}

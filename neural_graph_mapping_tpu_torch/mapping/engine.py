@@ -1,13 +1,18 @@
 """NeuralGraphMap: the online dense neural mapping engine (port of
-neural_graph_mapping_tpu.mapping.engine: the multi-view frame step and
-full-image rendering through the tiled KNN path).
+neural_graph_mapping_tpu.mapping.engine: the multi-view and single-view
+frame steps, and full-image rendering through the tiled KNN route or the
+capacity-buffer route).
 
-Device side: one optimization iteration is field selection -> multi-view
-target sampling -> field-parallel render -> losses -> per-field Adam with
-gather/scatter; a frame writes the keyframe cache, tests which fields the
-frame observes, and runs ``num_iterations_per_frame`` iterations (the JAX
-package's ``lax.scan`` becomes a Python loop). Host side: the pose graph,
-keyframe slot registry and kf->fields index, as in the JAX package.
+Device side: one multi-view optimization iteration is field selection ->
+multi-view target sampling -> field-parallel render -> losses -> per-field
+Adam with gather/scatter; a frame writes the keyframe cache, tests which
+fields the frame observes, and runs ``num_iterations_per_frame`` iterations
+(the JAX package's ``lax.scan`` becomes a Python loop). With ``update_mode:
+single_view`` an iteration trains on one cached view instead (the current
+frame on odd iterations, a random keyframe otherwise) and draws its targets
+from that view's depth cloud (``sampling.sample_target_sv``). Host side: the
+pose graph, keyframe slot registry and kf->fields index, as in the JAX
+package.
 
 Randomness comes from ``torch.Generator``s on the engine's device; every
 ported function also takes its draws as optional tensors
@@ -20,14 +25,20 @@ runner adds data_wait and h2d), and ``throughput`` (a
 gives ``fps_estimate`` / ``spf_estimate`` from the frames processed and their
 optimization seconds.
 
-Not ported here (see ROADMAP.md): the single-view update mode, field-axis
-sharding over several devices and the capacity-buffer render fallback
-(other encodings).
+Draw streams, as the JAX engine's two keys: ``_init_gen`` (JAX's ``_key``)
+draws field init, render jitter and the single-view iterations (JAX feeds
+its single-view scan from ``_next_key()``); ``_frame_gen`` (JAX's
+``_base_key`` folded with the frame counter) draws the multi-view frame
+programs and field allocation. So a render between frames moves later
+single-view draws, in both packages, and never multi-view ones.
+
+Not ported here (see ROADMAP.md): field-axis sharding over several devices.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
 from typing import Dict, NamedTuple, Optional, Set
 
@@ -37,6 +48,7 @@ import torch
 from neural_graph_mapping_tpu_torch.mapping import graph as graph_mod
 from neural_graph_mapping_tpu_torch.mapping import map_state, optimizer, render, sampling
 from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
+from neural_graph_mapping_tpu_torch.ops import dispatch
 from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
 from neural_graph_mapping_tpu_torch.ops import quadrature as quad_mod
 from neural_graph_mapping_tpu_torch.utils import chunking, profiling, transforms
@@ -56,6 +68,11 @@ class IterationDraws(NamedTuple):
     pix_u: Optional[torch.Tensor] = None  # (F, R, 2) pixel uniforms
     u_coarse: Optional[torch.Tensor] = None  # (F, R, coarse) stratified uniforms
     u_guided: Optional[torch.Tensor] = None  # (F, R, guided) stratified uniforms
+    # single view
+    slot_gumbel: Optional[torch.Tensor] = None  # (S,) keyframe choice noise
+    cloud_idx: Optional[torch.Tensor] = None  # (50,000,) depth-cloud pixel draws
+    u_fields: Optional[torch.Tensor] = None  # (N,) eligible-field Gumbel uniforms
+    u_rays: Optional[torch.Tensor] = None  # (F, R) ray uniforms
 
 
 class LossConfig(NamedTuple):
@@ -262,6 +279,101 @@ def optimization_iterations_scan(
     return params, adam, training_iterations, loss_dict
 
 
+def optimization_iteration_sv(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    iter_idx: int,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,  # (N_cap,)
+    map_positions: torch.Tensor,  # (N_cap, 3)
+    map_orientations: torch.Tensor,  # (N_cap, 4)
+    active_mask: torch.Tensor,  # (N_cap,) BFS-active fields
+    cache_rgb: torch.Tensor,  # (S, H, W, 3)
+    cache_depth: torch.Tensor,  # (S, H, W)
+    cache_c2w: torch.Tensor,  # (S, 4, 4)
+    cache_valid: torch.Tensor,  # (S,)
+    draws: IterationDraws = IterationDraws(),
+    generator: Optional[torch.Generator] = None,
+):
+    """One single-view optimization iteration (the body of the JAX
+    package's ``optimization_iterations_scan_sv``): odd iterations train on
+    the current frame (slot 0) if it is valid, the others on a random valid
+    keyframe slot other than 0; targets from that view's depth cloud
+    (``sampling.sample_target_sv``); then render, losses and Adam as in the
+    multi-view iteration. Returns (params, adam, training_iterations,
+    loss_dict). No host sync."""
+    slot_gumbel = draws.slot_gumbel
+    if slot_gumbel is None:
+        slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
+    others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
+    random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
+    use_current = cache_valid[0] & (iter_idx % 2 != 0)
+    slot = torch.where(use_current, 0, random_slot).reshape(1)
+    rgbd = torch.cat(
+        [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
+    )
+    target = sampling.sample_target_sv(
+        camera, rgbd, cache_c2w.index_select(0, slot)[0], map_positions, active_mask,
+        fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
+        cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=generator,
+    )
+    return _optimization_iteration_core(
+        fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
+        map_positions, map_orientations, target, draws, generator,
+    )
+
+
+def optimization_iterations_scan_sv(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    num_iters: int,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,
+    map_positions: torch.Tensor,
+    map_orientations: torch.Tensor,
+    active_mask: torch.Tensor,
+    cache_rgb: torch.Tensor,
+    cache_depth: torch.Tensor,
+    cache_c2w: torch.Tensor,
+    cache_valid: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+):
+    """``num_iters`` single-view iterations (:func:`optimization_iteration_sv`,
+    iteration i choosing its view by i's parity); returns the last
+    iteration's loss dict with the updated state. No host syncs."""
+    loss_dict = {}
+    for i in range(num_iters):
+        params, adam, training_iterations, loss_dict = optimization_iteration_sv(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam,
+            training_iterations, map_positions, map_orientations, active_mask,
+            cache_rgb, cache_depth, cache_c2w, cache_valid, generator=generator,
+        )
+    return params, adam, training_iterations, loss_dict
+
+
+def write_cache(cache_rgb, cache_depth, rgbd, write_current: bool, kf_slot: int) -> None:
+    """Write the frame (H, W, 4) into the keyframe cache in place: to slot 0
+    (the current frame) if ``write_current``, and to ``kf_slot`` if >= 0."""
+    rgb = rgbd[..., :3].to(cache_rgb.dtype)
+    depth = rgbd[..., 3]
+    if write_current:
+        cache_rgb[0] = rgb
+        cache_depth[0] = depth
+    if kf_slot >= 0:
+        cache_rgb[kf_slot] = rgb
+        cache_depth[kf_slot] = depth
+
+
 def frame_step(
     fset: NeuralFieldSet,
     camera,
@@ -289,17 +401,9 @@ def frame_step(
 ):
     """One frame: keyframe-cache writes (in place), the observed-field test,
     and all optimization iterations."""
-    rgb = rgbd[..., :3].to(cache_rgb.dtype)
-    depth = rgbd[..., 3]
-    if write_current:
-        cache_rgb[0] = rgb
-        cache_depth[0] = depth
-    if kf_slot >= 0:
-        cache_rgb[kf_slot] = rgb
-        cache_depth[kf_slot] = depth
-
+    write_cache(cache_rgb, cache_depth, rgbd, write_current, kf_slot)
     observed = sampling.observed_fields_mask(
-        camera, depth, c2w, map_positions, allocated_mask, fset.field_radius,
+        camera, rgbd[..., 3], c2w, map_positions, allocated_mask, fset.field_radius,
         generator=generator,
     )
     loss_dict = {}
@@ -456,6 +560,96 @@ def render_block_tiled(
     return rgbd, q.depth_vars, q.term_probs
 
 
+def _bin_edges(num_samples: int, device) -> torch.Tensor:
+    """i * (1 / S) for i < S in f32: the first S of ``jnp.linspace(0, 1,
+    S + 1)`` bit for bit (torch.linspace rounds its values differently)."""
+    return torch.arange(num_samples, dtype=torch.float32, device=device) * (1.0 / num_samples)
+
+
+def render_demand_probe(
+    fset: NeuralFieldSet,
+    camera,
+    num_samples: int,
+    near: float,
+    far: float,
+    positions: torch.Tensor,  # (N, 3)
+    allocated_mask: torch.Tensor,  # (N,)
+    ijs: torch.Tensor,  # (B, 2)
+    c2w: torch.Tensor,  # (4, 4)
+) -> torch.Tensor:
+    """The most (sample, neighbour) pairs any field gets in one render block
+    at bin-centre samples -> 0-d int64 tensor; ``render_image`` sizes the
+    capacity route's buffer from it. (JAX's takes the params too, unused.)"""
+    dirs = camera.ijs_to_directions(ijs)
+    edges = _bin_edges(num_samples, ijs.device)
+    distances = near + (far - near) * (edges + 0.5 / num_samples)
+    points = (dirs[:, None, :] * distances[None, :, None]).reshape(-1, 3)
+    points_world = transforms.transform_points(points, c2w)
+    k = fset.num_knn
+    knn_dists, knn_idx = dispatch.topk_fields(points_world, positions, allocated_mask, k)
+    inside = knn_dists[:, 0] < fset.field_radius
+    pair_valid = torch.repeat_interleave(inside, k) & torch.isfinite(knn_dists.reshape(-1))
+    n_cap = positions.shape[0]
+    ids = torch.where(pair_valid, knn_idx.reshape(-1).long(), n_cap)
+    counts = torch.zeros(n_cap + 1, dtype=torch.int64, device=ids.device)
+    counts.index_add_(0, ids, torch.ones_like(ids))
+    return torch.max(counts[:n_cap])
+
+
+def render_block(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    num_samples: int,
+    near: float,
+    far: float,
+    capacity: int,
+    params: dict,
+    positions: torch.Tensor,  # (N, 3)
+    orientations: torch.Tensor,  # (N, 4)
+    allocated_mask: torch.Tensor,  # (N,) bool
+    ijs: torch.Tensor,  # (B, 2) float (row, column)
+    c2w: torch.Tensor,  # (4, 4)
+    u: Optional[torch.Tensor] = None,  # (B, S) jitter; None = draw from generator
+    generator: Optional[torch.Generator] = None,
+):
+    """One render block through the capacity-buffer route
+    (engine.render_block_jit) -> (rgbd (B, 4), depth_vars (B,), term_probs
+    (B,), dropped pairs (0-d tensor)).
+
+    A stratified sweep of [near, far] at ``num_samples`` samples a ray
+    (jitter ``u``), every sample blended from its k nearest fields by
+    :meth:`NeuralFieldSet.apply_knn` with ``capacity`` slots a field
+    (pairs past it are dropped and counted), composited by ``quadrature``
+    with the fields' mean inverse SD for ``neus``. No host sync.
+    """
+    b = ijs.shape[0]
+    dirs = camera.ijs_to_directions(ijs)
+    edges = _bin_edges(num_samples, ijs.device)
+    if u is None:
+        u = torch.rand((b, num_samples), generator=generator, device=ijs.device)
+    distances = near + (far - near) * (edges + u / num_samples)  # (B, S)
+    points_cam = dirs[:, None, :] * distances[..., None]
+    points_world = transforms.transform_points(points_cam, c2w)
+    outs, dropped = fset.apply_knn(
+        params, points_world.reshape(-1, 3), positions, orientations, allocated_mask,
+        capacity=capacity, with_stats=True,
+    )
+    outs = outs.reshape(b, num_samples, -1)
+    sample_colors = rcfg.color_factor * outs[..., :3]
+    sample_geometries = outs[..., 3]
+    sample_depths = -points_cam[..., 2]
+    neus_isds = None
+    if rcfg.geometry_mode == "neus":
+        neus_isds = 1.0 / torch.abs(torch.mean(params["neus_sd"]))
+    q = quad_mod.quadrature(
+        rcfg.geometry_mode, sample_colors, sample_geometries, distances, sample_depths,
+        geometry_factor=rcfg.geometry_factor, neus_isds=neus_isds,
+    )
+    rgbd = torch.cat([q.colors, q.depths[..., None]], dim=-1)
+    return rgbd, q.depth_vars, q.term_probs, dropped
+
+
 class NeuralGraphMap:
     """Online neural graph mapping on one device.
 
@@ -485,8 +679,11 @@ class NeuralGraphMap:
         self._model_kwargs = c["model_kwargs"]
         self._field_radius = float(c.get("field_radius", 1.0))
         self._update_mode = c.get("update_mode", "multi_view")
-        if self._update_mode != "multi_view":
-            raise NotImplementedError(f"update_mode {self._update_mode!r} is not ported yet")
+        if self._update_mode not in ("multi_view", "single_view"):
+            # the JAX engine trains nothing for an unknown mode
+            raise ValueError(
+                f"update_mode must be 'multi_view' or 'single_view', got {self._update_mode!r}"
+            )
         self._num_iterations_per_frame = int(c.get("num_iterations_per_frame", 5))
         self._keyframes_only = bool(c.get("keyframes_only", False))
         self._max_depth = c.get("max_depth", None)
@@ -603,6 +800,9 @@ class NeuralGraphMap:
         # per-frame host phase accounting (seconds, cumulative)
         self.phase_times: Dict[str, float] = {}
         self.throughput = profiling.ThroughputTracker()
+        # the last render_image's route, and on the capacity route its
+        # buffer size, the probe's demand and the pairs it dropped
+        self.render_stats: Dict[str, object] = {}
 
     # -- capacity management ----------------------------------------------------
 
@@ -818,39 +1018,66 @@ class NeuralGraphMap:
         allocated = self._allocated_mask()
         self._add_phase("host_misc", t_phase)
 
-        (
-            self._params,
-            self._adam,
-            new_ti,
-            self._cache_rgb,
-            self._cache_depth,
-            self._observed_mask,
-            loss_dict,
-        ) = frame_step(
-            self._fset,
-            self._camera,
-            self._rcfg,
-            self._ocfg,
-            self._loss_cfg,
-            self._num_train_fields,
-            self._num_iterations_per_frame,
-            write_current,
-            self._num_fields > 0,
-            self._params,
-            self._adam,
-            self._map_arrays.training_iterations,
-            self._map_arrays.positions,
-            self._map_arrays.orientations,
-            allocated,
-            self._cache_rgb,
-            self._cache_depth,
-            self._cache_c2w_dev,
-            self._cache_valid_dev,
-            rgbd,
-            c2w,
-            kf_slot,
-            self._frame_gen,
-        )
+        if self._update_mode == "multi_view":
+            (
+                self._params,
+                self._adam,
+                new_ti,
+                self._cache_rgb,
+                self._cache_depth,
+                self._observed_mask,
+                loss_dict,
+            ) = frame_step(
+                self._fset,
+                self._camera,
+                self._rcfg,
+                self._ocfg,
+                self._loss_cfg,
+                self._num_train_fields,
+                self._num_iterations_per_frame,
+                write_current,
+                self._num_fields > 0,
+                self._params,
+                self._adam,
+                self._map_arrays.training_iterations,
+                self._map_arrays.positions,
+                self._map_arrays.orientations,
+                allocated,
+                self._cache_rgb,
+                self._cache_depth,
+                self._cache_c2w_dev,
+                self._cache_valid_dev,
+                rgbd,
+                c2w,
+                kf_slot,
+                self._frame_gen,
+            )
+        else:  # single_view
+            write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
+            loss_dict, new_ti = {}, self._map_arrays.training_iterations
+            if self._num_fields > 0:
+                active_mask_np = np.zeros((self.capacity,), bool)
+                active_mask_np[self._active_field_ids(frame_id)] = True
+                self._params, self._adam, new_ti, loss_dict = optimization_iterations_scan_sv(
+                    self._fset,
+                    self._camera,
+                    self._rcfg,
+                    self._ocfg,
+                    self._loss_cfg,
+                    self._num_train_fields,
+                    self._num_iterations_per_frame,
+                    self._params,
+                    self._adam,
+                    new_ti,
+                    self._map_arrays.positions,
+                    self._map_arrays.orientations,
+                    self._to_device(active_mask_np),
+                    self._cache_rgb,
+                    self._cache_depth,
+                    self._cache_c2w_dev,
+                    self._cache_valid_dev,
+                    self._init_gen,  # JAX: self._next_key(), the init / render stream
+                )
         self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
         losses = {}
         if loss_dict:
@@ -912,20 +1139,23 @@ class NeuralGraphMap:
 
     @profiling.benchmark
     def render_image(self, c2w, camera, capacity_per_field: Optional[int] = None):
-        """Render an RGB-D image from pose ``c2w`` (4, 4) with ``camera``
-        through the span-restricted tiled KNN path, block by block
-        -> (rgbd (H, W, 4), depth_vars (H, W)).
+        """Render an RGB-D image from pose ``c2w`` (4, 4) with ``camera``,
+        block by block -> (rgbd (H, W, 4), depth_vars (H, W)).
 
-        The ray kernel runs when num_knn * eval_span_samples is a power of
-        two, carried coordinates otherwise. The capacity-buffer fallback
-        (fields other than 3D permutohedral with 2 features per level, or an
-        explicit ``capacity_per_field``) is not ported and raises.
+        The tiled KNN route (span-restricted samples, no drops) serves every
+        map whose fields it takes (``supports_tiled_knn``), on every device;
+        its ray kernel runs when num_knn * eval_span_samples is a power of
+        two, carried coordinates otherwise. The capacity-buffer route
+        (``render_block``: a uniform [near, far] sweep at eval_num_samples)
+        serves other fields and an explicit ``capacity_per_field``; without
+        one, the buffer is sized from the first block's demand
+        (``render_demand_probe``): 1 << max(13, ceil(log2(1.5 * max))),
+        halved while it and the field capacity pass 2^25 slots. Dropped
+        pairs are logged (``chunking.warn_dropped_pairs``). Both routes draw
+        their jitter from the init stream. ``render_stats`` records the
+        route, and on the capacity route the capacity, the probe's demand
+        and the dropped pairs (one host sync at the end).
         """
-        if capacity_per_field is not None or not self._fset.supports_tiled_knn():
-            raise NotImplementedError(
-                "render_image: only the tiled KNN path (3D permutohedral fields, no "
-                "capacity_per_field) is ported"
-            )
         h, w = camera.height, camera.width
         dev = self._device
         ii, jj = torch.meshgrid(
@@ -933,6 +1163,9 @@ class NeuralGraphMap:
         )
         ijs_all = torch.stack([ii, jj], dim=-1).reshape(-1, 2).to(torch.float32)
         c2w = self._to_device(c2w).to(torch.float32)
+        if capacity_per_field is not None or not self._fset.supports_tiled_knn():
+            return self._render_image_capacity(c2w, camera, ijs_all, capacity_per_field)
+        self.render_stats = {"route": "tiled"}
         ks = self._fset.num_knn * self._eval_span_samples
         use_ray_kernel = (ks & (ks - 1)) == 0
         allocated = self._allocated_mask()
@@ -951,3 +1184,43 @@ class NeuralGraphMap:
             model, ijs_all, self.render_block_size(), pass_offset=use_ray_kernel
         )
         return rgbds.reshape(h, w, 4), depth_vars.reshape(h, w)
+
+    def _render_image_capacity(self, c2w, camera, ijs_all, capacity_per_field: Optional[int]):
+        """render_image's capacity-buffer route (see there)."""
+        h, w = camera.height, camera.width
+        block = self.render_block_size()
+        max_count = None
+        if capacity_per_field is None:
+            probe_ijs = ijs_all[:block]
+            if probe_ijs.shape[0] < block:
+                probe_ijs = torch.cat([probe_ijs, probe_ijs.new_zeros((block - probe_ijs.shape[0], 2))])
+            max_count = int(render_demand_probe(
+                self._fset, camera, self._eval_num_samples, self._eval_near, self._eval_far,
+                self._map_arrays.positions, self._allocated_mask(), probe_ijs, c2w,
+            ))
+            capacity_per_field = 1 << max(13, math.ceil(math.log2(max(max_count, 1) * 1.5)))
+            while capacity_per_field * self.capacity > (1 << 25) and capacity_per_field > 8192:
+                capacity_per_field //= 2
+            logger.info("render dispatch: max demand %d -> capacity %d", max_count, capacity_per_field)
+        drop_counts = []
+
+        def model(ijs):
+            rgbd, dv, _, dropped = self._render_ij_block(ijs, c2w, camera, capacity_per_field)
+            drop_counts.append(dropped)
+            return rgbd, dv
+
+        rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block)
+        dropped = chunking.warn_dropped_pairs(drop_counts, logger, "render", capacity_per_field)
+        self.render_stats = {"route": "capacity", "capacity_per_field": capacity_per_field,
+                             "probe_max_count": max_count, "dropped_pairs": dropped}
+        return rgbds.reshape(h, w, 4), depth_vars.reshape(h, w)
+
+    def _render_ij_block(self, ijs, c2w, camera, capacity_per_field: int):
+        """One capacity-route block of the map (render_block), jitter from
+        the init stream."""
+        return render_block(
+            self._fset, camera, self._rcfg, self._eval_num_samples, self._eval_near,
+            self._eval_far, capacity_per_field, self._params, self._map_arrays.positions,
+            self._map_arrays.orientations, self._allocated_mask(), ijs, c2w,
+            generator=self._init_gen,
+        )

@@ -2,13 +2,18 @@
 neural_graph_mapping_tpu.mapping.meshing).
 
 The mapped volume (field AABB +- 2 * radius) is split into blocks; the
-field set's geometry channel is evaluated on each block's voxel grid through
-``apply_knn_tiled`` (the tiled, no-drop route, on every device: the
+field set's geometry channel is evaluated on each block's voxel grid, the
+isosurface is extracted on the host (native marching tetrahedra), and
+vertices are recolored by evaluating the field set again with an enlarged
+radius (no black seams at field boundaries). Output: PLY + a
+``*_fields.txt`` with field positions.
+
+Field sets the tiled route takes (``supports_tiled_knn``) are evaluated
+through ``apply_knn_tiled`` (no drops) on every device: the
 ``topk2_fields`` and carried ``encode_fwd_moe`` kernels on the card, their
-plain versions on the CPU), the isosurface is extracted on the host (native
-marching tetrahedra), and vertices are recolored by evaluating the field set
-again with an enlarged radius (no black seams at field boundaries). Output:
-PLY + a ``*_fields.txt`` with field positions.
+plain versions on the CPU. Other field sets take the capacity-buffer route
+``apply_knn`` with ``knn_capacity`` slots a field (on the card through
+``gather_pairs``), and dropped pairs are logged.
 """
 
 from __future__ import annotations
@@ -86,6 +91,7 @@ def extract_mesh(
     transform: Optional[np.ndarray] = None,
     block_size: int = 128,
     eval_chunk: int = 262144,
+    knn_capacity: int = 32768,
     mesh_file_path: Optional[pathlib.Path] = None,
     stats: Optional[dict] = None,
 ) -> Optional[meshio.Mesh]:
@@ -98,11 +104,14 @@ def extract_mesh(
         resolution: voxel size in meters.
         transform: optional 4x4 applied to field poses first (gt_from_est).
         block_size: voxels per block edge.
-        eval_chunk: points per ``apply_knn_tiled`` call.
+        eval_chunk: points per field-set call.
+        knn_capacity: slots a field of the capacity route (field sets the
+            tiled route cannot take).
         mesh_file_path: if given, saves PLY + ``*_fields.txt``.
         stats: if given, filled with ``eval_s`` (field evaluation, the
             device's part, host clock up to the copy back), ``march_s``
-            (host marching tetrahedra), ``blocks`` and ``blocks_evaluated``.
+            (host marching tetrahedra), ``blocks``, ``blocks_evaluated`` and
+            ``dropped_pairs`` (the capacity route's; 0 on the tiled route).
 
     Returns:
         The extracted mesh (None if no surface crossed).
@@ -118,25 +127,35 @@ def extract_mesh(
             torch.from_numpy(orientations), torch.from_numpy(t)
         ).numpy()
     timing = stats if stats is not None else {}
-    timing.update(eval_s=0.0, march_s=0.0, blocks=0, blocks_evaluated=0)
+    timing.update(eval_s=0.0, march_s=0.0, blocks=0, blocks_evaluated=0, dropped_pairs=0)
     active = positions[valid]
     if len(active) == 0:
         return None
     positions_t = torch.from_numpy(np.ascontiguousarray(positions, np.float32)).to(device)
     orientations_t = torch.from_numpy(np.ascontiguousarray(orientations, np.float32)).to(device)
     valid_t = torch.from_numpy(valid).to(device)
+    use_tiled = fset.supports_tiled_knn()
 
     def eval_points(pts: np.ndarray, radius: float) -> np.ndarray:
         """Chunked KNN evaluation of (N, 3) world points -> (N, 4)."""
         t0 = time.perf_counter()
+        drop_counts = []
 
         def model(chunk):
-            return fset.apply_knn_tiled(
-                params, chunk, positions_t, orientations_t, valid_t, field_radius=radius
+            if use_tiled:
+                return fset.apply_knn_tiled(
+                    params, chunk, positions_t, orientations_t, valid_t, field_radius=radius
+                )
+            out, dropped = fset.apply_knn(
+                params, chunk, positions_t, orientations_t, valid_t, capacity=knn_capacity,
+                field_radius=radius, with_stats=True,
             )
+            drop_counts.append(dropped)
+            return out
 
         out = chunking.batched_evaluation(model, torch.from_numpy(pts).to(device), eval_chunk)
         result = out.detach().cpu().numpy()
+        timing["dropped_pairs"] += chunking.warn_dropped_pairs(drop_counts, logger, "meshing", knn_capacity)
         timing["eval_s"] += time.perf_counter() - t0
         return result
 

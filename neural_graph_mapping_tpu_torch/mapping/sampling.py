@@ -1,5 +1,5 @@
-"""Training-target samplers (port of neural_graph_mapping_tpu.mapping.sampling,
-multi-view path).
+"""Training-target samplers (port of neural_graph_mapping_tpu.mapping.sampling:
+the multi-view and the single-view sampler, and the observed-field test).
 
 Static shapes and validity masks, as in the JAX package. Every random draw is
 an optional tensor argument: when it is not given, it is drawn from the
@@ -259,4 +259,97 @@ def sample_target_mv(
         depth_mask=depth_mask & fv,
         term_probs=term_probs,
         term_mask=term_mask & fv,
+    )
+
+
+def sample_target_sv(
+    camera: Camera,
+    rgbd_image: torch.Tensor,  # (H, W, 4)
+    c2w: torch.Tensor,  # (4, 4)
+    field_positions: torch.Tensor,  # (N_cap, 3)
+    active_mask: torch.Tensor,  # (N_cap,)
+    field_radius: float,
+    num_train_fields: int,
+    num_rays_per_field: int,
+    num_cloud_points: int = 50_000,
+    cloud_chunk: int = 8192,
+    cloud_idx: Optional[torch.Tensor] = None,  # (num_cloud_points,) pixel indices
+    u_fields: Optional[torch.Tensor] = None,  # (N_cap,) Gumbel uniforms
+    u_rays: Optional[torch.Tensor] = None,  # (F, R) ~ U(0, 1)
+    generator: Optional[torch.Generator] = None,
+) -> Target:
+    """Single-view target sampler: the view's depth cloud against the active
+    field spheres.
+
+    1. ``num_cloud_points`` pixels are drawn with replacement among the
+       valid depth pixels (``cloud_idx``; JAX draws them by ``categorical``).
+    2. Each field's count of cloud segments (camera -> point) that cross
+       its sphere, streamed over ``cloud_chunk``-point slices of the cloud,
+       so the peak is (N_cap, chunk), not (N_cap, num_cloud_points).
+    3. Fields with at least R such segments are eligible; F of them are
+       drawn without replacement (``u_fields``, Gumbel top-k).
+    4. For the F chosen fields only, the dense hit mask; each field's R rays
+       are drawn uniformly among its hit segments by inverse CDF
+       (``u_rays``; ``searchsorted`` on the right, clipped as JAX clips).
+    """
+    f, r = num_train_fields, num_rays_per_field
+    dev = rgbd_image.device
+    points, ijs, valid = camera.depth_to_points_full(rgbd_image[..., 3], "opengl")
+    if cloud_idx is None:
+        probs = torch.where(valid, 1.0, 1e-20)
+        cloud_idx = torch.multinomial(probs, num_cloud_points, replacement=True, generator=generator)
+    if u_rays is None:
+        u_rays = torch.rand((f, r), generator=generator, device=dev)
+    pts = points[cloud_idx]
+    pts_ok = valid[cloud_idx]
+    pt_ijs = ijs[cloud_idx]
+
+    field_pos_c = transforms.transform_points(field_positions, c2w, inv=True)
+    origin = torch.zeros((1, 3), device=dev)
+
+    # 1) streamed per-field hit counts over the cloud
+    counts = torch.zeros(field_positions.shape[0], dtype=torch.int64, device=dev)
+    for s0 in range(0, pts.shape[0], cloud_chunk):
+        p_c = pts[s0 : s0 + cloud_chunk]
+        hit = geometry.segments_intersect_spheres(origin.expand_as(p_c), p_c, field_pos_c, field_radius)
+        hit = hit & pts_ok[None, s0 : s0 + cloud_chunk] & active_mask[:, None]
+        counts += torch.sum(hit, dim=-1)
+
+    eligible = counts >= num_rays_per_field
+    field_ids, field_valid = masked_choice_without_replacement(eligible, f, u_fields, generator)
+
+    # 2) dense hit mask for the chosen fields only; inverse-CDF ray draws
+    field_hits = geometry.segments_intersect_spheres(
+        origin.expand_as(pts), pts, field_pos_c[field_ids], field_radius
+    ) & pts_ok[None, :]  # (F, P)
+    w = torch.where(field_valid[:, None], field_hits, True).float()
+    cdf = torch.cumsum(w, dim=-1)
+    u = u_rays * cdf[:, -1:]
+    segments = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, w.shape[-1] - 1)
+
+    target_ijs = pt_ijs[segments]  # (F, R, 2)
+    ijs_f = target_ijs.float()
+    dirs = camera.ijs_to_directions(ijs_f)
+    pos_c = field_pos_c[field_ids]  # (F, 3)
+    center_distance = torch.sum(pos_c[:, None, :] * dirs, dim=-1)
+    near = center_distance - field_radius
+    far = center_distance + field_radius
+
+    rgbds = rgbd_image[target_ijs[..., 0], target_ijs[..., 1]]
+    gt_distances = camera.depth_to_distance(rgbds[..., 3], ijs_f)
+    depth_mask = gt_distances < far
+    fv = field_valid[:, None]
+    return Target(
+        ijs=target_ijs,
+        c2ws=c2w.expand(f, r, 4, 4),
+        near_distances=near,
+        far_distances=far,
+        gt_distances=gt_distances,
+        field_ids=field_ids,
+        field_valid=field_valid,
+        rgbds=rgbds,
+        rgb_mask=depth_mask & fv,
+        depth_mask=depth_mask & fv,
+        term_probs=depth_mask.float(),
+        term_mask=torch.ones_like(depth_mask) & fv,
     )

@@ -1,12 +1,14 @@
 """Neural fields: encoding + MLP, and posed multi-field sets (port of
 neural_graph_mapping_tpu.models.fields: the training path, its fused
 encode + MLP route, the point-differentiable ``apply`` / geometry gradients,
-2D and 3D field sets, and the tiled KNN inference path of rendering).
+2D and 3D field sets, and the two KNN inference paths: the tiled route of
+rendering and meshing, and the capacity-buffer route ``apply_knn``).
 
 Fields are functional ``nn.Module``s: parameters live in flat dicts whose
 tensors carry a leading field axis, ``(N_cap, ...)``, exactly the JAX
-package's stacked pytree (keys ``enc.table``, ``w{i}``, ``b{i}``, optional
-``rezero`` and ``neus_sd``). The modules hold only constants (as buffers).
+package's stacked pytree (keys ``enc.*`` of the encoding, ``w{i}``,
+``b{i}``, optional ``rezero`` and ``neus_sd``). The modules hold only
+constants (as buffers).
 ``jax.vmap`` over fields becomes a written-out field batch dimension: the
 encode kernels take all fields in one launch and the per-field MLP is a
 batched matrix product.
@@ -115,14 +117,34 @@ class NeuralField(nn.Module):
             params["neus_sd"] = torch.full((num,), float(self.neus_initial_sd), device=device)
         return params
 
+    def numel(self) -> int:
+        """Parameter count of one field."""
+        params = self.init(1, torch.Generator().manual_seed(0), "cpu")
+        return int(sum(v[0].numel() for v in params.values()))
+
     @staticmethod
     def _enc_params(params: Params) -> Params:
         return {k.split(".", 1)[1]: v for k, v in params.items() if k.startswith("enc.")}
 
+    def apply_fm(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """Feature-major evaluate: local points (..., P, pos_dim) -> (..., dim_out, P)."""
+        return self.apply_fm_soa(params, points.unbind(-1))
+
     def apply_fm_soa(self, params: Params, coords) -> torch.Tensor:
         """Feature-major evaluate from SoA local coords (d tensors of (..., P))
         -> (..., dim_out, P); params may carry the same leading dims. With
-        ``fused_mlp`` the encode and the MLP are one kernel each way."""
+        ``fused_mlp`` the encode and the MLP are one kernel each way.
+
+        The training path: only the permutohedral encoding has it. A field
+        with another encoding evaluates, renders and meshes through
+        :meth:`apply`, and raises ``ValueError`` here (the JAX package fails
+        at the same point)."""
+        if not hasattr(self.encoding, "apply_fm_soa"):
+            raise ValueError(
+                f"{type(self.encoding).__name__} gives apply only: a field with it cannot train "
+                "(training needs the feature-major apply_fm_soa of the permutohedral encoding); "
+                "it can still be evaluated, rendered and meshed"
+            )
         if self.fused_mlp:
             enc = self.encoding
             stacked = torch.stack(coords, dim=-2).contiguous()  # (..., 3, P)
@@ -243,14 +265,21 @@ class NeuralFieldSet(nn.Module):
         """Stacked parameters for ``num_fields`` fields (independent draws)."""
         return self.prototype.init(num_fields, generator, device)
 
+    @staticmethod
+    def num_fields(stacked_params: Params) -> int:
+        return next(iter(stacked_params.values())).shape[0]
+
     def numel_per_field(self) -> int:
         """Parameter count of one field."""
-        params = self.prototype.init(1, torch.Generator().manual_seed(0), "cpu")
-        return int(sum(v[0].numel() for v in params.values()))
+        return self.prototype.numel()
 
     def gather_fields(self, stacked_params: Params, field_ids: torch.Tensor) -> Params:
         """Slice out a subset of fields (a gather along the field axis)."""
         return {k: v.index_select(0, field_ids) for k, v in stacked_params.items()}
+
+    def scatter_fields(self, stacked_params: Params, field_ids: torch.Tensor, sub_params: Params) -> Params:
+        """Write field slices back (a scatter along the field axis) -> new dict."""
+        return {k: v.index_copy(0, field_ids, sub_params[k]) for k, v in stacked_params.items()}
 
     def _scale_local_points(self, local_points: torch.Tensor) -> torch.Tensor:
         if self.scale_mode == "unit_cube":
@@ -313,6 +342,21 @@ class NeuralFieldSet(nn.Module):
         """Field-parallel evaluation: world coords (3 x (F, P)) -> (F, dim_out, P)."""
         local = self.world_to_local_soa(coords, field_positions, field_orientations)
         return self.prototype.apply_fm_soa(vmap_params, local)
+
+    def apply_vmap_fm(
+        self,
+        vmap_params: Params,
+        query_points: torch.Tensor,  # (F, P, 3) world (local if no pose)
+        field_positions: Optional[torch.Tensor] = None,  # (F, 3)
+        field_orientations: Optional[torch.Tensor] = None,  # (F, 4)
+    ) -> torch.Tensor:
+        """Feature-major field-parallel evaluation -> (F, dim_out, P), through
+        the training path's :meth:`NeuralField.apply_fm_soa`."""
+        if field_positions is None:
+            return self.prototype.apply_fm_soa(vmap_params, self._scale_local_points(query_points).unbind(-1))
+        return self.apply_vmap_fm_soa(
+            vmap_params, query_points.unbind(-1), field_positions, field_orientations
+        )
 
     def supports_tiled_knn(self) -> bool:
         """True when the tiled MoE inference path applies: 3D permutohedral
@@ -464,3 +508,62 @@ class NeuralFieldSet(nn.Module):
             weights = torch.softmax(safe_logits, dim=-1)  # (P, k)
             blended = torch.einsum("cpk,pk->pc", pair_outs.reshape(dim_out, p, k), weights)
         return torch.where(inside[:, None], blended, self.outside_value)
+
+    def apply_knn(
+        self,
+        stacked_params: Params,
+        query_points: torch.Tensor,  # (P, dim_points) world
+        field_positions: torch.Tensor,  # (N, dim_points)
+        field_orientations: torch.Tensor,  # (N, 2 or 4)
+        field_valid: torch.Tensor,  # (N,) bool
+        capacity: int,
+        field_radius: Optional[float] = None,
+        num_knn: Optional[int] = None,
+        with_stats: bool = False,
+    ):
+        """KNN-blended evaluation through the capacity-buffer dispatch
+        (fields.apply_knn) -> (P, dim_out), or ``(outputs, dropped)`` with
+        ``with_stats`` (dropped: the valid pairs past capacity, a 0-d int64
+        tensor).
+
+        Every (point, neighbour) pair goes to its field's buffer of
+        ``capacity`` slots (:func:`dispatch.expert_eval`, which evaluates
+        the buffer through :meth:`NeuralField.apply`, the gather route);
+        pairs beyond a field's capacity are DROPPED and the softmax blend
+        renormalises over the pairs that survive. Points whose nearest field
+        is beyond the radius, or whose pairs were all dropped, get
+        ``outside_value``. The top-k is :func:`dispatch.topk_fields`, the
+        expanded distance form, as JAX computes it on this route.
+        ``field_radius`` and ``num_knn`` override the set's own.
+        """
+        radius = self.field_radius if field_radius is None else field_radius
+        k = self.num_knn if num_knn is None else num_knn
+        n = self.num_fields(stacked_params)
+        p = query_points.shape[0]
+
+        knn_dists, knn_idx = dispatch.topk_fields(query_points, field_positions, field_valid, k)
+        inside = knn_dists[:, 0] < radius  # the radius gate: nearest field only
+        pair_points = torch.repeat_interleave(query_points, k, dim=0)  # (P*k, d)
+        pair_ids = knn_idx.reshape(-1)
+        pair_valid = torch.repeat_interleave(inside, k) & torch.isfinite(knn_dists.reshape(-1))
+
+        def apply_fn(packed, pts):  # a slice of E experts, pts (E, C, d)
+            local = self.world_to_local(pts, packed["pos"][:, None, :], packed["quat"][:, None, :])
+            return self.prototype.apply(packed["params"], local)
+
+        packed = {"params": stacked_params, "pos": field_positions, "quat": field_orientations}
+        dim_out = self.prototype.dim_out
+        pair_outs, kept = dispatch.expert_eval(
+            apply_fn, packed, pair_points, pair_ids, pair_valid, n, capacity, dim_out
+        )
+        pair_outs = pair_outs.reshape(p, k, dim_out)
+        kept = kept.reshape(p, k)
+
+        logits = torch.where(kept, -self.distance_factor * knn_dists, -torch.inf)
+        any_kept = torch.any(kept, dim=-1)
+        weights = torch.softmax(torch.where(any_kept[:, None], logits, 0.0), dim=-1)
+        blended = torch.sum(weights[..., None] * pair_outs, dim=-2)
+        out = torch.where((inside & any_kept)[:, None], blended, self.outside_value)
+        if with_stats:
+            return out, torch.sum(pair_valid & ~kept.reshape(-1))
+        return out

@@ -1,22 +1,34 @@
 """Point -> field dispatch for the inference paths (port of
-neural_graph_mapping_tpu.ops.dispatch: ``topk_fields`` and
-``tiled_dispatch_sorted``).
+neural_graph_mapping_tpu.ops.dispatch: ``topk_fields``,
+``tiled_dispatch_sorted``, ``dispatch_indices`` and ``expert_eval``).
 
-Fields are experts and (point, neighbour) pairs are tokens: pairs are sorted
-by field and packed into TILE-pair tiles that each belong to one field, the
-layout the MoE encode kernels take. The port keeps the JAX function's
-semantics and outputs, not its TPU workarounds: one stable sort of the ids
-and gathers of the payloads by the returned order, and segment starts by
-N + 2 binary searches in the sorted ids (no (M, N) compare matrix, and no
-host sync: ``torch.bincount`` on a CUDA tensor reads its maximum on the
-host to size its output).
+Fields are experts and (point, neighbour) pairs are tokens. The tiled
+route sorts pairs by field and packs them into TILE-pair tiles that each
+belong to one field, the layout the MoE encode kernels take. The capacity
+route gives each field a buffer of ``capacity`` slots, drops the pairs
+beyond it and evaluates the (N, C) buffer field by field. The port keeps
+the JAX functions' semantics and outputs, not their TPU workarounds: one
+stable sort of the ids and gathers of the payloads by the returned order,
+and segment starts by binary searches in the sorted ids (no (M, N) compare
+matrix, and no host sync: ``torch.bincount`` on a CUDA tensor reads its
+maximum on the host to size its output).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
+
+# Points a slice of expert_eval's buffer evaluates at once. The gather
+# route holds ~4 KB a point at 16 levels (int64 corner indices and f32
+# weights, 16 x 4 x 12 B, the gathered features, 16 x 2 x 4 x 4 B, and the
+# plain lattice's temporaries), so 2^21 points are ~8 GB: a full 2^25-slot
+# render buffer would need ~130 GB at once.
+EXPERT_SLICE_POINTS = 1 << 21
+# Entries of topk_fields' (P, N) distance matrix computed at once (1 GB):
+# the points are taken in row chunks of this many entries.
+TOPK_CHUNK_ENTRIES = 1 << 28
 
 
 def topk_fields(
@@ -31,8 +43,18 @@ def topk_fields(
     Squared distances in the expanded form |p|^2 + |c|^2 - 2 p.c, as the JAX
     function computes them; ties go to the lower index (iterated argmin for
     k <= 4, a stable sort above); fewer centres than k pad with inf and the
-    last index.
+    last index. Rows are independent: the points go in chunks of
+    ``TOPK_CHUNK_ENTRIES`` distance-matrix entries, so a render block's
+    millions of points never hold the whole (P, N) matrix.
     """
+    rows = max(1024, TOPK_CHUNK_ENTRIES // max(centers.shape[0], k))
+    if points.shape[0] > rows:
+        parts = [_topk_fields(points[s : s + rows], centers, valid, k) for s in range(0, points.shape[0], rows)]
+        return torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts])
+    return _topk_fields(points, centers, valid, k)
+
+
+def _topk_fields(points, centers, valid, k):
     p_sq = torch.sum(points**2, dim=-1, keepdim=True)  # (P, 1)
     c_sq = torch.sum(centers**2, dim=-1)  # (N,)
     d_sq = p_sq + c_sq[None, :] - 2.0 * points @ centers.T
@@ -109,3 +131,77 @@ def tiled_dispatch_sorted(
         sorted_payloads, orig_idx, tile_src.to(torch.int32), tile_expert.to(torch.int32),
         tile_count.to(torch.int32), num_live_tiles, num_tiles,
     )
+
+
+def dispatch_indices(
+    expert_ids: torch.Tensor,  # (M,) int
+    pair_valid: torch.Tensor,  # (M,) bool
+    num_experts: int,
+    capacity: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Buffer slots of the capacity dispatch (dispatch.dispatch_indices).
+
+    A stable sort by expert ranks each pair within its expert; the first
+    ``capacity`` of each expert keep slot ``expert * capacity + rank``.
+    Invalid pairs and pairs past capacity get slot ``num_experts *
+    capacity`` (out of range).
+
+    Returns slot (M,) int64, kept (M,) bool, counts (N,) int32 (pairs routed
+    to each expert before capacity).
+    """
+    m = expert_ids.shape[0]
+    dev = expert_ids.device
+    ids = torch.where(pair_valid, expert_ids.long(), num_experts)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    seg_start = torch.searchsorted(sorted_ids, torch.arange(num_experts + 1, device=dev))
+    rank = torch.arange(m, device=dev) - seg_start[torch.clamp(sorted_ids, 0, num_experts)]
+    kept_sorted = (rank < capacity) & (sorted_ids < num_experts)
+    slot_sorted = torch.where(kept_sorted, sorted_ids * capacity + rank, num_experts * capacity)
+    slot = torch.empty_like(slot_sorted).index_copy_(0, order, slot_sorted)
+    kept = torch.empty_like(kept_sorted).index_copy_(0, order, kept_sorted)
+    counts = (seg_start[1:] - seg_start[:-1]).to(torch.int32)
+    return slot, kept, counts
+
+
+def _slice_tree(tree, sl: slice):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, sl) for k, v in tree.items()}
+    return tree[sl]
+
+
+def expert_eval(
+    apply_fn: Callable,
+    stacked_params,
+    points: torch.Tensor,  # (M, d)
+    expert_ids: torch.Tensor,  # (M,)
+    pair_valid: torch.Tensor,  # (M,)
+    num_experts: int,
+    capacity: int,
+    out_dim: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pair expert outputs through a static (N, C) dispatch buffer
+    (dispatch.expert_eval) -> (outs (M, out_dim), zeros for dropped pairs;
+    kept (M,) bool).
+
+    ``apply_fn(params_slice, pts (E, C, d)) -> (E, C, out_dim)`` evaluates
+    E experts at once; ``stacked_params`` is a (nested) dict of tensors with
+    the expert axis leading. The buffer is evaluated in slices of the
+    expert axis of at most ``EXPERT_SLICE_POINTS`` points (at least one
+    expert a slice), so its peak memory stays a few GB; every slot, filled
+    or not, is evaluated as in JAX, and slicing changes no result.
+    """
+    m, dim = points.shape
+    slot, kept, _ = dispatch_indices(expert_ids, pair_valid, num_experts, capacity)
+    total = num_experts * capacity
+    buf = points.new_zeros((total + 1, dim))  # + a dump row for dropped pairs
+    buf[slot] = points
+    buf = buf[:total].reshape(num_experts, capacity, dim)
+    per = max(1, EXPERT_SLICE_POINTS // capacity)
+    outs = [
+        apply_fn(_slice_tree(stacked_params, slice(e0, e0 + per)), buf[e0 : e0 + per])
+        for e0 in range(0, num_experts, per)
+    ]
+    buf_out = torch.cat(outs).reshape(total, out_dim)
+    padded = torch.cat([buf_out, buf_out.new_zeros((1, out_dim))])
+    outs = torch.where(kept[:, None], padded[slot], 0.0)
+    return outs, kept

@@ -1,16 +1,26 @@
-"""Permutohedral hash encoding as an ``nn.Module`` (port of
-neural_graph_mapping_tpu.ops.encodings.PermutohedralEncoding).
+"""Positional encodings as ``nn.Module``s (port of
+neural_graph_mapping_tpu.ops.encodings).
 
-The module holds no parameters: hash tables live in the stacked per-field
-parameter dict (key ``enc.table``, shape (N, F, L, T), feature-major), as in
-the JAX package. The lattice constants are buffers, plus the same values as
-Python tuples for the kernels' launch constants. Scales, shifts and per-level
-capacities are computed exactly as the JAX package computes them, so a table
-means the same thing in both packages.
+The modules hold no parameters: those live in the stacked per-field
+parameter dict, with a leading field axis, as in the JAX package:
+``enc.table`` (N, F, L, T) feature-major for the permutohedral encoding,
+``enc.planes`` (N, 3, C, R, R) for the triplane, ``enc.fourier_w``
+(N, dim_in, n) for random Fourier features, none for the NeRF octaves.
+``init(num, generator, device)`` draws ``num`` fields' parameters from an
+explicit generator; ``apply(params, points)`` takes params with leading
+field dims (B...) and points (B..., ..., dim_in).
+
+The permutohedral lattice constants are buffers, plus the same values as
+Python tuples for the kernels' launch constants. Scales, shifts and
+per-level capacities are computed exactly as the JAX package computes them,
+so a table means the same thing in both packages. Only the permutohedral
+encoding has the feature-major ``apply_fm_soa`` that training takes; the
+other three give ``apply`` only, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -155,3 +165,144 @@ class PermutohedralEncoding(nn.Module):
         flat = points.reshape(lead[:n_lead] + (-1, self.pos_dim))
         out = self.gather_fm_soa(params, flat.unbind(-1))  # (B..., out_dim, M)
         return out.transpose(-1, -2).reshape(lead + (self.get_out_dim(),))
+
+
+def _flatten_points(points: torch.Tensor, n_lead: int, dim: int) -> torch.Tensor:
+    """points (B..., ..., dim) -> (B..., M, dim) for ``n_lead`` field dims."""
+    return points.reshape(points.shape[:n_lead] + (-1, dim))
+
+
+class TriplaneEncoding(nn.Module):
+    """Learned triplane encoding: three axis-aligned feature planes sampled
+    bilinearly (align-corners, border) at the point's projections onto the
+    xy, xz and yz planes, combined by sum, product or concatenation.
+    Expects inputs in [-1, 1]."""
+
+    def __init__(
+        self,
+        resolution: int = 32,
+        num_components: int = 64,
+        init_scale: float = 0.1,
+        mode: str = "sum",
+    ) -> None:
+        super().__init__()
+        if mode not in ("sum", "product", "concat"):
+            raise ValueError(f"{mode=} is not supported.")
+        self.resolution = int(resolution)
+        self.num_components = int(num_components)
+        self.init_scale = float(init_scale)
+        self.mode = mode
+
+    def get_out_dim(self) -> int:
+        if self.mode == "concat":
+            return 3 * self.num_components
+        return self.num_components
+
+    def init(self, num: int, generator: Optional[torch.Generator] = None, device=None) -> Params:
+        """(num, 3, C, R, R) planes ~ init_scale * N(0, 1)."""
+        shape = (num, 3, self.num_components, self.resolution, self.resolution)
+        return {"planes": self.init_scale * torch.randn(shape, generator=generator, device=device)}
+
+    @staticmethod
+    def _grid_sample_bilinear(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """plane (B..., C, R, R), coords (B..., M, 2) in [-1, 1] -> (B..., C, M).
+
+        The JAX package's formula term for term: coords[..., 0] indexes the
+        width (last) axis, the cell's corner is clipped to R - 2 so the last
+        row and column interpolate from the cell before them."""
+        c, h, w = plane.shape[-3:]
+        x = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
+        y = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
+        x = torch.clamp(x, 0.0, w - 1)
+        y = torch.clamp(y, 0.0, h - 1)
+        x0 = torch.clamp(torch.floor(x).long(), 0, w - 2)
+        y0 = torch.clamp(torch.floor(y).long(), 0, h - 2)
+        tx = (x - x0)[..., None, :]
+        ty = (y - y0)[..., None, :]
+        flat = plane.reshape(plane.shape[:-2] + (h * w,))
+
+        def tap(yy, xx):
+            idx = (yy * w + xx)[..., None, :]
+            return torch.gather(flat, -1, idx.expand(idx.shape[:-2] + (c, idx.shape[-1])))
+
+        top = tap(y0, x0) * (1 - tx) + tap(y0, x0 + 1) * tx
+        bot = tap(y0 + 1, x0) * (1 - tx) + tap(y0 + 1, x0 + 1) * tx
+        return top * (1 - ty) + bot * ty
+
+    def apply(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """points (B..., ..., 3) -> (B..., ..., out_dim)."""
+        planes = params["planes"]
+        n_lead = planes.ndim - 4
+        pts = _flatten_points(points, n_lead, 3)
+        feats = [
+            self._grid_sample_bilinear(planes[..., i, :, :, :], pts[..., axes])
+            for i, axes in enumerate(((0, 1), (0, 2), (1, 2)))
+        ]  # 3 x (B..., C, M)
+        if self.mode == "sum":
+            out = feats[0] + feats[1] + feats[2]
+        elif self.mode == "product":
+            out = feats[0] * feats[1] * feats[2]
+        else:
+            out = torch.cat(feats, dim=-2)
+        return out.transpose(-1, -2).reshape(points.shape[:-1] + (self.get_out_dim(),))
+
+
+class PositionalEncodingFourier(nn.Module):
+    """Random Fourier features sin(x W), optionally after the raw coordinates."""
+
+    def __init__(self, dim_in: int, dim_out: int, mu: float, sigma: float, raw_coords: bool) -> None:
+        super().__init__()
+        self.dim_in = int(dim_in)
+        self.dim_out = int(dim_out)
+        self.mu = float(mu)
+        self.sigma = float(sigma)
+        self.raw_coords = bool(raw_coords)
+        self._n_features = self.dim_out - self.dim_in if raw_coords else self.dim_out
+
+    def get_out_dim(self) -> int:
+        return self.dim_out
+
+    def init(self, num: int, generator: Optional[torch.Generator] = None, device=None) -> Params:
+        """(num, dim_in, n) weights ~ mu + sigma * N(0, 1)."""
+        shape = (num, self.dim_in, self._n_features)
+        return {"fourier_w": self.mu + self.sigma * torch.randn(shape, generator=generator, device=device)}
+
+    def apply(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """points (B..., ..., dim_in) -> (B..., ..., dim_out)."""
+        w = params["fourier_w"]
+        n_lead = w.ndim - 2
+        pts = _flatten_points(points, n_lead, self.dim_in)
+        feats = torch.sin(torch.matmul(pts, w))
+        if self.raw_coords:
+            feats = torch.cat([pts, feats], dim=-1)
+        return feats.reshape(points.shape[:-1] + (self.dim_out,))
+
+
+class PositionalEncodingNeRF(nn.Module):
+    """Sin / cos octave encoding: sin and cos of x * 2^o * pi for
+    ``num_octaves`` octaves from ``start_octave``. No parameters."""
+
+    def __init__(self, dim_in: int, num_octaves: int = 8, start_octave: int = 0) -> None:
+        super().__init__()
+        self.dim_in = int(dim_in)
+        self.num_octaves = int(num_octaves)
+        self.start_octave = int(start_octave)
+
+    def get_out_dim(self) -> int:
+        return self.dim_in * self.num_octaves * 2
+
+    def init(self, num: int, generator: Optional[torch.Generator] = None, device=None) -> Params:
+        return {}
+
+    def apply(self, params: Params, points: torch.Tensor) -> torch.Tensor:
+        """points (..., dim_in) -> (..., out_dim): all sines, then all cosines."""
+        octaves = torch.arange(
+            self.start_octave, self.start_octave + self.num_octaves, dtype=points.dtype,
+            device=points.device,
+        )
+        mult = (2.0**octaves) * math.pi
+        scaled = points[..., None] * mult  # (..., dim_in, num_octaves)
+        lead = points.shape[:-1]
+        sines = torch.sin(scaled).reshape(lead + (-1,))
+        cosines = torch.cos(scaled).reshape(lead + (-1,))
+        return torch.cat([sines, cosines], dim=-1)

@@ -574,6 +574,12 @@ class NeuralGraphMapRunner:
                     "pre-layout-flip checkpoint (level-major tables); "
                     "re-save it or transpose axes 1 and 2"
                 )
+        want = {k: tuple(v.shape[1:]) for k, v in e._params.items()}
+        got = {k: tuple(v.shape[1:]) for k, v in params.items()}
+        if got != want:
+            raise ValueError(
+                f"checkpoint parameters {got} (per field) do not match this config's fields {want}"
+            )
         e._params = interop.params_from_jax(params, dev)
         e._map_arrays = interop.map_arrays_from_jax(
             data["map.positions"], data["map.orientations"], data["map.kf_ids"],

@@ -1,5 +1,5 @@
-"""Chunked evaluation of large batches (port of
-neural_graph_mapping_tpu.utils.chunking.batched_evaluation)."""
+"""Chunked evaluation of large batches and the capacity route's drop
+warning (port of neural_graph_mapping_tpu.utils.chunking)."""
 
 from __future__ import annotations
 
@@ -36,6 +36,22 @@ def batched_evaluation(
             for parts in zip(*outs)
         )
     return torch.cat(outs)[:n]
+
+
+def warn_dropped_pairs(drop_counts, logger, what: str, capacity: int) -> int:
+    """Sum the per-chunk dropped-pair counts of the capacity-buffer route
+    (0-d tensors or ints; one host sync) and warn if any pair was dropped:
+    the blend then renormalised over the survivors, which biases the
+    outputs. Shared by render_image and meshing. Returns the total."""
+    total = int(sum(int(d) for d in drop_counts))
+    if total:
+        logger.warning(
+            "%s capacity path DROPPED %d KNN pairs (capacity %d too small under demand "
+            "skew); outputs are biased where drops occurred. Use the tiled route or raise "
+            "the capacity.",
+            what, total, capacity,
+        )
+    return total
 
 
 def save_image(img, file_path) -> None:

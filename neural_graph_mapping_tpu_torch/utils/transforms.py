@@ -40,6 +40,23 @@ def quaternion_apply(q: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     return point + w * t + torch.linalg.cross(v, t)
 
 
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Convert unit quaternions (..., 4) to rotation matrices (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def complex_invert(c: torch.Tensor) -> torch.Tensor:
     """Conjugate of real-first complex numbers (..., 2): the inverse of a
     unit-modulus 2D rotation."""
@@ -117,6 +134,19 @@ def invert_rigid(transforms: torch.Tensor) -> torch.Tensor:
     out[..., :3, 3] = new_trans
     out[..., 3, 3] = 1.0
     return out
+
+
+def to_homogeneous(x: torch.Tensor) -> torch.Tensor:
+    """Append a 1 to the last dimension."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def to_inhomogeneous(x: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """Drop the last element of the trailing dim, optionally dividing by it
+    first."""
+    if normalize:
+        x = x / x[..., -1:]
+    return x[..., :-1]
 
 
 def umeyama_alignment(src: np.ndarray, dst: np.ndarray, with_scale: bool = False) -> np.ndarray:

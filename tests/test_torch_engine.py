@@ -369,10 +369,14 @@ def test_fused_mlp_refuses_fields_the_kernels_cannot_take(field):
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError):
-        engine.NeuralGraphMap(tiny_config(update_mode="single_view"), "cpu")
+    """Field-axis sharding is not ported; an unknown update_mode raises
+    (the JAX engine trains nothing with one); both update modes build."""
+    with pytest.raises(ValueError, match="update_mode"):
+        engine.NeuralGraphMap(tiny_config(update_mode="sv"), "cpu")
     with pytest.raises(NotImplementedError):
         engine.NeuralGraphMap(tiny_config(num_field_shards=2), "cpu")
+    for mode in ("multi_view", "single_view"):
+        assert engine.NeuralGraphMap(tiny_config(update_mode=mode), "cpu")._update_mode == mode
 
 
 def test_map_needs_explicit_device(monkeypatch):

@@ -907,3 +907,68 @@ def test_extract_mesh_on_card_matches_cpu_route(cuda, monkeypatch):
     assert len(gpu_volumes) == len(volumes) > 1
     for g, w in zip(gpu_volumes, volumes):
         assert float(np.abs(g - w).max()) <= 1e-4
+
+
+def test_gather_pairs_at_an_expert_eval_buffer(cuda, monkeypatch):
+    """The capacity route on the card at production widths: 64 fields with
+    32,768 slots each fill one expert_eval slice, so gather_pairs takes
+    64 x 16 rows of 4 x 32,768 corner lookups. At the captured inputs it is
+    exact against its plain version, and apply_knn's outputs are within
+    1e-5 of the CPU's, with the same dropped pairs."""
+    import copy
+
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
+
+    fset = NeuralFieldSet(**chip_smoke.CONFIG["model_kwargs"]).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+    n = 64
+    params = fset.init_fields(n, gen, cuda)
+    params["enc.table"] = (torch.rand(params["enc.table"].shape, generator=gen, device=cuda) * 2 - 1) * 0.1
+    pos = torch.rand((n, 3), generator=gen, device=cuda) * 6 - 3
+    quat = torch.nn.functional.normalize(torch.randn((n, 4), generator=gen, device=cuda), dim=-1)
+    valid = torch.ones((n,), dtype=torch.bool, device=cuda)
+    pts = torch.rand((200_000, 3), generator=gen, device=cuda) * 7 - 3.5
+    seen = []
+    orig = permuto_cuda.gather_pairs
+
+    def spy(table, idx):
+        seen.append((table, idx))
+        return orig(table, idx)
+
+    monkeypatch.setattr(permuto_cuda, "gather_pairs", spy)
+    before = permuto_cuda.LAUNCHES["gather_pairs"]
+    got, dropped = fset.apply_knn(params, pts, pos, quat, valid, capacity=32768, with_stats=True)
+    torch.cuda.synchronize()
+    assert len(seen) == 1 and permuto_cuda.LAUNCHES["gather_pairs"] == before + 1
+    table, idx = seen[0]
+    assert tuple(idx.shape) == (n, 16, 4 * 32768)
+    assert torch.equal(orig(table, idx), permuto_cuda.gather_pairs_plain(table, idx))
+    cpu = copy.deepcopy(fset).to("cpu")
+    want, want_dropped = cpu.apply_knn({k: v.cpu() for k, v in params.items()}, pts.cpu(), pos.cpu(), quat.cpu(),
+                                       valid.cpu(), capacity=32768, with_stats=True)
+    assert int(dropped) == int(want_dropped)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_single_view_iteration_matches_cpu(cuda):
+    """A production map trained on the card for three single-view frames,
+    then one single-view iteration on the card and on the CPU from the same
+    state and injected draws: losses within 1e-3 relative, the encode pair
+    launched once each."""
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+    from neural_graph_mapping_tpu_torch.mapping import engine
+
+    cfg = dict(chip_smoke.CONFIG, update_mode="single_view")
+    ds = str_to_object(cfg["dataset_type"])(cfg["dataset_config"])
+    ds.load_slam_results()
+    ngm = engine.NeuralGraphMap(cfg, device="cuda")
+    for fid in range(3):
+        losses = ngm.process_frame(ds, fid, ds[fid]["rgbd"])
+    assert losses and ngm.num_fields > 0
+    worst, _, launches = chip_smoke.check_sv_iteration_against_cpu(torch, engine, permuto_cuda, ngm)
+    assert worst <= 1e-3
+    assert launches == {"encode_fwd": 1, "encode_bwd_table": 1}

@@ -54,6 +54,9 @@ class PortSphere:
         self.occupancy = occupancy
         self.radii = []
 
+    def supports_tiled_knn(self):
+        return True
+
     def apply_knn_tiled(self, params, points, positions, orientations, valid, field_radius=None):
         self.radii.append(field_radius)
         return torch.from_numpy(_sphere_outputs(points.numpy(), self.occupancy))

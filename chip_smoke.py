@@ -105,7 +105,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    variant of ``gather_pairs`` at that shape with an unaligned table and at
    T = 16,384, ``table_grad`` with unaligned values (scalar loads) and its
    direct variant at T = 16,384 (``kernel_variant`` lines),
-   five Adam steps of a fit that must lower its loss.
+   five Adam steps of a fit that must lower its loss; ``kernel_variant``
+   lines: both kernels at F = 1, 4, 8 features a level at the set's rows
+   and pairs (F = 1, 4 staged, F = 8 direct), exact / within 1e-5 of
+   max|plain|, timed (``feature_counts`` in the kernels' lines).
 10. geometry_gradients: one trained field at 4,096 points, card against CPU.
     capacity_probe: a map identical but for ``concat_points: true`` (the
     tiled route cannot take it) trained over the 12 frames: render_image
@@ -136,6 +139,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 13. cli_resume: a fresh runner on the card loads the full checkpoint; its
     render of a held-out frame equals the saving runner's within 1e-4 (the
     same generator state), then it trains two more frames, losses finite.
+    cli_single_view: the CLI's main with ``--update_mode single_view``.
+14. replica_scene: a Replica-layout scene at Replica's own 1200x680
+    camera (the synthetic scene ray-cast by worker processes, PNG colour,
+    16-bit depth, traj.txt, ORB-SLAM2 files with drift and a loop closure,
+    the analytic ground-truth mesh), which check_dataset must pass.
+    replica: the CLI runner on it at config/neural_graph_map.yaml +
+    replica_imap_dataset.yaml + coslam_eval.yaml (60 frames, a held-out
+    frame, a mesh at 0.04 m scored with virt_cams culling, a map
+    checkpoint): fit wall s, ``spf_estimate``, the host phases, the
+    keyframe cache's bytes, peak device memory, median ms of a 1200x680
+    render, PSNR / depth-L1, mesh accuracy / completion / F1, the mesh
+    eval's and ``save_model``'s seconds; the loop closure must move fields,
+    and kernels 1-4 and 6 must launch. replica_vis_checkpoint:
+    ``vis.vis_checkpoint`` edits every field of that checkpoint by a
+    rigid transform; the half turn about y renders from the turned pose
+    within 1e-4 of the unedited render (a rotation and shift is reported).
+    fit_synthetic: the example's 300 steps on the card lower the loss by
+    half, through encode_fwd / encode_bwd_table and the tiled KNN check.
 
 Kernel times: ``ms`` is device time a launch, with the host's issue hidden:
 a device-side delay long enough for the host to queue 20 launches, then
@@ -172,8 +193,9 @@ their route, the gather route's pair from the 2D fit; ``topk2_fields`` and
 ``encode_fwd_moe`` also give ``meshing_launches``, from the cli phase's
 mesh; the training kernels ``single_view_<route>_launches`` from the
 single-view slices; ``gather_pairs`` its launches per capacity-route image
-and in the capacity route's mesh); the last line is ``{"ok": true,
-"device": {...}}``.
+and in the capacity route's mesh; the gather route's pair its
+``feature_counts``; ``replica_launches`` from the replica phase's run);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -291,6 +313,39 @@ CONFIG = {
     "extract_mesh": True,
     "mesh_resolution": 0.04,
 }
+
+
+# config/neural_graph_map.yaml alone: CONFIG without config/synthetic.yaml's keys
+SYNTHETIC_KEYS = ("dataset_type", "dataset_config", "eval_ratio", "eval_chunk_freq", "eval_metrics",
+                  "extract_mesh", "mesh_resolution")
+MODEL_CONFIG = {k: v for k, v in CONFIG.items() if k not in SYNTHETIC_KEYS}
+# config/replica_imap_dataset.yaml and config/coslam_eval.yaml, written out as
+# CONFIG is; tests/test_torch_datasets.py checks them against the files
+REPLICA_DATASET = {
+    "dataset_type": "neural_graph_mapping_tpu.datasets.replica.ReplicaDataset",
+    "dataset_config": {
+        "root_dir": "${NGM_DATA_DIR}/replica_imap",
+        "scene": "room0",
+        "fps": 30,
+        "up_axis": "z",
+        "slam_c2w_file": "orbslam2_c2w.json",
+        "slam_pg_file": "orbslam2_pg.json",
+        "slam_final_file": "orbslam2_final.txt",
+    },
+}
+COSLAM_EVAL = {
+    "eval_mesh": True,
+    "eval_mesh_num_points": 200000,
+    "eval_mesh_alignment": True,
+    "eval_culling_method": "virt_cams",
+    "keyframes_only": True,
+}
+# Replica's own cam_params.json (the iMAP / NICE-SLAM rendering)
+REPLICA_CAMERA = {"w": 1200, "h": 680, "fx": 600.0, "fy": 600.0, "cx": 599.5, "cy": 339.5, "scale": 6553.5}
+REPLICA_FRAMES = 60
+REPLICA_SCENE = "synth_room"  # not one of ReplicaDataset's scenes with custom bounds
+REPLICA_KF_FREQ = 5
+REPLICA_LC_FRAME = (REPLICA_FRAMES * 3 // 4) // REPLICA_KF_FREQ * REPLICA_KF_FREQ  # 45
 
 
 def lattice_boundary_points(scales, shifts, elev, per_level: int = 128, seed: int = 0, ulps: int = 2):
@@ -1733,6 +1788,54 @@ def check_table_grad_variants(torch, permuto_cuda, gen, idx, gv, t: int) -> None
               **timing, bound_ms=bound_ms, bound_by=bound_by)
 
 
+GATHER_FEATURES = (1, 4, 8)  # feature counts beside the production 2 (rows 7-8)
+
+
+def check_gather_features(torch, permuto_cuda, gen, idx, t: int) -> dict:
+    """Phases kernel_variant: gather_pairs and table_grad with F = 1, 4, 8
+    features a level at the 2D field set's rows and pairs (T = 4,096: F = 1
+    and 4 stage their (F, T) tables, F = 8 takes the direct variants), each
+    against its plain version (gather exact, histogram within 1e-5 of
+    max|plain|) and timed as the rows are -> {name: [one entry an F]}."""
+    dev = idx.device
+    rows, m = int(idx.shape[:-1].numel()), idx.shape[-1]
+    flat = idx.reshape(rows, m)
+    out = {"gather_pairs": [], "table_grad": []}
+    for f in GATHER_FEATURES:
+        table = torch.rand((rows, f, t), generator=gen, device=dev) * 2 - 1
+        gv = torch.randn((rows, f, m), generator=gen, device=dev)
+        if not torch.equal(permuto_cuda.gather_pairs(table, flat), permuto_cuda.gather_pairs_plain(table, flat)):
+            raise AssertionError(f"gather_pairs with {f} features differs from torch.gather")
+        got = permuto_cuda.table_grad(flat, gv, t)
+        want = permuto_cuda.table_grad_plain(flat, gv, t)
+        tg_err = max_err(torch, got, want)
+        if not tg_err <= 1e-5 * float(want.abs().max()):
+            raise AssertionError(f"table_grad with {f} features: max abs err {tg_err} > 1e-5 * max|plain|")
+        del got, want
+        idx_full = flat.unsqueeze(-2).expand(rows, f, m)
+        cases = (
+            ("gather_pairs", 0.0, "exact", permuto_cuda.gather_pairs_variant(table, flat),
+             measure(torch, lambda: permuto_cuda.gather_pairs(table, flat),
+                     lambda: permuto_cuda.gather_pairs_plain(table, flat),
+                     library=lambda: torch.gather(table, -1, idx_full)),
+             bound(table.numel() * 4 + flat.numel() * (8 + f * 4), 0)),
+            ("table_grad", tg_err, "max abs <= 1e-5 * max|plain| (atomics)",
+             permuto_cuda.table_grad_variant(flat, gv, t),
+             measure(torch, lambda: permuto_cuda.table_grad(flat, gv, t),
+                     lambda: permuto_cuda.table_grad_plain(flat, gv, t),
+                     library=index_add_call(torch, flat, gv, t)),
+             bound(flat.numel() * (8 + f * 4) + rows * f * t * 4, f * flat.numel())),
+        )
+        for name, err, tol, variant, timing, (bound_ms, bound_by) in cases:
+            row = dict(features=f, variant=variant, max_abs_err=err, tolerance=tol, **timing,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            phase("kernel_variant", name=name, case=f"{f} features a level",
+                  shape={"rows": rows, "features": f, "pairs_per_row": m, "table": t}, **row)
+            out[name].append(row)
+        del table, gv
+    return out
+
+
 def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     """Phases kernel (gather_pairs, table_grad) and field2d: a 2D field set
     of 32 fields x 12,288 points through apply_vmap (the gather route), its
@@ -1803,6 +1906,8 @@ def check_field2d(torch, permuto_cuda, optimizer, NeuralFieldSet, smi):
     kernel_rows = report_rows(rows, shapes, bounds)
     check_gather_pairs_direct(torch, permuto_cuda, gen, table, idx)
     check_table_grad_variants(torch, permuto_cuda, gen, t_idx, gv, t_size)
+    for name, entries in check_gather_features(torch, permuto_cuda, gen, t_idx, t_size).items():
+        kernel_rows[name]["feature_counts"] = entries
 
     # five Adam steps of the fit, on the card
     fit = clone(params)
@@ -2408,6 +2513,11 @@ def check_cli_resume(torch, run_mapping, runner, ckpt, out_dir: pathlib.Path):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     ds = runner.dataset
+    t0 = time.perf_counter()
+    ds.scene_bounds  # what the culling computes twice: every frame back-projected
+    scene_bounds_s = time.perf_counter() - t0
+    if not runner.eval_frame_ids:
+        raise AssertionError("replica: no held-out frame")
     fid = sorted(runner.eval_frame_ids)[0]
     c2w = ds.get_slam_c2ws(fid, len(ds) - 1)
     want = runner.engine.render_image(c2w, ds.camera)[0]
@@ -2424,6 +2534,392 @@ def check_cli_resume(torch, run_mapping, runner, ckpt, out_dir: pathlib.Path):
     phase("cli_resume", load_model_s=load_s, render_frame=fid, max_abs_render=err, tolerance="max abs <= 1e-4",
           frame_counter=fresh.engine._frame_counter, trained_frames=frames,
           combined_losses=[d["combined"] for d in losses])
+
+
+# -- the replica phase: a Replica-layout scene at Replica's own 1200x680 -------
+
+
+def replica_synthetic(c: dict, frames: int):
+    """The port's synthetic scene (spheres in a box room, an orbit of
+    ``frames`` poses) seen through the Replica camera ``c``."""
+    from neural_graph_mapping_tpu_torch.camera import Camera
+    from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    synth = SyntheticDataset({"num_frames": frames, "width": c["w"], "height": c["h"],
+                              "fx": c["fx"], "fy": c["fy"]})
+    # Replica's principal point, in its convention (pixel_center 0.0)
+    synth.camera = Camera.create(c["w"], c["h"], c["fx"], c["fy"], c["cx"], c["cy"], pixel_center=0.0)
+    return synth
+
+
+def write_replica_frames(results_dir: str, camera: dict, frames: int, frame_ids) -> None:
+    """Ray-cast frames of :func:`replica_synthetic` and write them as Replica
+    does: ``frame*.png`` colour (8-bit RGB) and 16-bit ``depth*.png`` at
+    the camera's depth scale. Runs in a worker process."""
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.utils import imageio
+
+    synth = replica_synthetic(camera, frames)
+    out = pathlib.Path(results_dir)
+    for i in frame_ids:
+        rgbd = synth._raycast(synth.gt_c2ws[i])
+        rgb = np.round(np.clip(rgbd[..., :3], 0.0, 1.0) * 255.0).astype(np.uint8)
+        depth = np.round(np.clip(rgbd[..., 3] * camera["scale"], 0, 65535)).astype(np.uint16)
+        imageio.write_png(out / f"frame{i:06d}.png", rgb)
+        imageio.write_png(out / f"depth{i:06d}.png", depth)
+
+
+def gl_c2w_to_pose_vector(gl_c2w) -> list:
+    """OpenGL c2w -> the ORB-SLAM2 export's OpenCV pose vector x y z qx qy qz qw."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV
+
+    m = np.asarray(gl_c2w, np.float64) @ OGL2OCV
+    return [*m[:3, 3].tolist(), *Rotation.from_matrix(m[:3, :3]).as_quat().tolist()]
+
+
+def write_slam_files(scene_dir: pathlib.Path, gt_c2ws, kf_freq: int, lc_frame: int,
+                     max_drift: float = 0.4, removed_kfs=(), cov_window: int = 3) -> None:
+    """The three ORB-SLAM2 result files, shaped as scripts/make_slam_fixture.py
+    shapes them: estimates drift along x up to ``max_drift`` until the loop
+    closure at ``lc_frame`` snaps every keyframe to ground truth, drops
+    ``removed_kfs`` and adds an LC edge between keyframe 0 and ``lc_frame``;
+    covisibility edges to each keyframe's ``cov_window`` nearest keyframes."""
+    import numpy as np
+
+    gt = np.asarray(gt_c2ws, np.float64)
+    num = len(gt)
+
+    def est(frame_id: int, at_frame_id: int):
+        if at_frame_id >= lc_frame:
+            return gt[frame_id]
+        d = np.eye(4)
+        d[0, 3] = max_drift * min(frame_id, lc_frame) / lc_frame
+        return d @ gt[frame_id]
+
+    kf_ids = [f for f in range(num) if f % kf_freq == 0]
+    live_per_frame, live = {}, []
+    for f in range(num):
+        if f in kf_ids:
+            live = [k for k in live if f < lc_frame or k not in removed_kfs]
+            live.append(f)
+        live_per_frame[f] = list(live)
+    c2w = {}
+    for f in range(num):
+        entry = {"cur": gl_c2w_to_pose_vector(est(f, f))}
+        for k in live_per_frame[f]:
+            entry[str(k)] = gl_c2w_to_pose_vector(est(k, f))
+        c2w[str(f)] = entry
+    (scene_dir / "orbslam2_c2w.json").write_text(json.dumps(c2w))
+    pg = {}
+    for f in kf_ids:
+        records = []
+        for k in live_per_frame[f]:
+            cov = sorted((o for o in live_per_frame[f] if o != k), key=lambda o: abs(o - k))[:cov_window]
+            lc = [lc_frame if k == 0 else 0] if f >= lc_frame and k in (0, lc_frame) else []
+            records.append({"KF": k, "CV": cov, "WGT": [100.0] * len(cov), "LC": lc})
+        pg[str(f)] = records
+    (scene_dir / "orbslam2_pg.json").write_text(json.dumps(pg))
+    rows = [[f, *gl_c2w_to_pose_vector(gt[f])] for f in range(num)]
+    np.savetxt(scene_dir / "orbslam2_final.txt", np.asarray(rows))
+
+
+def synthetic_scene_mesh(synth, sphere_segments: int = 64, wall_cells: int = 24):
+    """The ground-truth mesh of the synthetic scene: its analytic spheres
+    (latitude-longitude, ``sphere_segments`` around) and the six walls of its
+    box room (``wall_cells`` x ``wall_cells`` quads each), as triangles."""
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.utils import meshio
+
+    verts, faces = [], []
+
+    def grid(points, rows, cols):
+        base = sum(len(v) for v in verts)
+        verts.append(points.reshape(-1, 3))
+        i = (np.arange(rows - 1)[:, None] * cols + np.arange(cols - 1)[None, :]).reshape(-1) + base
+        faces.append(np.concatenate([np.stack([i, i + 1, i + cols + 1], -1), np.stack([i, i + cols + 1, i + cols], -1)]))
+
+    n = sphere_segments
+    theta = np.linspace(0.0, np.pi, n // 2 + 1)[:, None]
+    phi = np.linspace(0.0, 2 * np.pi, n + 1)[None, :]
+    unit = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta) * np.ones_like(phi), np.sin(theta) * np.sin(phi)], -1)
+    for center, radius in zip(synth._sphere_c, synth._sphere_r):
+        grid(center + radius * unit, n // 2 + 1, n + 1)
+    h = synth._room_half
+    u = np.linspace(-h, h, wall_cells + 1)
+    a, b = np.meshgrid(u, u, indexing="ij")
+    for axis in range(3):
+        others = [d for d in range(3) if d != axis]
+        for sign in (-1.0, 1.0):
+            pts = np.zeros(a.shape + (3,))
+            pts[..., axis] = sign * h
+            pts[..., others[0]] = a
+            pts[..., others[1]] = b
+            grid(pts, wall_cells + 1, wall_cells + 1)
+    return meshio.Mesh(np.concatenate(verts).astype(np.float32), np.concatenate(faces))
+
+
+def write_replica_scene(root: pathlib.Path, workers: int = 0) -> dict:
+    """A Replica-layout scene under ``root``: cam_params.json, traj.txt (OpenCV
+    c2w), results/frame*.png and 16-bit depth*.png (the frames ray-cast by
+    worker processes), the three SLAM files with drift and one loop closure,
+    and ``{scene}_mesh.ply``; ``workers`` processes (0: one a core but one,
+    at most 8; 1: this process) -> what was written and how long it took."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV
+    from neural_graph_mapping_tpu_torch.utils import meshio
+
+    t0 = time.perf_counter()
+    scene = root / REPLICA_SCENE
+    results = scene / "results"
+    results.mkdir(parents=True)
+    (root / "cam_params.json").write_text(json.dumps({"camera": REPLICA_CAMERA}))
+    synth = replica_synthetic(REPLICA_CAMERA, REPLICA_FRAMES)
+    np.savetxt(scene / "traj.txt", (synth.gt_c2ws @ OGL2OCV[None]).reshape(REPLICA_FRAMES, 16))
+    removed = (REPLICA_FRAMES // 2 // REPLICA_KF_FREQ * REPLICA_KF_FREQ,)
+    write_slam_files(scene, synth.gt_c2ws, REPLICA_KF_FREQ, REPLICA_LC_FRAME, removed_kfs=removed)
+    mesh = synthetic_scene_mesh(synth)
+    meshio.save_ply(root / f"{REPLICA_SCENE}_mesh.ply", mesh)
+    workers = workers or max(1, min(8, (os.cpu_count() or 2) - 1))
+    if workers == 1:
+        write_replica_frames(str(results), REPLICA_CAMERA, REPLICA_FRAMES, range(REPLICA_FRAMES))
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            futures = [pool.submit(write_replica_frames, str(results), REPLICA_CAMERA, REPLICA_FRAMES,
+                                   list(range(w, REPLICA_FRAMES, workers))) for w in range(workers)]
+            for fut in futures:
+                fut.result()
+    return {"frames": REPLICA_FRAMES, "workers": workers, "seconds": time.perf_counter() - t0,
+            "bytes": sum(p.stat().st_size for p in results.iterdir()), "removed_keyframes": list(removed),
+            "loop_closure_frame": REPLICA_LC_FRAME, "gt_mesh_faces": len(mesh.faces)}
+
+
+def replica_config(root: pathlib.Path, out_dir: pathlib.Path) -> dict:
+    """config/neural_graph_map.yaml + replica_imap_dataset.yaml +
+    coslam_eval.yaml with the scene's root and name, held-out render
+    metrics, a mesh at 0.04 m and no eval artefacts on disk."""
+    cfg = copy.deepcopy(dict(MODEL_CONFIG, **REPLICA_DATASET, **COSLAM_EVAL))
+    cfg["dataset_config"].update(root_dir=str(root), scene=REPLICA_SCENE)
+    cfg.update(eval_ratio=0.1, eval_metrics=["psnr", "depthl1"], extract_mesh=True, mesh_resolution=0.04,
+               eval_store_details=False, render_vis=False, out_dir=str(out_dir))
+    return cfg
+
+
+# Rigid edits of the replica phase's map, 4x4 lists. A half turn about y maps
+# every world coordinate to plus or minus itself, so each ray's span over the
+# field spheres (entry and exit from proj^2 - |co|^2 + r^2, a difference that
+# loses digits) is computed from the same floats and lands on the same
+# samples; only the field-local rotation rounds differently. A rotation and
+# shift moves the floats, and the span start with them.
+HALF_TURN_Y = [[-1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0], [0.0, 0.0, 0.0, 1.0]]
+ROTATE_AND_SHIFT = [[math.cos(math.pi / 6), 0.0, math.sin(math.pi / 6), 0.3], [0.0, 1.0, 0.0, -0.2],
+                    [-math.sin(math.pi / 6), 0.0, math.cos(math.pi / 6), 0.5], [0.0, 0.0, 0.0, 1.0]]
+
+
+def check_vis_checkpoint_edit(torch, vis_checkpoint, runner, ckpt, c2w, fid, tmp, smi) -> None:
+    """Phase replica_vis_checkpoint: vis_checkpoint loads the saved map and
+    applies one rigid transform edit to every field (then saves it); the
+    edited map rendered from the transformed pose, with the same jitter,
+    against the unedited map from the pose. The half turn about y must match
+    within 1e-4; the rotation and shift is reported (max abs, pixels above
+    1e-4, quantiles of the per-pixel error) beside it. Both saved checkpoints
+    must hold the transformed positions."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    e = runner.engine
+    ds = runner.dataset
+    n = e.num_fields
+    positions = e._map_arrays.positions[:n].cpu().numpy()
+    saved = json.loads(ckpt.with_suffix(".yaml").read_text())
+    state = e._init_gen.get_state()
+    want, _ = e.render_image(c2w, ds.camera)
+    out = {}
+    for name, t in (("half_turn_about_y", HALF_TURN_Y), ("rotate_and_shift", ROTATE_AND_SHIFT)):
+        edit_cfg = tmp / f"edit_{name}.json"
+        edit_cfg.write_text(json.dumps(dict(saved, edits=[{"field_ids": list(range(n)), "transform": t}],
+                                            frames=[], save=str(tmp / f"edited_{name}.npz"))))
+        with contextlib.redirect_stdout(io.StringIO()):
+            edited, _ = vis_checkpoint.main(["--config", str(edit_cfg), "--device", "cuda"])
+        t_np = np.asarray(t, np.float32)
+        edited.engine._init_gen.set_state(state)
+        got, _ = edited.engine.render_image(t_np @ np.asarray(c2w, np.float32), ds.camera)
+        err = (got - want).abs().amax(-1).flatten()
+        with np.load(tmp / f"edited_{name}.npz") as data:
+            pos_err = float(np.abs(data["map.positions"][:n] - (positions @ t_np[:3, :3].T + t_np[:3, 3])).max())
+        q = torch.quantile(err, torch.tensor([0.5, 0.99, 0.999], device=err.device))
+        out[name] = {"max_abs_render": float(err.max()), "pixels_above_1e-4": int((err > 1e-4).sum()),
+                     "error_quantiles_50_99_99.9": [float(v) for v in q], "saved_positions_max_abs": pos_err}
+        del edited, got
+    if not (out["half_turn_about_y"]["max_abs_render"] <= 1e-4
+            and max(v["saved_positions_max_abs"] for v in out.values()) <= 1e-5):
+        raise AssertionError(f"replica_vis_checkpoint: {out}")
+    phase("replica_vis_checkpoint", fields_edited=n, frame=fid, pixels=int(err.numel()), **out,
+          tolerance="half turn: render max abs <= 1e-4; saved positions <= 1e-5", card=smi)
+
+
+def check_replica(torch, permuto_cuda, topk, run_mapping, tmp: pathlib.Path, smi) -> dict:
+    """Phases replica_scene, replica, replica_vis_checkpoint, fit_synthetic:
+    a Replica-layout scene at 1200x680 written and checked by check_dataset,
+    the CLI runner on it (60 frames, SLAM poses with a loop closure,
+    held-out renders, a mesh at 0.04 m scored against the scene's mesh
+    after virt_cams culling, a map checkpoint), a rigid edit of that
+    checkpoint through vis_checkpoint, and the fit_synthetic example ->
+    the run's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.eval import culling
+    from neural_graph_mapping_tpu_torch.examples import fit_synthetic
+    from neural_graph_mapping_tpu_torch.scripts import check_dataset
+    from neural_graph_mapping_tpu_torch.vis import vis_checkpoint
+
+    root = tmp / "replica_imap"
+    written = write_replica_scene(root)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        rc = check_dataset.main(["replica", str(root), REPLICA_SCENE])
+    if rc != 0:
+        raise AssertionError(f"check_dataset exited {rc}:\n{report.getvalue()}")
+    phase("replica_scene", **written, camera=REPLICA_CAMERA, check_dataset_rc=rc,
+          check_dataset_checks=report.getvalue().count("[ok  ]"))
+
+    cfg = replica_config(root, tmp / "replica_runs")
+    runner = run_mapping.NeuralGraphMapRunner(cfg, device="cuda")
+    e = runner.engine
+    timing, outputs, lc = {}, {}, {}
+    process_frame = e.process_frame
+
+    def watched_process_frame(dataset, frame_id, rgbd):
+        # field positions around the first trained frame at or past the loop closure
+        watch = frame_id >= REPLICA_LC_FRAME and "before" not in lc and e.num_fields > 0
+        if watch:
+            lc.update(frame=frame_id, fields=e.num_fields, before=e._map_arrays.positions[: e.num_fields].clone())
+        losses = process_frame(dataset, frame_id, rgbd)
+        if watch:
+            lc["after"] = e._map_arrays.positions[: lc["fields"]].clone()
+        return losses
+
+    e.process_frame = watched_process_frame
+    for name in ("extract_mesh", "save_model", "evaluate_full"):
+        def timed(*args, _fn=getattr(runner, name), _name=name, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timing[_name] = timing.get(_name, 0.0) + time.perf_counter() - t0
+            outputs[_name] = out
+            return out
+        setattr(runner, name, timed)
+    evaluate_raw_mesh = culling.evaluate_raw_mesh
+
+    def timed_mesh_eval(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = evaluate_raw_mesh(*args, **kwargs)
+        timing["mesh_eval_protocol"] = time.perf_counter() - t1
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    culling.evaluate_raw_mesh = timed_mesh_eval
+    t0 = time.perf_counter()
+    try:
+        metrics = runner.fit()
+    finally:
+        culling.evaluate_raw_mesh = evaluate_raw_mesh
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = all_launches(permuto_cuda, topk)
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = e._cache_rgb.numel() * e._cache_rgb.element_size() + e._cache_depth.numel() * 4
+
+    ds = runner.dataset
+    t0 = time.perf_counter()
+    ds.scene_bounds  # what the culling computes twice: every frame back-projected
+    scene_bounds_s = time.perf_counter() - t0
+    if not runner.eval_frame_ids:
+        raise AssertionError("replica: no held-out frame")
+    fid = sorted(runner.eval_frame_ids)[0]
+    c2w = np.asarray(ds.get_slam_c2ws(fid, len(ds) - 1))
+    render_s = []
+    for _ in range(4):  # a warm-up, then three timed
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rgbd, _ = e.render_image(c2w, ds.camera)
+        torch.cuda.synchronize()
+        render_s.append(time.perf_counter() - t1)
+    want = ["final_psnr", "final_depthl1", "spf_estimate", "mesh_accuracy", "mesh_completion", "mesh_f1_5cm"]
+    bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    if bad or tuple(rgbd.shape) != (REPLICA_CAMERA["h"], REPLICA_CAMERA["w"], 4) or not bool(torch.isfinite(rgbd).all()):
+        raise AssertionError(f"replica: non-finite or missing {bad}, render {tuple(rgbd.shape)}")
+    for name in ("encode_fwd", "encode_bwd_table", "batched_gather", "topk2_fields", "encode_fwd_moe"):
+        if launches[name] < 1:
+            raise AssertionError(f"replica: {name} never launched in the run ({launches})")
+    if "after" not in lc:
+        raise AssertionError("replica: no trained frame at or past the loop closure")
+    moved = float((lc["after"] - lc["before"]).norm(dim=-1).max())
+    if not moved > 1e-2:
+        raise AssertionError(f"replica: the loop closure moved no field (max {moved} m)")
+    ckpts = list(runner._out_dir.glob("*.npz"))
+    if len(ckpts) != 1:
+        raise AssertionError(f"replica: checkpoints {ckpts}")
+    phase(
+        "replica", frames=REPLICA_FRAMES, resolution=[REPLICA_CAMERA["w"], REPLICA_CAMERA["h"]],
+        trained_frames=e.throughput.frames, eval_frames=sorted(runner.eval_frame_ids), fields=e.num_fields,
+        fit_seconds=fit_s, spf_estimate=metrics["spf_estimate"], fps_estimate=metrics["fps_estimate"],
+        wall_fps=metrics.get("wall_fps"), phases_s={k: v for k, v in metrics.items() if k.startswith("phase_")},
+        kf_cache_bytes=cache_bytes, peak_device_bytes=peak, allocated_before_fit_bytes=allocated_before,
+        device_total_bytes=torch.cuda.get_device_properties(0).total_memory,
+        render_ms_median=statistics.median(render_s[1:]) * 1e3, render_ms=[x * 1e3 for x in render_s],
+        online_psnr=metrics.get("online_psnr"), online_depthl1=metrics.get("online_depthl1"),
+        final_psnr=metrics["final_psnr"], final_depthl1=metrics["final_depthl1"],
+        mesh_metrics={k: v for k, v in metrics.items() if k.startswith("mesh_")},
+        mesh_vertices=len(outputs["extract_mesh"].vertices), mesh_faces=len(outputs["extract_mesh"].faces),
+        extract_mesh_s=timing["extract_mesh"], mesh_eval_s=runner.mesh_stats["eval_s"],
+        mesh_march_s=runner.mesh_stats["march_s"], evaluate_full_s=timing["evaluate_full"],
+        mesh_eval_protocol_s=timing["mesh_eval_protocol"], scene_bounds_s=scene_bounds_s,
+        save_model_s=timing["save_model"], checkpoint_mb=ckpts[0].stat().st_size / 2**20,
+        loop_closure={"frame": lc["frame"], "fields": lc["fields"], "max_field_move_m": moved},
+        run_launches={k: v for k, v in launches.items() if v}, card=smi,
+    )
+
+    check_vis_checkpoint_edit(torch, vis_checkpoint, runner, ckpts[0], c2w, fid, tmp, smi)
+    del runner, e
+
+    # examples/fit_synthetic: a few hundred steps on the card
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fit = fit_synthetic.main(300, "cuda", log_every=0)
+    fit_launches = {k: v for k, v in all_launches(permuto_cuda, topk).items() if v}
+    first, last = fit["losses"][0], statistics.mean(fit["losses"][-10:])
+    if not (all(math.isfinite(v) for v in fit["losses"]) and last < 0.5 * first):
+        raise AssertionError(f"fit_synthetic: loss {first} -> {last}")
+    if not (fit_launches.get("encode_fwd", 0) >= 301 and fit_launches.get("encode_bwd_table", 0) >= 301
+            and fit_launches.get("topk2_fields", 0) >= 1 and fit["knn_vs_vmap_max_diff"] <= 1e-4):
+        raise AssertionError(f"fit_synthetic: launches {fit_launches}, knn diff {fit['knn_vs_vmap_max_diff']}")
+    phase("fit_synthetic", steps=300, first_loss=first, last10_mean_loss=last, seconds=fit["seconds"],
+          rays_per_s=fit["rays_per_s"], depth_l1_cm=fit["depth_l1_cm"], color_l1=fit["color_l1"],
+          term_prob=fit["term_prob"], knn_vs_vmap_max_diff=fit["knn_vs_vmap_max_diff"], launches=fit_launches,
+          card=smi)
+    return launches
 
 
 def main() -> None:
@@ -2563,6 +3059,11 @@ def main() -> None:
         check_cli_mesh_vs_cpu(torch, meshing, runner)
         check_cli_resume(torch, run_mapping, runner, ckpt, pathlib.Path(tmp) / "resumed")
         check_cli_single_view(torch, permuto_cuda, topk, run_mapping, pathlib.Path(tmp) / "single_view", smi)
+        del runner
+
+    # -- 14. a Replica-layout scene at 1200x680: check_dataset, the CLI, vis, example
+    with tempfile.TemporaryDirectory(prefix="ngm_replica_") as tmp:
+        replica_launches = check_replica(torch, permuto_cuda, topk, run_mapping, pathlib.Path(tmp), smi)
 
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:
@@ -2575,6 +3076,8 @@ def main() -> None:
         for route, counts in sv_launches.items():
             if name in counts:
                 row[f"single_view_{route}_launches"] = counts[name]
+        if replica_launches[name]:
+            row["replica_launches"] = replica_launches[name]
         if name == "gather_pairs":
             row.update(capacity_render_launches_per_image=capacity_launches,
                        capacity_meshing_launches=capacity_mesh_launches)

@@ -111,6 +111,70 @@ class Camera:
         dirs = torch.stack([d_x, d_y, d_z], dim=-1)
         return dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
 
+    def sample_ijs_uniform(
+        self,
+        ijs: torch.Tensor,
+        num_samples: int,
+        near_distances=None,
+        far_distances=None,
+        weights: Optional[torch.Tensor] = None,
+        boundaries: Optional[torch.Tensor] = None,
+        convention: str = "opengl",
+        generator: Optional[torch.Generator] = None,
+        u: Optional[torch.Tensor] = None,
+        r: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample points along rays through given pixels.
+
+        Two modes:
+        - stratified-uniform in [near, far) (``weights`` / ``boundaries``
+          None): one uniform draw ``u`` (..., num_samples) a stratum;
+        - weighted-bin: a bin of ``boundaries`` (..., num_bins + 1) drawn
+          with probabilities ``weights`` (..., num_bins) by the draw ``r``
+          against the weights' cumulative sum + 1e-3 (counted, then clipped
+          to the last bin), then uniform within it by the draw ``u``.
+
+        The draws (U[0, 1), shape (..., num_samples)) are the caller's:
+        passed in as ``u`` (and ``r``), or drawn from ``generator``.
+
+        Returns:
+            points: Camera-frame points, shape (..., num_samples, 3).
+            distances: Euclidean distances from origin, shape (..., num_samples).
+        """
+        lead = tuple(ijs.shape[:-1])
+        if (weights is None) != (boundaries is None):
+            raise ValueError("Either both or none of weights and boundaries must be None.")
+        dev = ijs.device
+        shape = lead + (num_samples,)
+
+        def draw(given):
+            if given is not None:
+                return given
+            if generator is None:
+                raise ValueError("pass the draws (u, and r for weighted bins) or a generator")
+            return torch.rand(shape, generator=generator, device=dev)
+
+        dirs = self.ijs_to_directions(ijs, convention=convention)
+        if boundaries is None:
+            near = torch.broadcast_to(torch.as_tensor(near_distances, dtype=torch.float32, device=dev), lead)
+            far = torch.broadcast_to(torch.as_tensor(far_distances, dtype=torch.float32, device=dev), lead)
+            deltas = (far - near) / num_samples
+            # i * (1 / S): the left edges as jnp.linspace(0, 1, S + 1) gives them
+            edges = torch.arange(num_samples, dtype=torch.float32, device=dev) * (1.0 / num_samples)
+            distances = deltas[..., None] * draw(u) + edges * (far - near)[..., None] + near[..., None]
+        else:
+            r = draw(r)
+            num_bins = weights.shape[-1]
+            cum_weights = torch.cumsum(weights, dim=-1) + 1e-3
+            bins = torch.sum(cum_weights[..., None, :] < r[..., :, None], dim=-1)
+            bins = torch.clamp(bins, 0, num_bins - 1)
+            bin_deltas = boundaries[..., 1:] - boundaries[..., :-1]
+            bin_starts = torch.take_along_dim(boundaries, bins, dim=-1)
+            bin_sizes = torch.take_along_dim(bin_deltas, bins, dim=-1)
+            distances = bin_starts + bin_sizes * draw(u)
+        points = dirs[..., None, :] * distances[..., None]
+        return points, distances
+
     def _full_ijs(self, device=None) -> torch.Tensor:
         ii, jj = torch.meshgrid(
             torch.arange(self.height, device=device),

@@ -428,10 +428,14 @@ __global__ void lattice_debug_kernel(const float* __restrict__ coords, int32_t* 
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr uint32_t kNoKey = 0xffffffffu;  // a lane with nothing to add
-// Histograms of up to 12,288 entries a row ((2, T) f32 up to 96 KB) are
-// staged in shared memory; larger ones take the direct variants.
+// Histograms of up to 24,576 f32 entries (96 KB: (2, T) rows up to
+// T = 12,288, (F, T) rows up to F * T = 24,576) are staged in shared memory;
+// larger ones take the direct variants.
 constexpr int kMaxStagedBytes = 96 * 1024;
-bool staged_fits(int T) { return T >= 1 && 8LL * T <= kMaxStagedBytes; }
+bool staged_fits(int T, int F = 2) { return T >= 1 && 4LL * F * T <= kMaxStagedBytes; }
+// Feature counts the gather route's staged designs are compiled for (the
+// direct variants take any count).
+bool staged_features(int F) { return F == 1 || F == 2 || F == 4 || F == 8; }
 // Least pairs (gather_pairs, table_grad) or points (encode_bwd_table) a
 // staged block serves: below them, staging the table or zeroing and
 // flushing the histogram costs more than the block's own work.
@@ -488,6 +492,40 @@ __device__ __forceinline__ void hist_add(float* h0, float* h1, uint32_t key,
   if (key != kNoKey) {
     atomicAdd(h0 + key, v0);
     atomicAdd(h1 + key, v1);
+  }
+}
+
+// hist_add for kF rows (h[c], v[c]): table_grad at F != 2. The two-row
+// form above stays as it was for the production F = 2 and for
+// encode_bwd_table: at F = 2 this template compiled to more instructions
+// (block-uniform address arithmetic off the uniform datapath) and ran ~1%
+// slower in turns on the H100.
+template <int kF>
+__device__ __forceinline__ void hist_add_rows(float* const (&h)[kF], uint32_t key, float (&v)[kF]) {
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t next_key = __shfl_down_sync(kFullMask, key, 1);
+  if (__any_sync(kFullMask, key != kNoKey && lane < 31u && next_key == key)) {
+    const unsigned peers = __match_any_sync(kFullMask, key);
+    int rank = __popc(peers & ((1u << lane) - 1u));  // place among its peers
+    const bool leader = rank == 0;
+    unsigned above = key == kNoKey ? 0u : peers & ~((2u << lane) - 1u);
+    while (__any_sync(kFullMask, above != 0u)) {
+      const int next = __ffs(above) - 1;  // the next live peer above, or -1
+      float t[kF];
+#pragma unroll
+      for (int c = 0; c < kF; ++c) t[c] = __shfl_sync(kFullMask, v[c], next & 31);
+      if (next >= 0) {
+#pragma unroll
+        for (int c = 0; c < kF; ++c) v[c] = v[c] + t[c];
+      }
+      above &= ~__ballot_sync(kFullMask, rank & 1);  // odd places are summed up
+      rank >>= 1;
+    }
+    if (!leader) return;
+  }
+  if (key != kNoKey) {
+#pragma unroll
+    for (int c = 0; c < kF; ++c) atomicAdd(h[c] + key, v[c]);
   }
 }
 
@@ -850,23 +888,25 @@ __global__ void __launch_bounds__(kTile) encode_fwd_moe_kernel(
 
 // -- gather route: per-(row, pair) lookups and their histogram ----------------
 //
-// A "row" is one (field, level): a (2, T) feature-major table slice and M
+// A "row" is one (field, level): an (F, T) feature-major table slice and M
 // hash indices (K corners x P points, flattened). gather_blend in
 // ops/permuto.py takes this route for every shape the fused encode does not
-// take (2D fields, point gradients).
+// take (2D fields, point gradients, F != 2 features a level). The staged
+// designs are compiled for F in {1, 2, 4, 8} (staged_features); the direct
+// variants loop over F at run time and take any F.
 
 // Replaces permuto_pallas.gather_pairs (_gather_kernel):
 // out[r, f, m] = table[r, f, idx[r, m]], exact (a pure copy).
 //
-// Bound: bytes. Each pair streams an 8-byte index in and two 4-byte
+// Bound: bytes. Each pair streams an 8-byte index in and F 4-byte
 // features out; at the 2D field set's shape (512 rows x 36,864 pairs,
-// T = 4096) that is 302 MB, against 16 MB of tables, so the least time is
-// the streams at the memory rate (0.095 ms at 3.35 TB/s). Reading the table
-// through L2 costs two 32-byte sectors a pair (37.7M sector reads, ~1.2 GB
-// of L2 traffic), and the tables compete in L2 with the streams. Design, as
-// the TPU kernel stages each row's table in VMEM: a block serves one (row,
-// chunk of at least kStagedPairs pairs); one thread copies the row's
-// contiguous (2, T) table into shared memory with one bulk asynchronous
+// T = 4096, F = 2) that is 302 MB, against 16 MB of tables, so the least time
+// is the streams at the memory rate (0.095 ms at 3.35 TB/s). Reading the table
+// through L2 costs F 32-byte sectors a pair (37.7M sector reads, ~1.2 GB
+// of L2 traffic at F = 2), and the tables compete in L2 with the streams.
+// Design, as the TPU kernel stages each row's table in VMEM: a block serves
+// one (row, chunk of at least kStagedPairs pairs); one thread copies the
+// row's contiguous (F, T) table into shared memory with one bulk asynchronous
 // copy completing on an mbarrier, while every thread loads its first
 // indices; then every lookup reads shared memory. Each thread takes
 // kLookups pairs a step: two 16-byte streaming index loads, the next step's
@@ -878,7 +918,8 @@ __global__ void __launch_bounds__(kTile) encode_fwd_moe_kernel(
 //
 // The direct variant (gather_pairs_direct_kernel) reads the table through
 // L2 and is the kernel's design for shapes where staging does not pay or
-// does not fit: a table above kMaxStagedBytes (T > 12,288), an odd T or an
+// does not fit: a table above kMaxStagedBytes (F * T > 24,576), an F the
+// staged design is not compiled for, F * T not a multiple of 4 or an
 // unaligned table (the bulk copy moves 16-byte multiples between 16-byte
 // aligned addresses), or rows so short that copying the table moves more
 // bytes than the pairs' sectors would (T >= 8 M). The C entry point chooses
@@ -918,15 +959,15 @@ __device__ __forceinline__ void load_step(const int64_t* ib, int m, int end,
   }
 }
 
-// Dynamic shared memory: the (2, T) table, then the mbarrier (8T is a
+// Dynamic shared memory: the (kF, T) table, then the mbarrier (4 kF T is a
 // multiple of 16, so the barrier is 8-byte aligned).
-template <bool kVec>
+template <int kF, bool kVec>
 __global__ void __launch_bounds__(kThreads) gather_pairs_staged_kernel(
     const float* __restrict__ table, const int64_t* __restrict__ idx,
     float* __restrict__ out, int T, int M, int chunk) {
   extern __shared__ __align__(128) unsigned char smem[];
   const float* stab = reinterpret_cast<const float*>(smem);
-  const uint32_t bytes = 8u * (uint32_t)T;
+  const uint32_t bytes = 4u * kF * (uint32_t)T;
   const uint32_t bar = smem_addr(smem + bytes);
   const int64_t r = blockIdx.x;
   if (threadIdx.x == 0) {
@@ -936,14 +977,13 @@ __global__ void __launch_bounds__(kThreads) gather_pairs_staged_kernel(
                  :: "r"(bar), "r"(bytes) : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(smem)), "l"(table + r * 2 * T), "r"(bytes), "r"(bar) : "memory");
+        :: "r"(smem_addr(smem)), "l"(table + r * kF * T), "r"(bytes), "r"(bar) : "memory");
   }
   const int begin = blockIdx.y * chunk;
   const int end = min(M, begin + chunk);
   const int step = blockDim.x * kLookups;
   const int64_t* ib = idx + r * M;
-  float* o0 = out + r * 2 * M;
-  float* o1 = o0 + M;
+  float* o = out + r * kF * M;
   int m = begin + threadIdx.x * kLookups;
   int64_t i[kLookups] = {0, 0, 0, 0};
   load_step<kVec>(ib, m, end, i);  // while the table is in flight
@@ -952,22 +992,24 @@ __global__ void __launch_bounds__(kThreads) gather_pairs_staged_kernel(
   for (; m < end; m += step) {
     int64_t next[kLookups] = {0, 0, 0, 0};
     load_step<kVec>(ib, m + step, end, next);
-    float f0[kLookups];
-    float f1[kLookups];
+    float f[kF][kLookups];
 #pragma unroll
     for (int k = 0; k < kLookups; ++k) {
-      f0[k] = stab[i[k]];
-      f1[k] = stab[T + i[k]];
+#pragma unroll
+      for (int c = 0; c < kF; ++c) f[c][k] = stab[c * T + i[k]];
     }
     if (kVec) {
-      __stcs(reinterpret_cast<float4*>(o0 + m), make_float4(f0[0], f0[1], f0[2], f0[3]));
-      __stcs(reinterpret_cast<float4*>(o1 + m), make_float4(f1[0], f1[1], f1[2], f1[3]));
+#pragma unroll
+      for (int c = 0; c < kF; ++c) {
+        __stcs(reinterpret_cast<float4*>(o + c * M + m),
+               make_float4(f[c][0], f[c][1], f[c][2], f[c][3]));
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < kLookups; ++k) {
         if (m + k < end) {
-          __stcs(o0 + m + k, f0[k]);
-          __stcs(o1 + m + k, f1[k]);
+#pragma unroll
+          for (int c = 0; c < kF; ++c) __stcs(o + c * M + m + k, f[c][k]);
         }
       }
     }
@@ -977,26 +1019,29 @@ __global__ void __launch_bounds__(kThreads) gather_pairs_staged_kernel(
 }
 
 // The direct variant: one thread per (row, m), grid x over m and grid y
-// over rows (a row loop past the grid's y limit), both features read
-// through L2.
+// over rows (a row loop past the grid's y limit), the F features read
+// through L2. Compiled for kF = 2, the production shape, as it was before
+// F was generalised (a loop over F at run time made it 12% slower there),
+// and for any F at run time (kF = 0; on the H100 a compiled F = 8 ran
+// slower than this loop, 0.566 against 0.504 ms at the 2D set's pairs).
+template <int kF>
 __global__ void gather_pairs_direct_kernel(const float* __restrict__ table,
                                            const int64_t* __restrict__ idx,
-                                           float* __restrict__ out, int T, int M,
-                                           int rows) {
+                                           float* __restrict__ out, int F, int T,
+                                           int M, int rows) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
+  const int f = kF > 0 ? kF : F;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    const float* tab = table + r * 2 * T;
-    const int64_t i = idx[r * M + m];
-    float* o = out + r * 2 * M + m;
-    o[0] = __ldg(tab + i);
-    o[M] = __ldg(tab + T + i);
+    const float* tab = table + r * f * T + idx[r * M + m];
+    float* o = out + r * f * M + m;
+    for (int c = 0; c < f; ++c) o[(int64_t)c * M] = __ldg(tab + (int64_t)c * T);
   }
 }
 
-bool gather_pairs_staged(const float* table, int T, int M) {
-  return T > 0 && T % 2 == 0 && 8LL * T <= kMaxStagedBytes && (int64_t)T < 8LL * M &&
-         aligned16(table);
+bool gather_pairs_staged(const float* table, int F, int T, int M) {
+  return staged_features(F) && staged_fits(T, F) && (F * T) % 4 == 0 &&
+         (int64_t)T < 8LL * M && aligned16(table);
 }
 
 // One step of kLookups pairs at m: indices and both values (pairs at or
@@ -1043,26 +1088,66 @@ __device__ __forceinline__ void load_pairs(const int64_t* ib, const float* g0,
   }
 }
 
+// load_pairs for kF value rows g[c]: table_grad at F != 2.
+template <int kF, bool kVec>
+__device__ __forceinline__ void load_pair_rows(const int64_t* ib, const float* const (&g)[kF],
+                                           int m, int end, int64_t i[kLookups],
+                                           float v[kF][kLookups]) {
+  if (kVec) {
+    if (m < end) {  // end and m are multiples of kLookups
+      const longlong2 a = load_index_pair(ib + m);
+      const longlong2 b = load_index_pair(ib + m + 2);
+      i[0] = a.x;
+      i[1] = a.y;
+      i[2] = b.x;
+      i[3] = b.y;
+#pragma unroll
+      for (int c = 0; c < kF; ++c) {
+        const float4 x = __ldcs(reinterpret_cast<const float4*>(g[c] + m));
+        v[c][0] = x.x;
+        v[c][1] = x.y;
+        v[c][2] = x.z;
+        v[c][3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLookups; ++k) {
+        i[k] = 0;
+#pragma unroll
+        for (int c = 0; c < kF; ++c) v[c][k] = 0.0f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      const bool in = m + k < end;
+      i[k] = in ? load_index(ib + m + k) : 0;
+#pragma unroll
+      for (int c = 0; c < kF; ++c) v[c][k] = in ? __ldcs(g[c] + m + k) : 0.0f;
+    }
+  }
+}
+
 // Replaces permuto_pallas.table_grad (_table_grad_kernel):
-// grad[r, f, idx[r, m]] += gv[r, f, m] into a (rows, 2, T) output.
+// grad[r, f, idx[r, m]] += gv[r, f, m] into a (rows, F, T) output.
 //
-// Bound: bytes. Each pair streams an 8-byte index and two 4-byte values in;
-// at the 2D field set's shape (512 rows x 36,864 pairs, T = 4096) that is
-// 302 MB, plus the 16.8 MB histogram out, so the least time is 0.095 ms at
-// 3.35 TB/s. The first design (now the direct variant) added every value
-// into device memory with a global atomic, 37.7 M a call, which the L2's
-// atomic units serialise where a coarse level puts many pairs on one entry.
-// Design, as the TPU kernel keeps one (field, level) row in VMEM across its
-// pair tiles: a block owns one row (grid x, so more than 65,535 rows need no
-// loop) and a chunk of its pairs (grid y, hist_chunks), and keeps the row's
-// (2, T) histogram in shared memory, which it zeroes itself (32 KB at
-// T = 4096). Each thread takes kLookups pairs a step,
+// Bound: bytes. Each pair streams an 8-byte index and F 4-byte values in;
+// at the 2D field set's shape (512 rows x 36,864 pairs, T = 4096, F = 2)
+// that is 302 MB, plus the 16.8 MB histogram out, so the least time is
+// 0.095 ms at 3.35 TB/s. The first design (now the direct variant) added
+// every value into device memory with a global atomic, 37.7 M a call, which
+// the L2's atomic units serialise where a coarse level puts many pairs on
+// one entry. Design, as the TPU kernel keeps one (field, level) row in VMEM
+// across its pair tiles: a block owns one row (grid x, so more than 65,535
+// rows need no loop) and a chunk of its pairs (grid y, hist_chunks), and
+// keeps the row's (F, T) histogram in shared memory, which it zeroes itself
+// (32 KB at F = 2, T = 4096). Each thread takes kLookups pairs a step,
 // as gather_pairs_staged_kernel: two 16-byte streaming index loads and one
 // 16-byte streaming load of each value row, the next step's loads issued
 // before this step's adds; the adds go to shared memory, aggregated within
-// the warp (hist_add); a pair whose two values are zero adds nothing. Rows
+// the warp (hist_add); a pair whose values are all zero adds nothing. Rows
 // with M % 4 != 0 or unaligned inputs take the scalar loads. A block that
-// owns its whole row writes all 2T entries with coalesced 16-byte stores,
+// owns its whole row writes all F T entries with coalesced 16-byte stores,
 // so the output needs no memset; where a row is split over blocks (few
 // rows, many pairs), each adds its nonzero entries into a zeroed output.
 template <bool kVec>
@@ -1110,25 +1195,87 @@ __global__ void __launch_bounds__(kThreads) table_grad_staged_kernel(
   }
 }
 
-// The direct variant, for (2, T) histograms above kMaxStagedBytes
-// (T > 12,288): one thread per (row, m) on the grid of
-// gather_pairs_direct_kernel, both values added into the zeroed output with
-// global atomics (the first design); pairs whose two values are zero are
-// skipped.
+
+// The same design for kF feature rows (table_grad at F in {1, 4, 8}); F = 2
+// keeps the kernel above (see hist_add_rows).
+template <int kF, bool kVec>
+__global__ void __launch_bounds__(kThreads) table_grad_staged_rows_kernel(
+    const int64_t* __restrict__ idx, const float* __restrict__ gv,
+    float* __restrict__ grad, int T, int M, int chunk) {
+  extern __shared__ __align__(16) float hist[];  // (kF, T)
+  const int64_t r = blockIdx.x;
+  for (int i = threadIdx.x; i < kF * T; i += blockDim.x) hist[i] = 0.0f;
+  const int begin = blockIdx.y * chunk;
+  const int end = min(M, begin + chunk);
+  const int step = blockDim.x * kLookups;
+  const int64_t* ib = idx + r * M;
+  const float* g[kF];  // the row's value rows
+  float* h[kF];        // its histogram rows
+#pragma unroll
+  for (int c = 0; c < kF; ++c) {
+    g[c] = gv + (r * kF + c) * M;
+    h[c] = hist + c * T;
+  }
+  int m = begin + threadIdx.x * kLookups;
+  int64_t i[kLookups];
+  float v[kF][kLookups];
+  load_pair_rows<kF, kVec>(ib, g, m, end, i, v);  // while the histogram is zeroed
+  __syncthreads();
+  for (int base = begin; base < end; base += step, m += step) {  // the same trips for every warp
+    int64_t ni[kLookups];
+    float nv[kF][kLookups];
+    load_pair_rows<kF, kVec>(ib, g, m + step, end, ni, nv);
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      float vk[kF];
+      bool add = false;
+#pragma unroll
+      for (int c = 0; c < kF; ++c) {
+        vk[c] = v[c][k];
+        add = add || vk[c] != 0.0f;
+      }
+      hist_add_rows<kF>(h, add ? (uint32_t)i[k] : kNoKey, vk);
+    }
+#pragma unroll
+    for (int k = 0; k < kLookups; ++k) {
+      i[k] = ni[k];
+#pragma unroll
+      for (int c = 0; c < kF; ++c) v[c][k] = nv[c][k];
+    }
+  }
+  __syncthreads();
+  float* row = grad + r * kF * T;
+  if (gridDim.y == 1) {
+    store_hist_row(row, hist, kF * T, kF * T);
+  } else {
+    add_hist_row(row, hist, kF * T);
+  }
+}
+
+// The direct variant, for (F, T) histograms above kMaxStagedBytes or an F
+// the staged design is not compiled for: one thread per (row, m) on the
+// grid of gather_pairs_direct_kernel, each nonzero value added into the
+// zeroed output with a global atomic (the first design); a pair whose
+// values are all zero reads no index. Compiled as the gather's direct
+// variant is (kF = 2, and kF = 0 for F at run time).
+template <int kF>
 __global__ void table_grad_kernel(const int64_t* __restrict__ idx,
                                   const float* __restrict__ gv,
-                                  float* __restrict__ grad, int T, int M,
+                                  float* __restrict__ grad, int F, int T, int M,
                                   int rows) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
+  const int f = kF > 0 ? kF : F;
   for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
-    const float g0 = gv[r * 2 * M + m];
-    const float g1 = gv[r * 2 * M + M + m];
-    if (g0 == 0.0f && g1 == 0.0f) continue;
-    const int64_t i = idx[r * M + m];
-    float* gr = grad + r * 2 * T;
-    atomicAdd(gr + i, g0);
-    atomicAdd(gr + T + i, g1);
+    const float* g = gv + r * f * M + m;
+    bool any = false;
+    for (int c = 0; c < f; ++c) any |= g[(int64_t)c * M] != 0.0f;
+    if (!any) continue;
+    float* gr = grad + r * f * T + idx[r * M + m];
+    for (int c = 0; c < f; ++c) {
+      const float v = g[(int64_t)c * M];
+      if (v != 0.0f) atomicAdd(gr + (int64_t)c * T, v);
+    }
   }
 }
 
@@ -1594,9 +1741,76 @@ bool mlp_widths_ok(int L, int H, int O) {
 // Blocks along each row of a staged histogram, or 0 where the (2, T)
 // histogram does not fit the staged budget and the direct variant runs.
 // A function of the shapes only.
-int table_grad_chunks(int rows, int T, int M) {
-  if (!staged_fits(T)) return 0;
+int table_grad_chunks(int rows, int F, int T, int M) {
+  if (!staged_features(F) || !staged_fits(T, F)) return 0;
   return hist_chunks(rows, M, kStagedPairs);
+}
+
+// The direct gather-route launches: kF = 2 compiled, 0 for any other F (a
+// loop at run time).
+template <int kF>
+void launch_gather_direct(const float* table, const int64_t* idx, float* out, int rows, int F,
+                          int T, int M, cudaStream_t s) {
+  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+  gather_pairs_direct_kernel<kF><<<grid, kThreads, 0, s>>>(table, idx, out, F, T, M, rows);
+}
+
+template <int kF>
+void launch_table_grad_direct(const int64_t* idx, const float* gv, float* grad, int rows, int F,
+                              int T, int M, cudaStream_t s) {
+  const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
+  table_grad_kernel<kF><<<grid, kThreads, 0, s>>>(idx, gv, grad, F, T, M, rows);
+}
+
+// The staged gather-route launches, one instantiation a feature count.
+template <int kF>
+void launch_gather_pairs_staged(const float* table, const int64_t* idx, float* out,
+                                int rows, int T, int M, cudaStream_t s) {
+  // grid x = rows (up to 2^31 - 1), y = chunks of at least kStagedPairs
+  // pairs, a multiple of kLookups
+  const int chunks = std::max(1, std::min(kMaxGridY, M / kStagedPairs));
+  const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
+  const dim3 grid(rows, (M + chunk - 1) / chunk);
+  const size_t smem = 4 * (size_t)kF * T + 16;
+  if (M % kLookups == 0 && aligned16(idx) && aligned16(out)) {
+    gather_pairs_staged_kernel<kF, true><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+  } else {
+    gather_pairs_staged_kernel<kF, false><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+  }
+}
+
+// The staged histogram kernel of kF rows: the two-row kernel at F = 2.
+using TableGradKernel = void (*)(const int64_t*, const float*, float*, int, int, int);
+template <int kF, bool kVec>
+TableGradKernel table_grad_staged_of() {
+  if constexpr (kF == 2) {
+    return &table_grad_staged_kernel<kVec>;
+  } else {
+    return &table_grad_staged_rows_kernel<kF, kVec>;
+  }
+}
+
+template <int kF>
+void launch_table_grad_staged(const int64_t* idx, const float* gv, float* grad,
+                              int rows, int T, int M, int chunks, cudaStream_t s) {
+  // grid x = rows (up to 2^31 - 1), y = chunks, each a multiple of kLookups
+  const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
+  const dim3 grid(rows, (M + chunk - 1) / chunk);
+  const size_t smem = 4 * (size_t)kF * T;
+  const TableGradKernel kernel = M % kLookups == 0 && aligned16(idx) && aligned16(gv)
+                                     ? table_grad_staged_of<kF, true>()
+                                     : table_grad_staged_of<kF, false>();
+  kernel<<<grid, kThreads, smem, s>>>(idx, gv, grad, T, M, chunk);
+}
+
+// The staged gather-route kernels of one feature count, for
+// ngm_permuto_init.
+template <int kF>
+void add_staged_gather_kernels(const void** out) {
+  out[0] = reinterpret_cast<const void*>(&gather_pairs_staged_kernel<kF, true>);
+  out[1] = reinterpret_cast<const void*>(&gather_pairs_staged_kernel<kF, false>);
+  out[2] = reinterpret_cast<const void*>(table_grad_staged_of<kF, true>());
+  out[3] = reinterpret_cast<const void*>(table_grad_staged_of<kF, false>());
 }
 
 int encode_bwd_table_chunks(int B, int L, int P, int T) {
@@ -1680,14 +1894,14 @@ int ngm_permuto_init() {
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount, dev);
   }
-  const void* staged[] = {
-      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<true>),
-      reinterpret_cast<const void*>(&gather_pairs_staged_kernel<false>),
-      reinterpret_cast<const void*>(&table_grad_staged_kernel<true>),
-      reinterpret_cast<const void*>(&table_grad_staged_kernel<false>),
+  const void* staged[18] = {
       reinterpret_cast<const void*>(&encode_bwd_table_staged_kernel),
       reinterpret_cast<const void*>(&encode_fwd_staged_kernel),
   };
+  add_staged_gather_kernels<1>(staged + 2);
+  add_staged_gather_kernels<2>(staged + 6);
+  add_staged_gather_kernels<4>(staged + 10);
+  add_staged_gather_kernels<8>(staged + 14);
   for (const void* kernel : staged) {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1749,29 +1963,28 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
 }
 
 // 1 if ngm_gather_pairs takes the staged variant for this table, else 0.
-int ngm_gather_pairs_staged(const float* table, int T, int M) {
-  return gather_pairs_staged(table, T, M) ? 1 : 0;
+int ngm_gather_pairs_staged(const float* table, int F, int T, int M) {
+  return gather_pairs_staged(table, F, T, M) ? 1 : 0;
 }
 
-// table (rows, 2, T), idx (rows, M) int64 -> out (rows, 2, M).
+// table (rows, F, T), idx (rows, M) int64 -> out (rows, F, M).
 int ngm_gather_pairs(const float* table, const int64_t* idx, float* out, int rows,
-                     int T, int M, void* stream) {
+                     int F, int T, int M, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (gather_pairs_staged(table, T, M)) {
-    // grid x = rows (up to 2^31 - 1), y = chunks of at least kStagedPairs
-    // pairs, a multiple of kLookups
-    const int chunks = std::max(1, std::min(kMaxGridY, M / kStagedPairs));
-    const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
-    const dim3 grid(rows, (M + chunk - 1) / chunk);
-    const size_t smem = 8 * (size_t)T + 16;
-    if (M % kLookups == 0 && aligned16(idx) && aligned16(out)) {
-      gather_pairs_staged_kernel<true><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+  if (!gather_pairs_staged(table, F, T, M)) {
+    if (F == 2) {
+      launch_gather_direct<2>(table, idx, out, rows, F, T, M, s);
     } else {
-      gather_pairs_staged_kernel<false><<<grid, kThreads, smem, s>>>(table, idx, out, T, M, chunk);
+      launch_gather_direct<0>(table, idx, out, rows, F, T, M, s);
     }
+  } else if (F == 1) {
+    launch_gather_pairs_staged<1>(table, idx, out, rows, T, M, s);
+  } else if (F == 2) {
+    launch_gather_pairs_staged<2>(table, idx, out, rows, T, M, s);
+  } else if (F == 4) {
+    launch_gather_pairs_staged<4>(table, idx, out, rows, T, M, s);
   } else {
-    const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
-    gather_pairs_direct_kernel<<<grid, kThreads, 0, s>>>(table, idx, out, T, M, rows);
+    launch_gather_pairs_staged<8>(table, idx, out, rows, T, M, s);
   }
   return (int)cudaGetLastError();
 }
@@ -1779,29 +1992,30 @@ int ngm_gather_pairs(const float* table, const int64_t* idx, float* out, int row
 // 0: ngm_table_grad takes the direct variant; 1: staged, one block a row,
 // which writes every entry (the output needs no zeroing); 2: staged, rows
 // split over blocks (a zeroed output).
-int ngm_table_grad_plan(int rows, int T, int M) {
-  return plan_of(table_grad_chunks(rows, T, M));
+int ngm_table_grad_plan(int rows, int F, int T, int M) {
+  return plan_of(table_grad_chunks(rows, F, T, M));
 }
 
-// idx (rows, M) int64, gv (rows, 2, M) -> grad (rows, 2, T), zeroed by the
+// idx (rows, M) int64, gv (rows, F, M) -> grad (rows, F, T), zeroed by the
 // caller unless ngm_table_grad_plan gives 1.
-int ngm_table_grad(const int64_t* idx, const float* gv, float* grad, int rows, int T,
-                   int M, void* stream) {
+int ngm_table_grad(const int64_t* idx, const float* gv, float* grad, int rows, int F,
+                   int T, int M, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int chunks = table_grad_chunks(rows, T, M);
+  const int chunks = table_grad_chunks(rows, F, T, M);
   if (chunks == 0) {
-    const dim3 grid((M + kThreads - 1) / kThreads, rows < kMaxGridY ? rows : kMaxGridY);
-    table_grad_kernel<<<grid, kThreads, 0, s>>>(idx, gv, grad, T, M, rows);
-  } else {
-    // grid x = rows (up to 2^31 - 1), y = chunks, each a multiple of kLookups
-    const int chunk = ((M + chunks - 1) / chunks + kLookups - 1) / kLookups * kLookups;
-    const dim3 grid(rows, (M + chunk - 1) / chunk);
-    const size_t smem = 8 * (size_t)T;
-    if (M % kLookups == 0 && aligned16(idx) && aligned16(gv)) {
-      table_grad_staged_kernel<true><<<grid, kThreads, smem, s>>>(idx, gv, grad, T, M, chunk);
+    if (F == 2) {
+      launch_table_grad_direct<2>(idx, gv, grad, rows, F, T, M, s);
     } else {
-      table_grad_staged_kernel<false><<<grid, kThreads, smem, s>>>(idx, gv, grad, T, M, chunk);
+      launch_table_grad_direct<0>(idx, gv, grad, rows, F, T, M, s);
     }
+  } else if (F == 1) {
+    launch_table_grad_staged<1>(idx, gv, grad, rows, T, M, chunks, s);
+  } else if (F == 2) {
+    launch_table_grad_staged<2>(idx, gv, grad, rows, T, M, chunks, s);
+  } else if (F == 4) {
+    launch_table_grad_staged<4>(idx, gv, grad, rows, T, M, chunks, s);
+  } else {
+    launch_table_grad_staged<8>(idx, gv, grad, rows, T, M, chunks, s);
   }
   return (int)cudaGetLastError();
 }

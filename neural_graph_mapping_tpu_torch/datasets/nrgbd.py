@@ -1,6 +1,6 @@
 """Neural RGB-D dataset loader (port of
-neural_graph_mapping_tpu.datasets.nrgbd; numpy host code, PIL imported
-where a frame is read).
+neural_graph_mapping_tpu.datasets.nrgbd; numpy host code, frames read
+through ``utils/imageio``).
 
 Directory layout (dazinovic/neural-rgbd-surface-reconstruction):
     {root_dir}/{scene}/images/            img*.png color frames
@@ -21,7 +21,7 @@ import numpy as np
 
 from neural_graph_mapping_tpu_torch.camera import Camera
 from neural_graph_mapping_tpu_torch.datasets.base import SLAMDataset
-from neural_graph_mapping_tpu_torch.utils import meshio
+from neural_graph_mapping_tpu_torch.utils import imageio, meshio
 
 # per-scene CO-SLAM scene bounds (reference nrgbd_dataset.py:409-433)
 _CUSTOM_BOUNDS = {
@@ -101,19 +101,15 @@ class NRGBDDataset(SLAMDataset):
         return meshio.load_ply(self.gt_mesh_path)
 
     def _load_depth(self, path) -> np.ndarray:
-        import PIL.Image
-
-        depth = np.asarray(PIL.Image.open(path), np.float32) * 0.001 * self._scale
+        depth = np.asarray(imageio.read_image(path), np.float32) * 0.001 * self._scale
         if self._depth_dir_name == "depth_filtered":
             # de-bias fit for the filtered depth (nrgbd_dataset.py:371-375)
             depth = 0.00123631 * depth**2 + (1 + 0.00073707) * depth
         return depth
 
     def _get_sequence_item(self, index: int) -> dict:
-        import PIL.Image
-
         rgb = np.asarray(
-            PIL.Image.open(self._image_dir / self._image_files[index]), np.float32
+            imageio.read_image(self._image_dir / self._image_files[index]), np.float32
         )[..., :3] / 255.0
         depth = self._load_depth(self._depth_dir / self._depth_files[index])
         rgbd = np.concatenate([rgb, depth[..., None]], axis=-1).astype(np.float32)

@@ -293,7 +293,7 @@ def gather_blend(table: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> tor
     The gather route (permuto.gather_blend): ``table`` (..., F, L, T)
     feature-major, ``idx`` (..., L, K, P) int64, ``w`` (..., L, K, P) ->
     (..., L*F, P). Differentiable in ``table`` and ``w``; on the card the
-    kernels take 2 features per level.
+    kernels take any F (staged designs for F in {1, 2, 4, 8}).
     """
     return _GatherBlend.apply(table, idx, w)
 

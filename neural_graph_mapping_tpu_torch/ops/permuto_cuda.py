@@ -83,10 +83,10 @@ def load_library() -> cuda_build.Library:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
         *consts, ptr,
     ]
-    lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32]
-    lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.ngm_table_grad_plan.argtypes = [i32, i32, i32]
-    lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32, i32]
+    lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.ngm_table_grad_plan.argtypes = [i32, i32, i32, i32]
+    lib.ngm_table_grad.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ngm_encode_mlp_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [*consts, ptr]
     lib.ngm_encode_mlp_bwd_plan.argtypes = [i32] * 4
     lib.ngm_encode_mlp_bwd.argtypes = [ptr] * 12 + [i32] * 6 + [*consts, ptr]
@@ -499,11 +499,6 @@ def _rows_check(idx: torch.Tensor, lead) -> None:
         raise ValueError(f"idx leading dims {tuple(idx.shape[:-1])} differ from {tuple(lead)}")
 
 
-def _features_check(n_features: int) -> None:
-    if n_features != 2:
-        raise ValueError(f"the gather-route kernels take 2 features per level, got {n_features}")
-
-
 def gather_pairs_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """feats[..., f, m] = table[..., f, idx[..., m]]."""
     f = table.shape[-2]
@@ -512,19 +507,18 @@ def gather_pairs_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_pairs(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched hash-table lookup (permuto_pallas.gather_pairs): table
-    (..., 2, T) f32, idx (..., M) int64 in [0, T) -> (..., 2, M), exact."""
+    (..., F, T) f32, idx (..., M) int64 in [0, T) -> (..., F, M), exact."""
     _check_f32("table", table)
     _rows_check(idx, table.shape[:-2])
     if cuda_build.route(table, idx) == "cpu":
         return gather_pairs_plain(table, idx)
-    _features_check(table.shape[-2])
-    t, m = table.shape[-1], idx.shape[-1]
+    f, t, m = table.shape[-2], table.shape[-1], idx.shape[-1]
     rows = int(torch.Size(idx.shape[:-1]).numel())
-    out = torch.empty(idx.shape[:-1] + (2, m), dtype=torch.float32, device=table.device)
-    if rows * m == 0:
+    out = torch.empty(idx.shape[:-1] + (f, m), dtype=torch.float32, device=table.device)
+    if rows * f * m == 0:
         return out
     lib = load_library().lib
-    rc = lib.ngm_gather_pairs(table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, t, m,
+    rc = lib.ngm_gather_pairs(table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, f, t, m,
                               cuda_build.stream(table))
     cuda_build.check(rc, "gather_pairs")
     LAUNCHES["gather_pairs"] += 1
@@ -534,7 +528,8 @@ def gather_pairs(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_pairs_variant(table: torch.Tensor, idx: torch.Tensor) -> str:
     """'staged' or 'direct': the design the kernel takes for these CUDA
     tensors (the C entry point chooses by shape; ``csrc/permuto.cu``)."""
-    staged = load_library().lib.ngm_gather_pairs_staged(table.data_ptr(), table.shape[-1], idx.shape[-1])
+    staged = load_library().lib.ngm_gather_pairs_staged(
+        table.data_ptr(), table.shape[-2], table.shape[-1], idx.shape[-1])
     return "staged" if staged else "direct"
 
 
@@ -547,22 +542,21 @@ def table_grad_plain(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) ->
 def table_grad(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) -> torch.Tensor:
     """Histogram of per-pair gradients into feature-major tables
     (permuto_pallas.table_grad): idx (..., M) int64 in [0, table_size),
-    gvals (..., 2, M) f32 -> (..., 2, table_size)."""
+    gvals (..., F, M) f32 -> (..., F, table_size)."""
     _check_f32("gvals", gvals)
     _rows_check(idx, gvals.shape[:-2])
     if gvals.shape[-1] != idx.shape[-1]:
         raise ValueError(f"shapes idx {tuple(idx.shape)} / gvals {tuple(gvals.shape)}")
     if cuda_build.route(idx, gvals) == "cpu":
         return table_grad_plain(idx, gvals, table_size)
-    _features_check(gvals.shape[-2])
-    m = idx.shape[-1]
+    f, m = gvals.shape[-2], idx.shape[-1]
     rows = int(torch.Size(idx.shape[:-1]).numel())
-    shape = idx.shape[:-1] + (2, table_size)
-    if rows * m == 0:
+    shape = idx.shape[:-1] + (f, table_size)
+    if rows * f * m == 0:
         return torch.zeros(shape, dtype=torch.float32, device=idx.device)
     lib = load_library().lib
-    grad = _hist_output(lib.ngm_table_grad_plan(rows, int(table_size), m), shape, idx.device)
-    rc = lib.ngm_table_grad(idx.data_ptr(), gvals.data_ptr(), grad.data_ptr(), rows,
+    grad = _hist_output(lib.ngm_table_grad_plan(rows, f, int(table_size), m), shape, idx.device)
+    rc = lib.ngm_table_grad(idx.data_ptr(), gvals.data_ptr(), grad.data_ptr(), rows, f,
                             int(table_size), m, cuda_build.stream(idx))
     cuda_build.check(rc, "table_grad")
     LAUNCHES["table_grad"] += 1
@@ -574,7 +568,8 @@ def table_grad_variant(idx: torch.Tensor, gvals: torch.Tensor, table_size: int) 
     :data:`HIST_VARIANTS` (the C entry point chooses by shape;
     ``csrc/permuto.cu``)."""
     rows = int(torch.Size(idx.shape[:-1]).numel())
-    return HIST_VARIANTS[load_library().lib.ngm_table_grad_plan(rows, int(table_size), idx.shape[-1])]
+    plan = load_library().lib.ngm_table_grad_plan(rows, gvals.shape[-2], int(table_size), idx.shape[-1])
+    return HIST_VARIANTS[plan]
 
 
 # -- encode_mlp_fwd / encode_mlp_bwd (the fused training route) ---------------

@@ -375,6 +375,83 @@ def test_table_grad_variants_match_plain(cuda, rows, t, m, offset, pairs, varian
         assert float(got.abs().max()) == 0.0
 
 
+# F feature rows a level: the staged designs are compiled for F in {1, 2, 4,
+# 8} and stage (F, T) tables up to 96 KB; larger tables take the direct
+# variants, which loop over F at run time.
+FEATURE_SHAPES = [(64, 1024, 9000), (64, 4096, 9001), (8, 16384, 20000)]
+
+
+def _expected_variant(f, t):
+    return "staged" if 4 * f * t <= 96 * 1024 else "direct"
+
+
+@pytest.mark.parametrize("rows,t,m", FEATURE_SHAPES)
+@pytest.mark.parametrize("f", [1, 4, 8])
+def test_gather_pairs_any_feature_count_exact(cuda, f, rows, t, m):
+    gen = torch.Generator(cuda).manual_seed(22)
+    table = torch.randn((rows, f, t), generator=gen, device=cuda)
+    idx = torch.randint(0, t, (rows, m), generator=gen, device=cuda)
+    assert permuto_cuda.gather_pairs_variant(table, idx) == _expected_variant(f, t)
+    before = permuto_cuda.LAUNCHES["gather_pairs"]
+    got = permuto_cuda.gather_pairs(table, idx)
+    assert permuto_cuda.LAUNCHES["gather_pairs"] == before + 1
+    assert got.shape == (rows, f, m)
+    assert torch.equal(got, permuto_cuda.gather_pairs_plain(table, idx))
+
+
+@pytest.mark.parametrize("rows,t,m", FEATURE_SHAPES)
+@pytest.mark.parametrize("f", [1, 4, 8])
+def test_table_grad_any_feature_count_matches_plain(cuda, f, rows, t, m):
+    """Atomics change the summation order: max abs <= 1e-5 * max|plain|; a
+    staged output that one block a row writes without a memset has no stale
+    entry."""
+    gen = torch.Generator(cuda).manual_seed(23)
+    idx = torch.randint(0, t, (rows, m), generator=gen, device=cuda)
+    gv = torch.randn((rows, f, m), generator=gen, device=cuda)
+    variant = permuto_cuda.table_grad_variant(idx, gv, t)
+    assert variant.startswith(_expected_variant(f, t))
+    before = permuto_cuda.LAUNCHES["table_grad"]
+    call = lambda: permuto_cuda.table_grad(idx, gv, t)  # noqa: E731
+    got = _over_stale_nan(cuda, (rows, f, t), call) if variant == "staged" else call()
+    assert permuto_cuda.LAUNCHES["table_grad"] == before + 1
+    want = permuto_cuda.table_grad_plain(idx, gv, t)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, f, t)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_four_feature_field_iteration_matches_cpu(cuda):
+    """A production map whose permutohedral levels hold 4 features (the
+    fused encode takes 2, so the field trains through the gather route),
+    trained on the card for three frames; then one optimization iteration
+    on the card and on the CPU from the same state and draws: losses within
+    1e-3 relative, through gather_pairs / table_grad and never the fused
+    encode."""
+    import copy
+
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+    from neural_graph_mapping_tpu_torch.mapping import engine
+
+    cfg = copy.deepcopy(chip_smoke.CONFIG)
+    cfg["model_kwargs"]["field_kwargs"]["encoding_kwargs"]["nr_feat_per_level"] = 4
+    ds = str_to_object(cfg["dataset_type"])(cfg["dataset_config"])
+    ds.load_slam_results()
+    ngm = engine.NeuralGraphMap(cfg, device="cuda")
+    for fid in range(3):
+        losses = ngm.process_frame(ds, fid, ds[fid]["rgbd"])
+    assert losses and ngm.num_fields > 0
+    assert ngm._params["enc.table"].shape[1] == 4
+    before = dict(permuto_cuda.LAUNCHES)
+    worst, _ = chip_smoke.check_iteration_against_cpu(torch, engine, ngm)
+    launched = {k: v - before[k] for k, v in permuto_cuda.LAUNCHES.items()}
+    assert worst <= 1e-3
+    assert launched["gather_pairs"] >= 1 and launched["table_grad"] >= 1
+    assert launched["encode_fwd"] == 0 and launched["encode_bwd_table"] == 0
+
+
 def test_gather_blend_on_card_matches_cpu(cuda):
     """gather_blend's value and table / weight gradients on the card (both
     kernels) against the CPU (plain versions), 3D lattice at production
@@ -482,10 +559,18 @@ def test_new_wrappers_never_take_the_plain_path(cuda):
     idx = torch.zeros((2, 5), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         permuto_cuda.gather_pairs(torch.zeros((2, 2, 8), device=cuda), idx.cpu())
-    with pytest.raises(ValueError, match="2 features"):
-        permuto_cuda.gather_pairs(torch.zeros((2, 3, 8), device=cuda), idx)
-    with pytest.raises(ValueError, match="2 features"):
-        permuto_cuda.table_grad(idx, torch.zeros((2, 3, 5), device=cuda), 8)
+    # three features a level (no staged design is compiled for it): the
+    # direct kernels, never the plain versions
+    table3 = torch.arange(48, dtype=torch.float32, device=cuda).view(2, 3, 8)
+    idx3 = torch.tensor([[7, 0, 3, 3, 1], [2, 2, 6, 5, 4]], device=cuda)
+    before = dict(permuto_cuda.LAUNCHES)
+    assert permuto_cuda.gather_pairs_variant(table3, idx3) == "direct"
+    assert torch.equal(permuto_cuda.gather_pairs(table3, idx3), permuto_cuda.gather_pairs_plain(table3, idx3))
+    gv3 = torch.arange(30, dtype=torch.float32, device=cuda).view(2, 3, 5)
+    assert permuto_cuda.table_grad_variant(idx3, gv3, 8) == "direct"
+    assert torch.equal(permuto_cuda.table_grad(idx3, gv3, 8), permuto_cuda.table_grad_plain(idx3, gv3, 8))
+    assert permuto_cuda.LAUNCHES["gather_pairs"] == before["gather_pairs"] + 1
+    assert permuto_cuda.LAUNCHES["table_grad"] == before["table_grad"] + 1
     with pytest.raises(ValueError):
         permuto_cuda.table_grad(idx, torch.zeros((2, 2, 5)), 8)
 

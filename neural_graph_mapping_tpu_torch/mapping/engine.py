@@ -32,7 +32,16 @@ its single-view scan from ``_next_key()``); ``_frame_gen`` (JAX's
 programs and field allocation. So a render between frames moves later
 single-view draws, in both packages, and never multi-view ones.
 
-Not ported here (see ROADMAP.md): field-axis sharding over several devices.
+Field-axis sharding (config key ``num_field_shards: W``, a process group of
+W ranks, ``parallel/sharding.py``): ``_params`` and ``_adam`` hold this
+rank's rows of the cyclic layout (field f on rank f % W, row f // W); the
+map arrays, the keyframe cache and the host bookkeeping stay replicated.
+Every rank selects and samples all targets and draws every random tensor
+at full size in one rank's order, then trains the targets it owns; the
+loss terms' numerators and mask counts go through one ``all_reduce`` an
+iteration (:func:`compute_losses_sharded`). Renders and meshes blend
+through ``sharding.render_points_sharded``; the capacity-buffer route
+evaluates on ``sharding.gather_field_tensors``' full copy.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
 from neural_graph_mapping_tpu_torch.ops import dispatch
 from neural_graph_mapping_tpu_torch.ops import losses as losses_mod
 from neural_graph_mapping_tpu_torch.ops import quadrature as quad_mod
+from neural_graph_mapping_tpu_torch.parallel import sharding
 from neural_graph_mapping_tpu_torch.utils import chunking, profiling, transforms
 
 logger = logging.getLogger(__name__)
@@ -143,6 +153,101 @@ def compute_losses(
     return combined, loss_dict
 
 
+def _loss_layout(cfg: LossConfig):
+    """compute_losses' terms in order: (key, weight, values a term has)."""
+    terms = [
+        ("termination", cfg.termination_weight, 1),
+        (f"photometric_{cfg.photometric_loss}", cfg.photometric_weight,
+         2 if cfg.photometric_loss == "gaussian_nll" else 1),
+        (f"depth_{cfg.depth_loss}", cfg.depth_weight, 1),
+    ]
+    if cfg.freespace_weight != 0.0:
+        terms.append(("freespace", cfg.freespace_weight, 1))
+    if cfg.tsdf_weight != 0.0:
+        terms.append(("tsdf", cfg.tsdf_weight, 1))
+    return terms
+
+
+def _loss_sums(cfg: LossConfig, rcfg: render.RenderConfig, target: sampling.Target, pred: render.Prediction):
+    """Each term of :func:`compute_losses` as (numerators, mask count) on
+    these targets, in :func:`_loss_layout`'s order, and the diagnostics'
+    counts (depth-mask rays, term-mask rays, valid fields)."""
+    depth_mask = target.depth_mask & (pred.term_probs > 0.8)
+    inputs = [
+        ((losses_mod.termination_values(pred.term_probs, target.term_probs),), target.term_mask),
+        (losses_mod.photometric_values(cfg.photometric_loss, target.rgbds[..., :3], pred.rgbds[..., :3],
+                                       pred.color_vars), depth_mask[..., None]),
+        ((losses_mod.depth_values(cfg.depth_loss, target.rgbds[..., 3], pred.rgbds[..., 3], pred.depth_vars),),
+         depth_mask),
+    ]
+    if cfg.freespace_weight != 0.0:
+        inputs.append(((losses_mod.freespace_values(pred.sample_geometries, rcfg.truncation_distance),),
+                       pred.freespace_mask))
+    if cfg.tsdf_weight != 0.0:
+        deltas = target.gt_distances[..., None] - pred.sample_distances
+        inputs.append(((losses_mod.tsdf_values(pred.sample_geometries, deltas, rcfg.truncation_distance),),
+                       pred.tsdf_mask))
+    sums = []
+    for values, mask in inputs:
+        nums, den = [], None
+        for v in values:
+            num, den = losses_mod.masked_sums(v, mask)
+            nums.append(num)
+        sums.append((nums, den))
+    diag = [depth_mask.float().sum(), target.term_mask.float().sum(), target.field_valid.float().sum()]
+    return sums, diag
+
+
+def compute_losses_sharded(
+    cfg: LossConfig,
+    rcfg: render.RenderConfig,
+    target: Optional[sampling.Target],
+    pred: Optional[render.Prediction],
+    num_rays: int,
+    shard: sharding.FieldGroup,
+    device,
+):
+    """:func:`compute_losses` over targets split across ranks: every masked
+    mean spans all ranks' targets. This rank's numerators and mask counts
+    of every term, and the diagnostics' counts, go through one
+    ``all_reduce`` (detached); the rank's differentiable loss is then
+    ``sum(weight * local numerator / global count)``, whose gradient on
+    this rank's fields is the unsharded loss's, and the gaussian
+    photometric branch is taken on the global NLL mean. ``target`` /
+    ``pred`` None: this rank trains no target this iteration (it still
+    joins the collective). ``num_rays``: all ranks' target rays (F * R).
+    Returns (the local loss or None, the global loss dict, on every rank)."""
+    layout = _loss_layout(cfg)
+    if target is not None:
+        sums, diag = _loss_sums(cfg, rcfg, target, pred)
+    else:
+        zero = torch.zeros((), device=device)
+        sums = [([zero] * n, zero) for _, _, n in layout]
+        diag = [zero] * 3
+    flat = [x.detach() for nums, den in sums for x in nums + [den]] + [d.detach() for d in diag]
+    totals = sharding.all_reduce_sum(torch.stack(flat).float(), shard)
+    loss_dict, local, i = {}, 0.0, 0
+    combined = 0.0
+    for (key, weight, n), (nums, _) in zip(layout, sums):
+        g_nums, g_den = totals[i : i + n], torch.clamp(totals[i + n], min=1.0)
+        i += n + 1
+        means = g_nums / g_den
+        locs = [num / g_den for num in nums]
+        if n == 2:  # gaussian NLL: the absolute error where the NLL mean passes 2
+            branch = means[0] > 2.0
+            value, loc = torch.where(branch, means[1], means[0]), torch.where(branch, locs[1], locs[0])
+        else:
+            value, loc = means[0], locs[0]
+        loss_dict[key] = value
+        combined = combined + weight * value
+        local = local + weight * loc
+    loss_dict["diag_depth_mask_frac"] = totals[i] / num_rays
+    loss_dict["diag_term_mask_frac"] = totals[i + 1] / num_rays
+    loss_dict["diag_valid_fields"] = totals[i + 2]
+    loss_dict["combined"] = combined
+    return (local if target is not None else None), loss_dict
+
+
 def loss_and_grads(
     fset: NeuralFieldSet,
     camera,
@@ -163,12 +268,65 @@ def loss_and_grads(
         draws.u_coarse, draws.u_guided, generator,
     )
     combined, loss_dict = compute_losses(loss_cfg, rcfg, target, pred)
+    return {k: v.detach() for k, v in loss_dict.items()}, _grads(combined, leaves)
+
+
+def _grads(loss: torch.Tensor, leaves: dict) -> dict:
+    """d loss / d each leaf (zeros for a leaf the loss does not reach)."""
     names = list(leaves)
-    grads = torch.autograd.grad(combined, [leaves[k] for k in names], allow_unused=True)
-    grads = {
-        k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(names, grads)
-    }
-    return {k: v.detach() for k, v in loss_dict.items()}, grads
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
+    return {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(names, grads)}
+
+
+def _sharded_iteration_core(
+    fset: NeuralFieldSet,
+    camera,
+    rcfg: render.RenderConfig,
+    ocfg: optimizer.AdamConfig,
+    loss_cfg: LossConfig,
+    params: dict,
+    adam: optimizer.AdamState,
+    training_iterations: torch.Tensor,
+    map_positions: torch.Tensor,
+    map_orientations: torch.Tensor,
+    target: sampling.Target,
+    draws: IterationDraws,
+    generator: Optional[torch.Generator],
+    shard: sharding.FieldGroup,
+):
+    """:func:`_optimization_iteration_core` with the field axis split over
+    ranks: ``params`` / ``adam`` are this rank's rows, ``target`` is every
+    rank's (replicated). The render's draws are taken at full size, as one
+    rank draws them, then this rank renders and steps Adam on the targets
+    it owns; the losses span every rank's (:func:`compute_losses_sharded`).
+    One host sync: the count of owned targets."""
+    f, r = target.near_distances.shape
+    dev = target.rgbds.device
+    u_coarse, u_guided = draws.u_coarse, draws.u_guided
+    if u_coarse is None:
+        u_coarse = torch.rand((f, r, rcfg.num_samples_coarse), generator=generator, device=dev)
+    if u_guided is None and rcfg.num_samples_depth_guided > 0:
+        u_guided = torch.rand((f, r, rcfg.num_samples_depth_guided), generator=generator, device=dev)
+    slots = torch.nonzero(sharding.owned_mask(target.field_ids, shard)).squeeze(1)
+    if slots.numel() == 0:
+        _, loss_dict = compute_losses_sharded(loss_cfg, rcfg, None, None, f * r, shard, dev)
+    else:
+        local = sampling.Target(*(x.index_select(0, slots) for x in target))
+        rows = sharding.global_to_local(local.field_ids, shard)
+        sub_params = fset.gather_fields(params, rows)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
+        pred = render.render_rays_vmap(
+            fset, leaves, map_positions[local.field_ids], map_orientations[local.field_ids], camera, local,
+            rcfg, u_coarse[slots], None if u_guided is None else u_guided[slots],
+        )
+        loss, loss_dict = compute_losses_sharded(loss_cfg, rcfg, local, pred, f * r, shard, dev)
+        optimizer.adam_slice_update(
+            ocfg, params, adam, rows, local.field_valid, _grads(loss, leaves), sub_params
+        )
+    training_iterations.index_add_(
+        0, target.field_ids, target.field_valid.to(training_iterations.dtype)
+    )
+    return params, adam, training_iterations, {k: v.detach() for k, v in loss_dict.items()}
 
 
 def _optimization_iteration_core(
@@ -185,9 +343,16 @@ def _optimization_iteration_core(
     target: sampling.Target,
     draws: IterationDraws = IterationDraws(),
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """Render + losses + per-field Adam for a pre-built target. Updates
-    ``params``, ``adam`` and ``training_iterations`` in place."""
+    ``params``, ``adam`` and ``training_iterations`` in place. With
+    ``shard``, :func:`_sharded_iteration_core`."""
+    if shard is not None:
+        return _sharded_iteration_core(
+            fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations, map_positions,
+            map_orientations, target, draws, generator, shard,
+        )
     sub_params = fset.gather_fields(params, target.field_ids)
     loss_dict, grads = loss_and_grads(
         fset, camera, rcfg, loss_cfg, sub_params,
@@ -223,9 +388,11 @@ def optimization_iteration(
     cache_valid: torch.Tensor,  # (S,)
     draws: IterationDraws = IterationDraws(),
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """One multi-view optimization iteration (selection, sampling, render,
-    losses, Adam); returns (params, adam, training_iterations, loss_dict)."""
+    losses, Adam); returns (params, adam, training_iterations, loss_dict).
+    With ``shard``, ``params`` and ``adam`` are this rank's rows."""
     if loss_cfg.single_field_id is not None:
         only = torch.arange(allocated_mask.shape[0], device=allocated_mask.device) == loss_cfg.single_field_id
         allocated_mask = allocated_mask & only
@@ -241,7 +408,7 @@ def optimization_iteration(
     )
     return _optimization_iteration_core(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
-        map_positions, map_orientations, target, draws, generator,
+        map_positions, map_orientations, target, draws, generator, shard,
     )
 
 
@@ -265,16 +432,18 @@ def optimization_iterations_scan(
     cache_c2w: torch.Tensor,
     cache_valid: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """``num_iters`` iterations, each resampling its targets; returns the
-    last iteration's loss dict with the updated state. No host syncs."""
+    last iteration's loss dict with the updated state. No host syncs
+    (sharded: one an iteration)."""
     loss_dict = {}
     for _ in range(num_iters):
         params, adam, training_iterations, loss_dict = optimization_iteration(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam,
             training_iterations, map_positions, map_orientations, allocated_mask,
             observed_mask, cache_rgb, cache_depth, cache_c2w, cache_valid,
-            generator=generator,
+            generator=generator, shard=shard,
         )
     return params, adam, training_iterations, loss_dict
 
@@ -299,6 +468,7 @@ def optimization_iteration_sv(
     cache_valid: torch.Tensor,  # (S,)
     draws: IterationDraws = IterationDraws(),
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """One single-view optimization iteration (the body of the JAX
     package's ``optimization_iterations_scan_sv``): odd iterations train on
@@ -324,7 +494,7 @@ def optimization_iteration_sv(
     )
     return _optimization_iteration_core(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
-        map_positions, map_orientations, target, draws, generator,
+        map_positions, map_orientations, target, draws, generator, shard,
     )
 
 
@@ -347,16 +517,18 @@ def optimization_iterations_scan_sv(
     cache_c2w: torch.Tensor,
     cache_valid: torch.Tensor,
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """``num_iters`` single-view iterations (:func:`optimization_iteration_sv`,
     iteration i choosing its view by i's parity); returns the last
-    iteration's loss dict with the updated state. No host syncs."""
+    iteration's loss dict with the updated state. No host syncs (sharded:
+    one an iteration)."""
     loss_dict = {}
     for i in range(num_iters):
         params, adam, training_iterations, loss_dict = optimization_iteration_sv(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam,
             training_iterations, map_positions, map_orientations, active_mask,
-            cache_rgb, cache_depth, cache_c2w, cache_valid, generator=generator,
+            cache_rgb, cache_depth, cache_c2w, cache_valid, generator=generator, shard=shard,
         )
     return params, adam, training_iterations, loss_dict
 
@@ -398,6 +570,7 @@ def frame_step(
     c2w: torch.Tensor,  # (4, 4)
     kf_slot: int,  # < 0 -> not a keyframe
     generator: Optional[torch.Generator] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """One frame: keyframe-cache writes (in place), the observed-field test,
     and all optimization iterations."""
@@ -412,7 +585,7 @@ def frame_step(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, num_iters,
             params, adam, training_iterations, map_positions, map_orientations,
             allocated_mask, observed, cache_rgb, cache_depth, cache_c2w,
-            cache_valid, generator,
+            cache_valid, generator, shard,
         )
     return params, adam, training_iterations, cache_rgb, cache_depth, observed, loss_dict
 
@@ -480,6 +653,7 @@ def render_block_tiled(
     use_ray_kernel: bool = False,
     block_offset: Optional[int] = None,  # index of ijs[0] in the row-major grid
     sample_spacing: float = 0.0,
+    shard: Optional[sharding.FieldGroup] = None,
 ):
     """One span-restricted render block through the tiled KNN path
     (engine.render_block_tiled_jit) -> (rgbd (B, 4), depth_vars (B,),
@@ -490,7 +664,9 @@ def render_block_tiled(
     evaluated by ``NeuralFieldSet.apply_knn_tiled`` and composited by
     ``quadrature``. With ``use_ray_kernel`` (k * S a power of two, ``ijs``
     the row-major pixel grid from ``block_offset``) the MoE kernel rebuilds
-    each sample point from its pair index and distance. No host sync.
+    each sample point from its pair index and distance. No host sync. With
+    ``shard``, ``params`` are this rank's rows and the blend goes through
+    ``sharding.render_points_sharded`` (one all-reduce).
     """
     b = ijs.shape[0]
     dirs = camera.ijs_to_directions(ijs)  # (B, 3) camera frame
@@ -540,10 +716,17 @@ def render_block_tiled(
             "width": int(camera.width),
         }
 
-    outs = fset.apply_knn_tiled(
-        params, points_world.reshape(-1, 3), positions, orientations, allocated_mask,
-        ray_ctx=ray_ctx,
-    ).reshape(b, num_samples, -1)
+    if shard is None:
+        outs = fset.apply_knn_tiled(
+            params, points_world.reshape(-1, 3), positions, orientations, allocated_mask,
+            ray_ctx=ray_ctx,
+        )
+    else:
+        outs = sharding.render_points_sharded(
+            fset, params, positions, orientations, allocated_mask, points_world.reshape(-1, 3), shard,
+            ray_ctx=ray_ctx,
+        )
+    outs = outs.reshape(b, num_samples, -1)
 
     sample_colors = rcfg.color_factor * outs[..., :3]
     sample_geometries = outs[..., 3]
@@ -551,7 +734,9 @@ def render_block_tiled(
     sample_depths = distances * (-dirs[:, 2])[:, None]
     neus_isds = None
     if rcfg.geometry_mode == "neus":
-        neus_isds = 1.0 / torch.abs(torch.mean(params["neus_sd"]))
+        mean_sd = (torch.mean(params["neus_sd"]) if shard is None
+                   else sharding.field_mean(params["neus_sd"], shard, positions.shape[0]))
+        neus_isds = 1.0 / torch.abs(mean_sd)
     q = quad_mod.quadrature(
         rcfg.geometry_mode, sample_colors, sample_geometries, distances, sample_depths,
         geometry_factor=rcfg.geometry_factor, neus_isds=neus_isds,
@@ -651,14 +836,20 @@ def render_block(
 
 
 class NeuralGraphMap:
-    """Online neural graph mapping on one device.
+    """Online neural graph mapping on one device, or with the field axis
+    split over the ranks of a process group.
 
     Construct from a config dict, and drive :meth:`process_frame` per frame.
     The map lives on ``device``: the card unless the caller asks for the
     CPU; without CUDA the default raises, it never falls back to the CPU.
+    With ``num_field_shards: W > 1`` in the config, every rank of a group
+    of W builds the map and calls every method in the same order (each
+    holds its rows of the field state; see the module docstring); ``group``
+    is the ``sharding.FieldGroup``, else the default process group, which
+    must have W ranks.
     """
 
-    def __init__(self, config: dict, device="cuda") -> None:
+    def __init__(self, config: dict, device="cuda", group: Optional[sharding.FieldGroup] = None) -> None:
         if device is None:
             raise ValueError("NeuralGraphMap needs a device: 'cuda' (the default) or 'cpu'")
         self._device = torch.device(device)
@@ -669,7 +860,7 @@ class NeuralGraphMap:
             )
         self._read_config(config)
         self._init_model()
-        self._init_state()
+        self._init_state(group)
 
     # -- configuration ---------------------------------------------------------
 
@@ -748,8 +939,9 @@ class NeuralGraphMap:
         self._fused_mlp = c.get("fused_mlp", False)
         if not isinstance(self._fused_mlp, bool):
             raise ValueError(f"fused_mlp must be true or false, got {self._fused_mlp!r}")
-        if int(c.get("num_field_shards", 1)) > 1:
-            raise NotImplementedError("field-axis sharding is not ported yet")
+        self._num_field_shards = int(c.get("num_field_shards", 1))
+        if self._num_field_shards < 1:
+            raise ValueError(f"num_field_shards must be >= 1, got {self._num_field_shards}")
 
     def _init_model(self) -> None:
         kwargs = dict(self._model_kwargs)
@@ -763,13 +955,42 @@ class NeuralGraphMap:
         self._frame_gen = torch.Generator(self._device).manual_seed(self._seed + 1)
         self._frame_counter = 0
 
-    def _init_state(self) -> None:
+    def _field_group(self, group: Optional[sharding.FieldGroup]) -> Optional[sharding.FieldGroup]:
+        """The group the field axis is split over, None unsharded."""
+        import torch.distributed as dist
+
+        w = self._num_field_shards
+        if w == 1:
+            return None
+        if group is None:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise RuntimeError(
+                    f"num_field_shards={w} needs a process group of {w} ranks: launch with "
+                    f"torchrun --nproc_per_node={w} (run_mapping --dist-backend nccl|gloo), or pass "
+                    "group=sharding.make_field_group(...)"
+                )
+            group = sharding.FieldGroup(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+        if group.size != w:
+            raise RuntimeError(
+                f"num_field_shards={w} but the process group has {group.size} ranks: launch with "
+                f"torchrun --nproc_per_node={w}"
+            )
+        return group
+
+    def _init_state(self, group: Optional[sharding.FieldGroup] = None) -> None:
         cap = 32
+        if cap % self._num_field_shards != 0:
+            raise ValueError(
+                f"field capacity {cap} must be divisible by num_field_shards={self._num_field_shards}"
+            )
+        self._shard = self._field_group(group)
         dev = self._device
         self._map_arrays = map_state.init_map_arrays(cap, dev)
-        self._params = self._fset.init_fields(cap, self._init_gen, dev)
+        self._params = self._own_rows(self._fset.init_fields(cap, self._init_gen, dev))
         self._adam = optimizer.init_adam_state(self._params)
         self._num_fields = 0
+        # the capacity route's full copy of a sharded map, during one render
+        self._gathered_params: Optional[dict] = None
 
         self._graph: Dict[int, Set[int]] = {}
         self._kf2fields: Dict[int, Set[int]] = {}
@@ -823,9 +1044,39 @@ class NeuralGraphMap:
             new_cap *= 2
         logger.info("growing field capacity %d -> %d", cap, new_cap)
         self._map_arrays = map_state.grow_capacity(self._map_arrays, new_cap)
-        extra = self._fset.init_fields(new_cap - cap, self._init_gen, self._device)
+        # every rank draws the whole block, so the init stream stays in step
+        extra = self._own_rows(self._fset.init_fields(new_cap - cap, self._init_gen, self._device))
         self._params = {k: torch.cat([v, extra[k]]) for k, v in self._params.items()}
         self._adam = optimizer.grow_adam_state(self._adam, self._params)
+
+    def _own_rows(self, tree: dict) -> dict:
+        """This rank's rows of a full stacked-field dict (all of it unsharded)."""
+        return tree if self._shard is None else sharding.shard_field_tensors(tree, self._shard)
+
+    @property
+    def shard(self) -> Optional[sharding.FieldGroup]:
+        """The field axis's process group, None unsharded."""
+        return self._shard
+
+    def full_params(self) -> dict:
+        """The stacked params of every field in global order (sharded: an
+        all_gather, so every rank must call it)."""
+        return self._params if self._shard is None else sharding.gather_field_tensors(self._params, self._shard)
+
+    def full_adam(self) -> optimizer.AdamState:
+        """The Adam state of every field in global order (sharded: collective)."""
+        if self._shard is None:
+            return self._adam
+        gathered = sharding.gather_field_tensors(
+            {**{f"m.{k}": v for k, v in self._adam.m.items()}, **{f"v.{k}": v for k, v in self._adam.v.items()},
+             "steps": self._adam.steps},
+            self._shard,
+        )
+        return optimizer.AdamState(
+            m={k: gathered[f"m.{k}"] for k in self._adam.m},
+            v={k: gathered[f"v.{k}"] for k in self._adam.v},
+            steps=gathered["steps"],
+        )
 
     def _allocated_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self._device) < self._num_fields
@@ -1051,6 +1302,7 @@ class NeuralGraphMap:
                 c2w,
                 kf_slot,
                 self._frame_gen,
+                self._shard,
             )
         else:  # single_view
             write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
@@ -1077,6 +1329,7 @@ class NeuralGraphMap:
                     self._cache_c2w_dev,
                     self._cache_valid_dev,
                     self._init_gen,  # JAX: self._next_key(), the init / render stream
+                    self._shard,
                 )
         self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
         losses = {}
@@ -1176,7 +1429,7 @@ class NeuralGraphMap:
                 self._eval_far, self._params, self._map_arrays.positions,
                 self._map_arrays.orientations, allocated, ijs, c2w,
                 generator=self._init_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
-                sample_spacing=float(self._sample_spacing),
+                sample_spacing=float(self._sample_spacing), shard=self._shard,
             )
             return rgbd, dv
 
@@ -1209,7 +1462,12 @@ class NeuralGraphMap:
             drop_counts.append(dropped)
             return rgbd, dv
 
-        rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block)
+        if self._shard is not None:  # every rank evaluates the full copy, as XLA does for JAX's
+            self._gathered_params = self.full_params()
+        try:
+            rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block)
+        finally:
+            self._gathered_params = None
         dropped = chunking.warn_dropped_pairs(drop_counts, logger, "render", capacity_per_field)
         self.render_stats = {"route": "capacity", "capacity_per_field": capacity_per_field,
                              "probe_max_count": max_count, "dropped_pairs": dropped}
@@ -1218,9 +1476,10 @@ class NeuralGraphMap:
     def _render_ij_block(self, ijs, c2w, camera, capacity_per_field: int):
         """One capacity-route block of the map (render_block), jitter from
         the init stream."""
+        params = self._params if self._gathered_params is None else self._gathered_params
         return render_block(
             self._fset, camera, self._rcfg, self._eval_num_samples, self._eval_near,
-            self._eval_far, capacity_per_field, self._params, self._map_arrays.positions,
+            self._eval_far, capacity_per_field, params, self._map_arrays.positions,
             self._map_arrays.orientations, self._allocated_mask(), ijs, c2w,
             generator=self._init_gen,
         )

@@ -14,6 +14,12 @@ through ``apply_knn_tiled`` (no drops) on every device: the
 plain versions on the CPU. Other field sets take the capacity-buffer route
 ``apply_knn`` with ``knn_capacity`` slots a field (on the card through
 ``gather_pairs``), and dropped pairs are logged.
+
+With the field axis sharded over ranks (``shard``), every rank meshes the
+same blocks: the tiled route blends through
+``sharding.render_points_sharded`` on this rank's rows, the capacity route
+evaluates a full copy gathered once (``sharding.gather_field_tensors``),
+and only the caller's rank 0 passes a file path.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from neural_graph_mapping_tpu_torch.ops import native
+from neural_graph_mapping_tpu_torch.parallel import sharding
 from neural_graph_mapping_tpu_torch.utils import chunking, meshio, transforms
 
 logger = logging.getLogger(__name__)
@@ -94,11 +101,13 @@ def extract_mesh(
     knn_capacity: int = 32768,
     mesh_file_path: Optional[pathlib.Path] = None,
     stats: Optional[dict] = None,
+    shard: Optional[sharding.FieldGroup] = None,
 ) -> Optional[meshio.Mesh]:
     """Extract the colored isosurface mesh of the current map.
 
     Args:
-        fset / params: the NeuralFieldSet and its stacked params.
+        fset / params: the NeuralFieldSet and its stacked params (this
+            rank's rows with ``shard``).
         field_*: map registry tensors (+ validity over padded capacity), on
             the device the points are evaluated on.
         resolution: voxel size in meters.
@@ -112,6 +121,8 @@ def extract_mesh(
             device's part, host clock up to the copy back), ``march_s``
             (host marching tetrahedra), ``blocks``, ``blocks_evaluated`` and
             ``dropped_pairs`` (the capacity route's; 0 on the tiled route).
+        shard: the field axis's process group when ``params`` are sharded;
+            every rank must call with the same map.
 
     Returns:
         The extracted mesh (None if no surface crossed).
@@ -135,6 +146,8 @@ def extract_mesh(
     orientations_t = torch.from_numpy(np.ascontiguousarray(orientations, np.float32)).to(device)
     valid_t = torch.from_numpy(valid).to(device)
     use_tiled = fset.supports_tiled_knn()
+    if shard is not None and not use_tiled:
+        params = sharding.gather_field_tensors(params, shard)
 
     def eval_points(pts: np.ndarray, radius: float) -> np.ndarray:
         """Chunked KNN evaluation of (N, 3) world points -> (N, 4)."""
@@ -142,6 +155,10 @@ def extract_mesh(
         drop_counts = []
 
         def model(chunk):
+            if use_tiled and shard is not None:
+                return sharding.render_points_sharded(
+                    fset, params, positions_t, orientations_t, valid_t, chunk, shard, field_radius=radius
+                )
             if use_tiled:
                 return fset.apply_knn_tiled(
                     params, chunk, positions_t, orientations_t, valid_t, field_radius=radius

@@ -389,6 +389,8 @@ class NeuralFieldSet(nn.Module):
         field_valid: torch.Tensor,  # (N,) bool
         field_radius: Optional[float] = None,
         ray_ctx: Optional[dict] = None,
+        routing: Optional[tuple] = None,
+        partial_blend: bool = False,
     ) -> torch.Tensor:
         """KNN-blended evaluation through the tile-sorted MoE dispatch
         (fields.apply_knn_tiled) -> (P, dim_out).
@@ -413,6 +415,15 @@ class NeuralFieldSet(nn.Module):
         instead of carrying coordinates through the sort
         (``encode_fwd_moe``). No host sync: the live-tile count stays on the
         device.
+
+        ``routing`` (field-sharded evaluation, ``parallel/sharding.py``):
+        ``(distances (P, k) GLOBAL, ids (P, k) LOCAL rows of
+        ``stacked_params``, owned (P, k) bool, inside (P,) bool)`` replaces
+        the top-k; only owned pairs evaluate, and the field poses are this
+        rank's rows. With ``partial_blend`` the result is this rank's
+        weighted contribution, zeros where no owned pair lies and no
+        ``outside_value`` fill: the sum over ranks is the blend, since its
+        weights come from the global distances.
         """
         radius = self.field_radius if field_radius is None else field_radius
         k = self.num_knn
@@ -423,12 +434,26 @@ class NeuralFieldSet(nn.Module):
         m = p * k
 
         k_major = k == 2
-        if k_major:
+        if routing is not None:
+            dists, ids, owned, inside = routing
+            if k_major:
+                d_fm = dists.T
+                valid_fm = torch.isfinite(d_fm) & inside[None, :]
+                owned_fm = valid_fm & owned.T
+                pair_ids = ids.T.reshape(-1)
+                pair_valid = owned_fm.reshape(-1)
+            else:
+                knn_dists = dists
+                pair_ids = ids.reshape(-1)
+                pair_valid = (
+                    owned.reshape(-1) & torch.repeat_interleave(inside, k) & torch.isfinite(dists.reshape(-1))
+                )
+        elif k_major:
             d_fm, i_fm = topk.topk2_fields(
                 query_points.T.contiguous(), field_positions.contiguous(), field_valid
             )  # (2, P)
             inside = d_fm[0] < radius
-            valid_fm = torch.isfinite(d_fm) & inside[None, :]
+            valid_fm = owned_fm = torch.isfinite(d_fm) & inside[None, :]
             pair_ids = i_fm.reshape(-1)
             pair_valid = valid_fm.reshape(-1)
         else:
@@ -489,7 +514,8 @@ class NeuralFieldSet(nn.Module):
 
         if k_major:
             # feature-major softmax blend over the (k, P) kernel outputs;
-            # invalid pairs get weight 0 by SELECT (dead tiles may hold NaN)
+            # invalid pairs get weight 0 by SELECT (dead tiles may hold NaN),
+            # and so do pairs another rank evaluates (never written here)
             logits = torch.where(valid_fm, -self.distance_factor * d_fm, -torch.inf)
             mx = torch.amax(logits, dim=0)
             e = torch.exp(logits - torch.where(torch.isfinite(mx), mx, 0.0)[None, :])
@@ -497,7 +523,7 @@ class NeuralFieldSet(nn.Module):
             w = e / torch.clamp(torch.sum(e, dim=0), min=1e-38)[None, :]  # (k, P)
             per_rank = pair_outs.reshape(dim_out, k, p)
             blended = sum(
-                torch.where(valid_fm[kk][None, :], per_rank[:, kk] * w[kk][None, :], 0.0)
+                torch.where(owned_fm[kk][None, :], per_rank[:, kk] * w[kk][None, :], 0.0)
                 for kk in range(k)
             ).T  # (P, dim_out)
         else:
@@ -507,6 +533,8 @@ class NeuralFieldSet(nn.Module):
             safe_logits = torch.where(inside[:, None], logits, 0.0)
             weights = torch.softmax(safe_logits, dim=-1)  # (P, k)
             blended = torch.einsum("cpk,pk->pc", pair_outs.reshape(dim_out, p, k), weights)
+        if partial_blend:
+            return torch.where(inside[:, None], blended, 0.0)
         return torch.where(inside[:, None], blended, self.outside_value)
 
     def apply_knn(

@@ -10,6 +10,9 @@ library) and exposes:
 - :func:`marching_tetrahedra`: isosurface extraction from a volume block;
 - :func:`rasterize_depth`: double-sided depth rasterization for culling.
 
+:func:`built_library` builds the port's other host sources the same way
+(``csrc/jpeg.cpp``, ``utils/jpeg.py``).
+
 A failed build raises; there is no other implementation to fall back to.
 """
 
@@ -36,25 +39,30 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libngm_native-{digest}.so"
+def library_path(source: pathlib.Path = SOURCE, stem: str = "libngm_native", flags=CXX_FLAGS) -> pathlib.Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{digest}.so"
 
 
-def _build(path: pathlib.Path) -> None:
+def built_library(source: pathlib.Path, stem: str, flags=CXX_FLAGS) -> pathlib.Path:
+    """``_build/<stem>-<hash>.so`` built from ``source`` with ``flags`` (the
+    hash covers both), built with ``g++`` if it is not there: written under a
+    temporary name and moved into place. A failed build raises."""
+    path = library_path(source, stem, flags)
+    if path.is_file():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)], capture_output=True, text=True
-        )
+        proc = subprocess.run(["g++", *flags, "-o", tmp, str(source)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE}:\n{proc.stderr}")
+            raise RuntimeError(f"g++ failed to build {source}:\n{proc.stderr}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    return path
 
 
 def _load() -> ctypes.CDLL:
@@ -62,10 +70,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.is_file():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(built_library(SOURCE, "libngm_native")))
         lib.marching_tetrahedra.restype = ctypes.c_int
         lib.marching_tetrahedra.argtypes = [
             ctypes.POINTER(ctypes.c_float),  # grid

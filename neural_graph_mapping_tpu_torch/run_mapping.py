@@ -10,6 +10,18 @@ end, extracts the coloured mesh and scores it against a ground-truth mesh
 where the dataset has one, and writes a checkpoint (the npz keys of the JAX
 package) that loads and resumes. The map runs on the card unless
 ``--device cpu`` is given; there is no fallback from one to the other.
+
+With ``num_field_shards: W`` in the config the field axis is split over W
+ranks (``parallel/sharding.py``), launched by ``torchrun``:
+
+    torchrun --nproc_per_node=W -m neural_graph_mapping_tpu_torch.run_mapping \
+        --config ... --num_field_shards W --dist-backend {nccl,gloo} [--device cpu]
+
+Each rank takes ``cuda:LOCAL_RANK`` (``nccl``: one card per rank; ``gloo``:
+also several ranks on one card, and the CPU with ``--device cpu``). Every
+rank runs the frame loop, the held-out renders and the meshing; rank 0
+alone computes the metrics, logs, and writes the mesh, the checkpoint (the
+fields gathered into the unsharded layout) and the config files.
 """
 
 from __future__ import annotations
@@ -59,18 +71,21 @@ class NeuralGraphMapRunner:
     """Orchestrates fit / eval / meshing / checkpointing around the engine.
 
     ``device`` is where the map lives: the card by default, ``"cpu"`` only
-    when asked for.
+    when asked for. ``group``: the ``sharding.FieldGroup`` of a map with
+    ``num_field_shards > 1`` (else the default process group); every rank
+    runs the runner, and only rank 0 writes files and computes metrics.
     """
 
-    def __init__(self, config: dict, device="cuda") -> None:
+    def __init__(self, config: dict, device="cuda", group=None) -> None:
         if "model_kwargs" not in config:
             raise ValueError(
                 "config has no model_kwargs: name the model's config first, e.g. "
                 "--config neural_graph_map.yaml synthetic.yaml"
             )
         self.config = config
-        self.engine = NeuralGraphMap(config, device=device)
+        self.engine = NeuralGraphMap(config, device=device, group=group)
         self.device = self.engine._device
+        self.is_main = self.engine.shard is None or self.engine.shard.rank == 0
         self._dataset_type = config_mod.str_to_object(config["dataset_type"])
         self._dataset_config = config.get("dataset_config", {})
         self._eval_ratio = float(config.get("eval_ratio", 0.0))
@@ -171,15 +186,17 @@ class NeuralGraphMapRunner:
             self.gt_from_est = None
 
         self.split_sequence(dataset)
-        self._out_dir.mkdir(parents=True, exist_ok=True)
-        (self._out_dir / "eval_data").mkdir(exist_ok=True)
+        if self.is_main:
+            self._out_dir.mkdir(parents=True, exist_ok=True)
+            (self._out_dir / "eval_data").mkdir(exist_ok=True)
 
         # observability: both degrade to no-ops without their packages; wandb
-        # only runs where the config asks for it
+        # only runs where the config asks for it, and on rank 0
         self._wandb = observability.WandbLogger(
-            self._wandb_project, self.config, name=self.run_name, enabled=self._wandb_enabled
+            self._wandb_project, self.config, name=self.run_name,
+            enabled=self._wandb_enabled and self.is_main,
         )
-        if self._rerun_vis or self._rerun_save or self._rerun_connect_addr:
+        if self.is_main and (self._rerun_vis or self._rerun_save or self._rerun_connect_addr):
             self._rerun = observability.RerunLogger(
                 rrd_path=(
                     str(self._out_dir / f"{self.run_name}.rrd") if self._rerun_save else None
@@ -236,6 +253,7 @@ class NeuralGraphMapRunner:
                 prefetcher.close()
 
         if self._extract_final_mesh or self._eval_mesh:
+            # every rank meshes (collective); rank 0 writes the file
             mesh_path = self._out_dir / "eval_data" / self._mesh_name()
             self.extract_mesh(mesh_path)
             for fid in self._extract_mesh_fields:
@@ -254,7 +272,7 @@ class NeuralGraphMapRunner:
         """Loss streaming, rerun telemetry, periodic render previews and
         intermediate meshes."""
         new_iters = self.engine._num_iterations_per_frame
-        if losses and self._iteration % self._log_iteration_freq < new_iters:
+        if self.is_main and losses and self._iteration % self._log_iteration_freq < new_iters:
             logger.info("frame %d losses %s", frame_id, {k: round(v, 4) for k, v in losses.items()})
             if self._wandb is not None and self._wandb.enabled:
                 self._wandb.log({**losses, "current_frame_id": frame_id}, step=self._iteration)
@@ -279,7 +297,7 @@ class NeuralGraphMapRunner:
         ):
             mesh = self.extract_mesh(
                 self._out_dir / "eval_data" / f"mesh_{frame_id:06d}.ply"
-                if self._store_intermediate_meshes
+                if self._store_intermediate_meshes and self.is_main
                 else None
             )
             if mesh is not None and self._rerun is not None and self._rerun.enabled:
@@ -287,21 +305,25 @@ class NeuralGraphMapRunner:
 
     def _log_renders(self, frame_id: int) -> None:
         """Render-preview grid: one row per configured render frame, RGB and
-        depth columns, saved as PNG under the run dir (and to wandb)."""
+        depth columns, saved as PNG under the run dir (and to wandb). Every
+        rank renders; rank 0 draws."""
+        preview_camera = self.dataset.camera.scaled_camera(self._preview_res_factor)
+        renders = []
+        for i, frac in enumerate(self._render_frames):
+            fid = min(int(frac * (len(self.dataset) - 1)), frame_id)
+            c2w = np.asarray(self.dataset.get_slam_c2ws(fid, frame_id))
+            if np.isfinite(c2w).all():
+                renders.append((i, c2w, _np(self.engine.render_image(c2w, preview_camera)[0])))
+        if not self.is_main:
+            return
         import matplotlib
 
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
-        preview_camera = self.dataset.camera.scaled_camera(self._preview_res_factor)
         n = len(self._render_frames)
         fig, ax = plt.subplots(n, 2, squeeze=False)
-        for i, frac in enumerate(self._render_frames):
-            fid = min(int(frac * (len(self.dataset) - 1)), frame_id)
-            c2w = np.asarray(self.dataset.get_slam_c2ws(fid, frame_id))
-            if not np.isfinite(c2w).all():
-                continue
-            rgbd = _np(self.engine.render_image(c2w, preview_camera)[0])
+        for i, c2w, rgbd in renders:
             ax[i, 0].imshow(np.clip(rgbd[..., :3], 0, 1))
             ax[i, 1].imshow(rgbd[..., 3], vmin=0.0, vmax=7.0)
             ax[i, 0].axis("off")
@@ -328,13 +350,17 @@ class NeuralGraphMapRunner:
         side-by-side target|render PNG and a tabulated ``details.txt``.
 
         ``eval_render_scale`` (< 1.0) renders at a downscaled camera and
-        block-averages the target to match (depth: mean over valid pixels)."""
+        block-averages the target to match (depth: mean over valid pixels).
+        Every rank renders (collective); rank 0 alone scores and writes,
+        the others return {}."""
         c2w = self.dataset.get_slam_c2ws(frame_id, at_frame_id)
         cam = self.dataset.camera
         scale = float(self.config.get("eval_render_scale", 1.0))
         if scale != 1.0:
             cam = cam.scaled_camera(scale)
         rgbd, _ = self.engine.render_image(c2w, cam)
+        if not self.is_main:
+            return {}
         target = torch.as_tensor(self.dataset[frame_id]["rgbd"], device=rgbd.device)
         if scale != 1.0:
             fh = self.dataset.camera.height // cam.height
@@ -407,7 +433,8 @@ class NeuralGraphMapRunner:
             final_render = mean_metric_dicts(dicts)
 
         final_mesh = {}
-        if not self._disable_eval and self._eval_mesh and getattr(self.dataset, "has_gt_mesh", False):
+        if (self.is_main and not self._disable_eval and self._eval_mesh
+                and getattr(self.dataset, "has_gt_mesh", False)):
             from neural_graph_mapping_tpu_torch.eval import culling
             from neural_graph_mapping_tpu_torch.utils import meshio
 
@@ -478,8 +505,9 @@ class NeuralGraphMapRunner:
             resolution=resolution or self._mesh_resolution,
             transform=self.gt_from_est,
             eval_chunk=self._block_size,
-            mesh_file_path=path,
+            mesh_file_path=path if self.is_main else None,
             stats=self.mesh_stats,
+            shard=e.shard,
         )
 
     # -- checkpointing -------------------------------------------------------------
@@ -490,13 +518,21 @@ class NeuralGraphMapRunner:
         keyframe cache, slot tables, Adam state) so ``load_model`` can resume
         mapping, and the port's own keys: the frame counter and the states
         of both generators, so a resumed run draws what an uninterrupted one
-        would. Defaults to the ``checkpoint_full`` config key."""
+        would. Defaults to the ``checkpoint_full`` config key.
+
+        A sharded map gathers its fields (params, and Adam for ``full``)
+        into the unsharded layout on every rank (collective), and rank 0
+        writes: the file loads at any shard count, and in the JAX package."""
         path = pathlib.Path(path) if path else self._out_dir / f"{self.run_name}.npz"
         if full is None:
             full = bool(self.config.get("checkpoint_full", False))
         e = self.engine
         m = e._map_arrays
-        arrays = {f"params.{k}": _np(v) for k, v in e._params.items()}
+        params = e.full_params()
+        adam = e.full_adam() if full else None
+        if not self.is_main:
+            return path
+        arrays = {f"params.{k}": _np(v) for k, v in params.items()}
         arrays.update(
             {
                 "map.positions": _np(m.positions),
@@ -529,11 +565,11 @@ class NeuralGraphMapRunner:
                 # bf16 -> fp16 is exact for 8-bit imagery in [0, 1]
                 arrays["resume.cache_rgb"] = _np(e._cache_rgb.to(torch.float16))
                 arrays["resume.cache_depth"] = _np(e._cache_depth)
-            for k, v in e._adam.m.items():
+            for k, v in adam.m.items():
                 arrays[f"resume.adam_m.{k}"] = _np(v)
-            for k, v in e._adam.v.items():
+            for k, v in adam.v.items():
                 arrays[f"resume.adam_v.{k}"] = _np(v)
-            arrays["resume.adam_steps"] = _np(e._adam.steps)
+            arrays["resume.adam_steps"] = _np(adam.steps)
             # the JAX package saves its threefry keys here instead
             arrays["resume.frame_counter"] = np.asarray(e._frame_counter)
             arrays["resume.init_gen_state"] = _np(e._init_gen.get_state())
@@ -552,7 +588,9 @@ class NeuralGraphMapRunner:
     def load_model(self, path: os.PathLike) -> None:
         """Load a checkpoint of either package. A full checkpoint restores
         the mapping state; a JAX one restores all of it but the generators,
-        which keep this runner's seed."""
+        which keep this runner's seed. A sharded map reads the file on every
+        rank and keeps its own rows (of any file whose field capacity the
+        shard count divides)."""
         logger.info("loading model from %s", path)
         e = self.engine
         dev = self.device
@@ -580,7 +618,10 @@ class NeuralGraphMapRunner:
             raise ValueError(
                 f"checkpoint parameters {got} (per field) do not match this config's fields {want}"
             )
-        e._params = interop.params_from_jax(params, dev)
+        cap = len(data["map.positions"])
+        if e.shard is not None and cap % e.shard.size != 0:
+            raise ValueError(f"checkpoint field capacity {cap} must be divisible by num_field_shards={e.shard.size}")
+        e._params = e._own_rows(interop.params_from_jax(params, dev))
         e._map_arrays = interop.map_arrays_from_jax(
             data["map.positions"], data["map.orientations"], data["map.kf_ids"],
             data["map.kf_slots"], data["map.training_iterations"], dev,
@@ -611,12 +652,14 @@ class NeuralGraphMapRunner:
             e._cache_rgb = torch.from_numpy(data["resume.cache_rgb"]).to(dev).to(torch.bfloat16)
             e._cache_depth = torch.from_numpy(data["resume.cache_depth"]).to(dev)
         if "resume.adam_steps" in data:
-            e._adam = interop.adam_from_jax(
+            adam = interop.adam_from_jax(
                 {k[len("resume.adam_m."):]: v for k, v in data.items() if k.startswith("resume.adam_m.")},
                 {k[len("resume.adam_v."):]: v for k, v in data.items() if k.startswith("resume.adam_v.")},
                 data["resume.adam_steps"],
                 dev,
             )
+            e._adam = optimizer.AdamState(m=e._own_rows(adam.m), v=e._own_rows(adam.v),
+                                          steps=e._own_rows({"steps": adam.steps})["steps"])
         if "resume.frame_counter" in data:
             e._frame_counter = int(data["resume.frame_counter"])
             e._init_gen.set_state(torch.from_numpy(data["resume.init_gen_state"]))
@@ -628,17 +671,50 @@ class NeuralGraphMapRunner:
             )
 
 
+def field_group_from_launch(config: dict, device: str, backend: Optional[str]):
+    """(device, FieldGroup or None) for a run: unsharded as given; with
+    ``num_field_shards: W > 1`` the default process group of a ``torchrun``
+    launch (W ranks), on ``cuda:LOCAL_RANK`` unless ``device`` is the CPU.
+    Raises without such a launch, and for ``nccl`` on the CPU."""
+    from neural_graph_mapping_tpu_torch.parallel import sharding
+
+    w = int(config.get("num_field_shards", 1))
+    if w == 1:
+        return device, None
+    if backend is None:
+        raise ValueError(
+            f"num_field_shards={w} runs under torchrun --nproc_per_node={w} with --dist-backend nccl "
+            "(one card a rank) or gloo"
+        )
+    if torch.device(device).type == "cpu":
+        if backend != "gloo":
+            raise ValueError("--device cpu needs --dist-backend gloo")
+    else:
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        if torch.cuda.is_available():
+            torch.cuda.set_device(device)
+    return device, sharding.make_field_group(w, backend, device=device)
+
+
 def main(argv=None) -> None:
     """Entry point. The JAX package enables its persistent XLA compilation
     cache here; the port compiles nothing per shape (its kernels are built
-    once into ``_build/``), so it has no counterpart."""
+    once into ``_build/``), so it has no counterpart. A sharded run prints
+    the metrics from rank 0 and leaves its process group at the end."""
     parser = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None)
     known, rest = parser.parse_known_args(argv)
     config = config_mod.load_config_from_args(rest, default_config=["neural_graph_map.yaml"])
-    runner = NeuralGraphMapRunner(config, device=known.device)
-    metrics = runner.fit()
-    print(json.dumps(metrics, default=float))
+    device, group = field_group_from_launch(config, known.device, known.dist_backend)
+    try:
+        runner = NeuralGraphMapRunner(config, device=device, group=group)
+        metrics = runner.fit()
+        if runner.is_main:
+            print(json.dumps(metrics, default=float))
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ every machine, so a machine without PIL (the card's) reads the same bytes
 the same way. Scope: non-interlaced PNGs of 8-bit gray, gray + alpha, RGB
 or RGBA, and 16-bit gray (depth frames); all five scanline filters on read.
 :func:`write_png` writes the same formats with filter 0 (None) or 1 (Sub).
-Other image formats (the JPEG colour frames of real Replica and ScanNet
-scenes) are read by :func:`read_image` through PIL, imported where such a
+JPEG files (the colour frames of real Replica and ScanNet scenes) go to the
+port's own decoder (``utils/jpeg.py``), also on every machine; other image
+formats are read by :func:`read_image` through PIL, imported where such a
 file is opened.
 """
 
@@ -17,6 +18,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from neural_graph_mapping_tpu_torch.utils import jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels, for the colour types this module reads
@@ -161,22 +164,27 @@ def _pil_image(path: os.PathLike):
 
 
 def read_image(path: os.PathLike) -> np.ndarray:
-    """An image file as an array: PNGs through :func:`read_png`, any other
-    format through PIL."""
+    """An image file as an array: PNGs through :func:`read_png`, JPEGs (SOI
+    ``FF D8``) through :func:`jpeg.read_jpeg`, any other format through
+    PIL."""
     with open(path, "rb") as f:
-        is_png = f.read(8) == PNG_SIGNATURE
-    if is_png:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
         return read_png(path)
+    if head[:2] == jpeg.SOI:
+        return jpeg.read_jpeg(path)
     with _pil_image(path).open(path) as img:
         return np.asarray(img)
 
 
 def image_size(path: os.PathLike) -> tuple:
     """(width, height) of an image file, as PIL's ``Image.size``; a PNG's
-    from its header alone."""
+    from its header alone, a JPEG's from its frame header."""
     with open(path, "rb") as f:
         head = f.read(24)
     if head[:8] == PNG_SIGNATURE and head[12:16] == b"IHDR":
         return struct.unpack(">II", head[16:24])
+    if head[:2] == jpeg.SOI:
+        return jpeg.jpeg_size(path)
     with _pil_image(path).open(path) as img:
         return img.size

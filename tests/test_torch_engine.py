@@ -369,12 +369,16 @@ def test_fused_mlp_refuses_fields_the_kernels_cannot_take(field):
 
 
 def test_unported_modes_raise():
-    """Field-axis sharding is not ported; an unknown update_mode raises
-    (the JAX engine trains nothing with one); both update modes build."""
+    """An unknown update_mode raises (the JAX engine trains nothing with
+    one); field-axis sharding needs a process group of num_field_shards
+    ranks (the error names torchrun) and a capacity the shard count
+    divides, as JAX's; both update modes build."""
     with pytest.raises(ValueError, match="update_mode"):
         engine.NeuralGraphMap(tiny_config(update_mode="sv"), "cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node=2"):
         engine.NeuralGraphMap(tiny_config(num_field_shards=2), "cpu")
+    with pytest.raises(ValueError, match="divisible by num_field_shards=3"):
+        engine.NeuralGraphMap(tiny_config(num_field_shards=3), "cpu")
     for mode in ("multi_view", "single_view"):
         assert engine.NeuralGraphMap(tiny_config(update_mode=mode), "cpu")._update_mode == mode
 

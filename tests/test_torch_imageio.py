@@ -114,14 +114,22 @@ def test_out_of_scope_files_raise(tmp_path):
 
 
 def test_jpeg_goes_through_pil_and_names_the_file_without_it(tmp_path, monkeypatch):
+    """JPEG frames no longer go through PIL: with PIL gone they read to
+    PIL's array through the port's decoder (``utils/jpeg.py``). Formats that
+    are neither PNG nor JPEG still go through PIL, and without it raise an
+    ``ImportError`` that names the file."""
     jpg = tmp_path / "frame000001.jpg"
     PIL.Image.fromarray(_images()["RGB"]).save(jpg)
-    assert np.array_equal(imageio.read_image(jpg), np.asarray(PIL.Image.open(jpg)))
+    want = np.asarray(PIL.Image.open(jpg))
+    bmp = tmp_path / "frame000001.bmp"
+    PIL.Image.fromarray(_images()["RGB"]).save(bmp)
+    assert np.array_equal(imageio.read_image(bmp), np.asarray(PIL.Image.open(bmp)))
     assert imageio.image_size(jpg) == PIL.Image.open(jpg).size
     monkeypatch.setitem(sys.modules, "PIL", None)
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
-    with pytest.raises(ImportError, match="frame000001.jpg.*PIL"):
-        imageio.read_image(jpg)
+    assert np.array_equal(imageio.read_image(jpg), want)
+    with pytest.raises(ImportError, match="frame000001.bmp.*PIL"):
+        imageio.read_image(bmp)
     png = tmp_path / "depth.png"
     imageio.write_png(png, _images()["I;16"])
     assert np.array_equal(imageio.read_image(png), _images()["I;16"])

@@ -178,6 +178,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     within 1e-4 of the unedited render (a rotation and shift is reported).
     fit_synthetic: the example's 300 steps on the card lower the loss by
     half, through encode_fwd / encode_bwd_table and the tiled KNN check.
+16. trajectory: 10 frames of the synthetic scene at the production encoding
+    and MLP widths (rays a field cut to 128) on the card and on the CPU
+    (plain versions), both maps fed the same draws made on the host
+    (``engine.DrawSource``): after every frame the same fields, capacity,
+    training counts, observed mask and keyframe slots, losses within rel
+    1e-4 and field poses within 1e-5; at the end params and Adam moments
+    where every gradient passed 1e-4 (params 1e-4), the rest within the Adam
+    step bound a step below it, moments within 1e-2 of the leaf's largest
+    gradient (v: 2e-2 of its square; JAX against the port on the CPU:
+    1e-3);
+    a ``trajectory_params_by_floor`` line gives the largest param gap at
+    floors 1e-6 to 1e-3. Kernels 1-3.
+17. quality: the CLI runner at the quality configuration (QUALITY_CUTS of
+    config/neural_graph_map.yaml + config/synthetic.yaml) for seeds 0-2:
+    final and online PSNR / depth-L1 and the mesh, beside the JAX package's
+    CPU scores at the same configuration (JAX_CPU_QUALITY). Kernels 1-6.
+18. scannet_scene: a ScanNet-layout scene (1296x968 JPEG colour written by
+    the port's encoder, 640x480 16-bit depth, 6 frames) loaded for the first
+    time with PIL refused by the import system: the colour is resized and
+    cached without PIL; then the CLI trains on it. Kernels 1-3.
 
 Kernel times: ``ms`` is device time a launch, with the host's issue hidden:
 a device-side delay long enough for the host to queue 20 launches, then
@@ -216,8 +236,10 @@ mesh; the training kernels ``single_view_<route>_launches`` from the
 single-view slices; ``gather_pairs`` its launches per capacity-route image
 and in the capacity route's mesh; the gather route's pair its
 ``feature_counts``; ``replica_launches`` from the replica phase's run;
-``sharded_rank0_launches`` from rank 0 of the sharded phase, by path);
-the last line is ``{"ok": true, "device": {...}}``.
+``sharded_rank0_launches`` from rank 0 of the sharded phase, by path;
+``trajectory_launches``, ``quality_launches`` and ``scannet_launches``
+from those phases' card runs); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -3350,6 +3372,592 @@ def check_replica(torch, permuto_cuda, topk, run_mapping, tmp: pathlib.Path, smi
     return launches
 
 
+# -- the trajectory phase: a run on the card held to the same run on the CPU ---
+
+# The lockstep tolerances (tests/test_torch_trajectory.py holds the port to
+# the JAX package with the same ones): losses relative (absolute for terms at
+# 0), cached poses and field positions absolute; params and Adam moments
+# where every gradient that stepped an element passed the floor in magnitude
+# (Adam's eps is 1e-15, so a step of a gradient that is rounding noise, such
+# as weight decay against a vanishing data gradient, is a full +-lr of noise
+# sign), params absolute; an element with k steps below the floor gets k
+# times the difference of two Adam steps, each at most lr (1 - b1) /
+# sqrt(1 - b2) = 3.17 lr, more. Adam's moments everywhere, m relative to the
+# leaf's largest gradient of the run and v to its square (twice the
+# tolerance): ten times what the card's table-gradient kernel may differ
+# from its plain version a call (1e-4 of its largest).
+LOCKSTEP_LOSS_RTOL, LOCKSTEP_LOSS_ATOL = 1e-4, 1e-7
+LOCKSTEP_POSE_ATOL = 1e-5
+LOCKSTEP_GRAD_FLOOR = 1e-4
+LOCKSTEP_PARAM_ATOL = 1e-4
+LOCKSTEP_MOMENT_RTOL = 1e-3
+# the card against the CPU: a ray's depth mask (term prob > 0.8) or a point's
+# ReLU mask can flip at a rounding boundary (the card sums in other orders;
+# the fused kernels' checks zero the cotangent at kink points for this), and
+# one flip moves a first-layer gradient by that ray's share of the sum
+CARD_MOMENT_RTOL = 1e-2
+LOCKSTEP_STEP_BOUND = 2 * 3.17
+TRAJECTORY_FRAMES = 10
+TRAJECTORY_RAYS = 128  # rays a field (512 in the config): keeps the CPU run near a minute
+TRAJECTORY_SEED = 7
+
+
+class GradientFloor:
+    """The smallest gradient (weight decay included) that any Adam step
+    moved each parameter element with: while the context is open it wraps
+    ``optimizer.adam_slice_update`` (the port's module, which every training
+    route calls). ``tight(shapes, floor)`` -> leaf -> (N, ...) bool
+    (numpy): the elements every step of which passed ``floor``, compared
+    tightly."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._min = {}
+        self._low = {}  # steps below LOCKSTEP_GRAD_FLOOR, per element
+        self.peaks = {}  # leaf -> the largest gradient magnitude of any step
+
+    def __enter__(self):
+        import torch
+
+        self._orig = orig = self._optimizer.adam_slice_update
+
+        def tracked(cfg, params, state, field_ids, field_valid, grads, sub_params):
+            for k, g in grads.items():
+                mag = (g + cfg.weight_decay * sub_params[k]).detach().abs().cpu()
+                mag = torch.where(field_valid.cpu().reshape((-1,) + (1,) * (g.ndim - 1)), mag, torch.inf)
+                ids = field_ids.cpu().long()
+                finite = mag[torch.isfinite(mag)]
+                if finite.numel():
+                    self.peaks[k] = max(self.peaks.get(k, 0.0), float(finite.max()))
+                shape = (params[k].shape[0],) + tuple(params[k].shape[1:])
+                smallest = self._grown(self._min, k, shape, torch.inf)
+                smallest.scatter_reduce_(0, ids.reshape((-1,) + (1,) * (g.ndim - 1)).expand_as(mag), mag, "amin")
+                self._grown(self._low, k, shape, 0).index_add_(0, ids, (mag < LOCKSTEP_GRAD_FLOOR).to(torch.int32))
+            return orig(cfg, params, state, field_ids, field_valid, grads, sub_params)
+
+        self._optimizer.adam_slice_update = tracked
+        return self
+
+    def __exit__(self, *exc):
+        self._optimizer.adam_slice_update = self._orig
+
+    @staticmethod
+    def _grown(store: dict, k: str, shape, fill):
+        """store[k] at least ``shape`` (a new leaf, or the capacity grew)."""
+        import torch
+
+        t = store.get(k)
+        if t is None or t.shape[0] < shape[0]:
+            grown = torch.full(shape, fill, dtype=torch.float32 if fill == torch.inf else torch.int32)
+            if t is not None:
+                grown[: t.shape[0]] = t
+            store[k] = t = grown
+        return t
+
+    def low_steps(self, shapes: dict) -> dict:
+        """leaf -> (N, ...) int (numpy): an element's steps whose gradient
+        was below LOCKSTEP_GRAD_FLOOR."""
+        import numpy as np
+
+        out = {}
+        for k, shape in shapes.items():
+            low = np.zeros(shape, np.int64)
+            if k in self._low:
+                got = self._low[k].numpy()
+                low[: got.shape[0]] = got
+            out[k] = low
+        return out
+
+    def tight(self, shapes: dict, floor: float = None) -> dict:
+        import numpy as np
+
+        floor = LOCKSTEP_GRAD_FLOOR if floor is None else floor
+        out = {}
+        for k, shape in shapes.items():
+            low = np.full(shape, np.inf, np.float32)
+            if k in self._min:
+                got = self._min[k].numpy()
+                low[: got.shape[0]] = got
+            out[k] = low >= floor
+        return out
+
+
+def adam_state_gaps(want: dict, got: dict, lr: float, floor: "GradientFloor", keep=None,
+                    moment_rtol: float = LOCKSTEP_MOMENT_RTOL) -> dict:
+    """Two maps' params, Adam moments and step counts (numpy dicts: params,
+    m, v of leaf -> (N, ...), steps (N,)) held to the lockstep tolerances
+    (raises), by what ``floor`` (a GradientFloor over the reference run)
+    saw: a param element whose every step passed the gradient floor within
+    LOCKSTEP_PARAM_ATOL, one with k steps below it within that plus k times
+    the step bound; every element's m within ``moment_rtol`` of the leaf's
+    largest gradient and v within twice that of its square -> per leaf the
+    largest gaps. ``keep``: a (N,) mask of the fields compared (all by
+    default)."""
+    import numpy as np
+
+    steps = np.asarray(want["steps"])
+    keep = np.ones(steps.shape, bool) if keep is None else np.asarray(keep)
+    if not np.array_equal(np.asarray(got["steps"])[keep], steps[keep]):
+        raise AssertionError("Adam step counts differ")
+    steps = steps[keep]
+    low_steps = floor.low_steps({k: np.shape(v) for k, v in want["params"].items()})
+    gaps, errors = {}, []
+    for k in want["params"]:
+        wp, gp = np.asarray(want["params"][k])[keep], np.asarray(got["params"][k])[keep]
+        shape = (-1,) + (1,) * (wp.ndim - 1)
+        low = np.asarray(low_steps[k])[keep]
+        t = (low == 0) & (steps.reshape(shape) > 0)
+        dp = np.abs(wp - gp)
+        bound = LOCKSTEP_PARAM_ATOL + LOCKSTEP_STEP_BOUND * lr * low
+        gaps[k] = {"param_tight": float(dp[t].max(initial=0.0)), "param_all": float(dp.max()),
+                   "tight_share": float(t.mean()), "past_bound": float((dp - bound).max(initial=-1.0))}
+        if not (dp <= bound).all():
+            errors.append(f"params {k}: past the bound by {gaps[k]['past_bound']:.3g}")
+        peak = floor.peaks.get(k, 0.0) or 1.0
+        for name, scale, tol in (("m", peak, moment_rtol), ("v", peak * peak, 2 * moment_rtol)):
+            w = np.asarray(want[name][k])[keep]
+            d = float(np.abs(w - np.asarray(got[name][k])[keep]).max(initial=0.0)) / scale
+            gaps[k][f"{name}_rel"] = d
+            if d > tol:
+                errors.append(f"Adam {name} {k}: gap {d:.3g} of the leaf's largest gradient"
+                              f"{' squared' if name == 'v' else ''} > {tol}")
+    if errors:
+        raise AssertionError(f"{'; '.join(errors)}; gaps {json.dumps(gaps)}")
+    return gaps
+
+
+def params_by_floor(want: dict, got: dict, floor: GradientFloor, shapes: dict,
+                    floors=(1e-6, 1e-5, 1e-4, 1e-3)) -> dict:
+    """Information beside adam_state_gaps: per gradient floor, the share of
+    stepped elements every step of which passed it and their largest param
+    gap, over all leaves."""
+    import numpy as np
+
+    stepped = np.asarray(want["steps"]) > 0
+    out = {}
+    for fl in floors:
+        tight = floor.tight(shapes, fl)
+        gap, n, total = 0.0, 0, 0
+        for k in shapes:
+            t = tight[k] & stepped.reshape((-1,) + (1,) * (len(shapes[k]) - 1))
+            d = np.abs(np.asarray(want["params"][k]) - np.asarray(got["params"][k]))
+            gap = max(gap, float(d[t].max(initial=0.0)))
+            n += int(t.sum())
+            total += int(np.broadcast_to(stepped.reshape((-1,) + (1,) * (len(shapes[k]) - 1)), shapes[k]).sum())
+        out[f"floor_{fl:g}"] = {"tight_share": n / max(total, 1), "param_gap": gap}
+    return out
+
+
+def map_adam_state(e) -> dict:
+    """adam_state_gaps' dict of a map (numpy, on the host)."""
+    return {"params": {k: v.detach().cpu().numpy() for k, v in e._params.items()},
+            "m": {k: v.cpu().numpy() for k, v in e._adam.m.items()},
+            "v": {k: v.cpu().numpy() for k, v in e._adam.v.items()},
+            "steps": e._adam.steps.cpu().numpy()}
+
+
+def host_draw_source(engine, map_state, cfg: dict, device: str, seed: int):
+    """An ``engine.DrawSource`` whose every draw is made on the host by
+    numpy from (seed, kind, frame counter, iteration) and copied to
+    ``device``, so a map on the card and a map on the CPU given sources of
+    one seed draw the same arrays; field init is the port's own, on a CPU
+    generator seeded by (seed, call)."""
+    import numpy as np
+    import torch
+
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
+
+    cell = map_state.field_cell_size(float(cfg["field_radius"]))
+    fset = NeuralFieldSet(**cfg["model_kwargs"])
+
+    class HostDraws(engine.DrawSource):
+        def __init__(self):
+            self.init_calls = 0
+
+        @staticmethod
+        def _rng(*key):
+            return np.random.default_rng([seed, *key])
+
+        @staticmethod
+        def _dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+        def init_fields(self, num_fields):
+            self.init_calls += 1
+            gen = torch.Generator().manual_seed(seed * 1000 + self.init_calls)
+            return {k: v.to(device) for k, v in fset.init_fields(num_fields, gen, "cpu").items()}
+
+        def allocation_shift(self, frame_counter):
+            return self._dev(self._rng(1, frame_counter).random(3, dtype=np.float32) * cell)
+
+        def observed_gumbel(self, frame_counter, shapes, num_points):
+            return self._dev(self._rng(2, frame_counter).gumbel(size=(num_points, shapes.height * shapes.width)))
+
+        def multi_view(self, frame_counter, num_iters, sh):
+            out = []
+            f, r = sh.num_train_fields, sh.num_rays
+            for i in range(num_iters):
+                g = self._rng(3, frame_counter, i)
+                out.append(engine.IterationDraws(
+                    u_obs=self._dev(g.random(sh.capacity, dtype=np.float32)),
+                    u_rand=self._dev(g.random(sh.capacity, dtype=np.float32)),
+                    offsets=self._dev(g.standard_normal((20, 3))),
+                    kf_gumbel=self._dev(g.gumbel(size=(f, r, sh.num_slots))),
+                    pix_u=self._dev(g.random((f, r, 2), dtype=np.float32)),
+                    u_coarse=self._dev(g.random((f, r, sh.num_coarse), dtype=np.float32)),
+                    u_guided=self._dev(g.random((f, r, sh.num_guided), dtype=np.float32)),
+                ))
+            return out
+
+        def single_view(self, num_iters, sh, cache_depth, cache_valid):
+            raise NotImplementedError("the trajectory phase runs multi-view frames")
+
+    return HostDraws()
+
+
+def run_trajectory(torch, engine, map_state, cfg: dict, ds, frames, device: str, floor=None) -> dict:
+    """``frames`` of a map on ``device`` fed by a host draw source -> the
+    map, per-frame records (losses, fields, training counts, observed mask,
+    positions, orientations) and the run's seconds. ``floor``: a
+    GradientFloor to track the run with."""
+    ngm = engine.NeuralGraphMap(cfg, device, draws=host_draw_source(engine, map_state, cfg, device,
+                                                                    TRAJECTORY_SEED))
+    records = []
+    t0 = time.perf_counter()
+    for fid, rgbd in enumerate(frames):
+        if floor is None:
+            losses = ngm.process_frame(ds, fid, rgbd)
+        else:
+            with floor:
+                losses = ngm.process_frame(ds, fid, rgbd)
+        a = ngm._map_arrays
+
+        def snapshot(t):  # a copy: on the CPU .numpy() would alias the map's live tensor
+            return t.cpu().numpy().copy()
+
+        records.append({"losses": losses, "fields": ngm.num_fields, "capacity": ngm.capacity,
+                        "training": snapshot(a.training_iterations), "observed": snapshot(ngm._observed_mask),
+                        "positions": snapshot(a.positions), "orientations": snapshot(a.orientations),
+                        "kf_slots": snapshot(a.kf_slots)})
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return {"map": ngm, "records": records, "seconds": time.perf_counter() - t0}
+
+
+def check_trajectory(torch, engine, map_state, permuto_cuda, topk, smi) -> dict:
+    """Phase trajectory: TRAJECTORY_FRAMES frames of the synthetic scene at
+    the production encoding and MLP widths (rays a field cut to
+    TRAJECTORY_RAYS) on the card and on the CPU (plain versions), both maps
+    fed the same host-made draws (``engine.DrawSource``): after every frame
+    the same fields, training counts, observed mask and keyframe slots, the
+    losses and field poses within the lockstep tolerances; at the end the
+    params and Adam moments by ``adam_state_gaps``, compared tightly where
+    the CPU run's gradients passed the floor (GradientFloor). -> the card
+    run's launches (kernels 1-3)."""
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+
+    cfg = dict(copy.deepcopy(CONFIG), num_rays_per_field=TRAJECTORY_RAYS)
+    ds = str_to_object(cfg["dataset_type"])(cfg["dataset_config"])
+    ds.load_slam_results()
+    frames = [ds[i]["rgbd"] for i in range(TRAJECTORY_FRAMES)]
+    from neural_graph_mapping_tpu_torch.mapping import optimizer
+
+    floor = GradientFloor(optimizer)
+    cpu = run_trajectory(torch, engine, map_state, cfg, ds, frames, "cpu", floor)
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    card = run_trajectory(torch, engine, map_state, cfg, ds, frames, "cuda")
+    launches = all_launches(permuto_cuda, topk)
+    gaps = []
+    for fid, (want, got) in enumerate(zip(cpu["records"], card["records"])):
+        for key in ("fields", "capacity"):
+            if want[key] != got[key]:
+                raise AssertionError(f"trajectory frame {fid}: {key} {got[key]} on the card, {want[key]} on the CPU")
+        for key in ("training", "observed", "kf_slots"):
+            if not np.array_equal(want[key], got[key]):
+                raise AssertionError(f"trajectory frame {fid}: {key} differs from the CPU run")
+        pose_gap = max(float(np.abs(want[k] - got[k]).max()) for k in ("positions", "orientations"))
+        if pose_gap > LOCKSTEP_POSE_ATOL:
+            raise AssertionError(f"trajectory frame {fid}: field poses part by {pose_gap:.3g}")
+        if set(want["losses"]) != set(got["losses"]):
+            raise AssertionError(f"trajectory frame {fid}: loss keys differ")
+        rel = 0.0
+        for k, w in want["losses"].items():
+            g = got["losses"][k]
+            if not (math.isfinite(g) and abs(g - w) <= LOCKSTEP_LOSS_ATOL + LOCKSTEP_LOSS_RTOL * abs(w)):
+                raise AssertionError(f"trajectory frame {fid}: loss {k} {g} on the card, {w} on the CPU")
+            rel = max(rel, abs(g - w) / max(abs(w), 1e-12))
+        gaps.append({"frame": fid, "fields": got["fields"], "loss_max_rel": rel, "pose_max_abs": pose_gap})
+    trained = sum(1 for r in card["records"] if r["losses"])
+    want, got = map_adam_state(cpu["map"]), map_adam_state(card["map"])
+    shapes = {k: v.shape for k, v in want["params"].items()}
+    phase("trajectory_params_by_floor", card=smi, **params_by_floor(want, got, floor, shapes))
+    param_gaps = adam_state_gaps(want, got, cfg["learning_rate"], floor, moment_rtol=CARD_MOMENT_RTOL)
+    for name in ("encode_fwd", "encode_bwd_table", "batched_gather"):
+        if launches[name] != cfg["num_iterations_per_frame"] * trained:
+            raise AssertionError(f"trajectory: {name} launched {launches[name]} times for {trained} trained frames")
+    phase("trajectory", frames=TRAJECTORY_FRAMES, trained_frames=trained, rays_per_field=TRAJECTORY_RAYS,
+          rays_per_field_config=CONFIG["num_rays_per_field"], fields=card["map"].num_fields,
+          capacity=card["map"].capacity, cpu_seconds=cpu["seconds"], card_seconds=card["seconds"],
+          per_frame=gaps, final_params=param_gaps,
+          launches={k: v for k, v in launches.items() if v},
+          tolerance={"loss_rtol": LOCKSTEP_LOSS_RTOL, "loss_atol": LOCKSTEP_LOSS_ATOL,
+                     "pose_atol": LOCKSTEP_POSE_ATOL, "grad_floor": LOCKSTEP_GRAD_FLOOR,
+                     "param_atol": LOCKSTEP_PARAM_ATOL, "moment_rtol": CARD_MOMENT_RTOL,
+                     "step_bound_lr": LOCKSTEP_STEP_BOUND},
+          card=smi)
+    return launches
+
+
+# -- the quality phase: the CLI at the quality configuration, three seeds -----
+
+QUALITY_SEEDS = (0, 1, 2)
+# config/neural_graph_map.yaml + config/synthetic.yaml cut so that the JAX
+# package's CLI finishes on 8 CPU cores within 15 minutes: 20 frames (60),
+# eval_ratio 0.25 (0.1: at 20 frames the scene has 4 keyframes, and the
+# fourth, frame 15, is held out), no mesh (JAX's CPU meshing takes its
+# capacity route, minutes and dropped pairs; the card's run below meshes).
+QUALITY_CUTS = {"num_frames": 20, "eval_ratio": 0.25, "extract_mesh": False}
+# The JAX package's CLI on the CPU at that configuration, seeds 0-2:
+# ``python -m neural_graph_mapping_tpu.run_mapping --config
+# neural_graph_map.yaml synthetic.yaml --dataset_config.num_frames 20
+# --eval_ratio 0.25 --extract_mesh false --seed S`` on 8 CPU cores
+# (PERF.md's quality table, PR 13): the held-out frame 15's final PSNR (dB)
+# and depth-L1 (m) as the runs printed them. JAX's CPU render takes its
+# capacity route, which dropped pairs in these runs.
+JAX_CPU_QUALITY = {
+    0: {"final_psnr": 8.058877944946289, "final_depthl1": 2.7066173553466797},
+    1: {"final_psnr": 9.034677505493164, "final_depthl1": 4.384608745574951},
+    2: {"final_psnr": 7.910768508911133, "final_depthl1": 3.5164413452148438},
+}
+
+
+def quality_config(seed: int, out_dir: pathlib.Path) -> dict:
+    """The quality configuration (QUALITY_CUTS) at ``seed``; the card's run
+    also meshes (at config/synthetic.yaml's 0.04 m), after its fit."""
+    cfg = copy.deepcopy(CONFIG)
+    cfg["dataset_config"]["num_frames"] = QUALITY_CUTS["num_frames"]
+    cfg.update(eval_ratio=QUALITY_CUTS["eval_ratio"], seed=seed, out_dir=str(out_dir), eval_store_details=False,
+               render_vis=False)
+    return cfg
+
+
+def check_quality(torch, run_mapping, permuto_cuda, topk, tmp: pathlib.Path, smi) -> dict:
+    """Phase quality: the port's CLI runner on the card at the quality
+    configuration for QUALITY_SEEDS, each run's final and online PSNR and
+    depth-L1, its mesh (vertices, faces, seconds; the synthetic scene has no
+    ground-truth mesh to score, and a map whose field crosses no isosurface
+    meshes to nothing), beside the JAX package's CPU numbers
+    (JAX_CPU_QUALITY) and whether each seed falls inside JAX's range.
+    Kernels 1-6 must launch. -> the three runs' launches."""
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    runs = []
+    for seed in QUALITY_SEEDS:
+        runner = run_mapping.NeuralGraphMapRunner(quality_config(seed, tmp / f"quality_{seed}"), device="cuda")
+        mesh = {}
+        extract = runner.extract_mesh
+
+        def counted_extract_mesh(*args, _extract=extract, _mesh=mesh, **kwargs):
+            t0 = time.perf_counter()
+            out = _extract(*args, **kwargs)  # None where the field crosses no isosurface
+            torch.cuda.synchronize()
+            _mesh.update(seconds=time.perf_counter() - t0, vertices=0 if out is None else len(out.vertices),
+                         faces=0 if out is None else len(out.faces))
+            return out
+
+        runner.extract_mesh = counted_extract_mesh
+        t0 = time.perf_counter()
+        metrics = runner.fit()
+        torch.cuda.synchronize()
+        want = ["final_psnr", "final_depthl1", "online_psnr", "online_depthl1"]
+        bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+        if bad or "seconds" not in mesh:
+            raise AssertionError(f"quality seed {seed}: non-finite or missing {bad}, mesh {mesh}")
+        runs.append({"seed": seed, "fit_seconds": time.perf_counter() - t0, "fields": runner.engine.num_fields,
+                     "eval_frames": sorted(runner.eval_frame_ids), **{k: metrics[k] for k in want},
+                     "spf_estimate": metrics["spf_estimate"], "mesh": mesh})
+        del runner
+    launches = all_launches(permuto_cuda, topk)
+    missing = [k for k in ("encode_fwd", "encode_bwd_table", "batched_gather", "topk2_fields",
+                           "encode_fwd_moe_rays", "encode_fwd_moe") if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"quality: {missing} never launched")
+    judged = {}
+    if JAX_CPU_QUALITY:
+        for key in ("final_psnr", "final_depthl1"):
+            jax_values = [JAX_CPU_QUALITY[s][key] for s in QUALITY_SEEDS]
+            lo, hi = min(jax_values), max(jax_values)
+            judged[key] = {"jax_cpu_range": [lo, hi],
+                           "card_seeds_inside": [lo <= r[key] <= hi for r in runs],
+                           "card_mean": statistics.mean(r[key] for r in runs),
+                           "jax_cpu_mean": statistics.mean(jax_values)}
+    phase("quality", cuts=QUALITY_CUTS, seeds=runs, jax_cpu=JAX_CPU_QUALITY, judged=judged,
+          launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+# -- the scannet phase: a ScanNet-layout scene, preprocessed without PIL -------
+
+# config/scannet_dataset.yaml, written out as CONFIG is;
+# tests/test_torch_scannet_preprocess.py checks it against the file
+SCANNET_DATASET = {
+    "dataset_type": "neural_graph_mapping_tpu.datasets.scannet.ScanNetDataset",
+    "dataset_config": {
+        "root_dir": "${NGM_DATA_DIR}/scannet",
+        "scene": "scene0000_00",
+        "fps": 30,
+        "up_axis": "z",
+        "slam_c2w_file": "orbslam2_c2w.json",
+        "slam_pg_file": "orbslam2_pg.json",
+        "slam_final_file": "orbslam2_final.txt",
+    },
+}
+SCANNET_FRAMES = 6
+SCANNET_COLOR = (1296, 968)  # ScanNet's colour frames (w, h)
+SCANNET_DEPTH = (640, 480)  # and its depth frames
+SCANNET_FX = 577.6  # depth-camera focal length, pixels (ScanNet's order of magnitude)
+
+
+def scannet_synthetic(size, frames: int, depth_size, fx: float):
+    """The synthetic scene through a pinhole of ``size`` (w, h) with the
+    field of view of a depth camera of ``depth_size`` and focal ``fx``."""
+    from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    return SyntheticDataset({"num_frames": frames, "width": size[0], "height": size[1],
+                             "fx": fx * size[0] / depth_size[0], "fy": fx * size[1] / depth_size[1]})
+
+
+def write_scannet_frames(scene_dir: str, frame_ids, frames: int, color_size, depth_size, fx: float) -> None:
+    """Ray-cast frames at ScanNet's two resolutions and write them as
+    ScanNet does: ``color/{i}.jpg`` at ``color_size`` (the port's encoder,
+    PIL's save defaults) and ``depth/{i}.png`` 16-bit in millimetres at
+    ``depth_size``. Runs in a worker process."""
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.utils import imageio, jpeg
+
+    scene = pathlib.Path(scene_dir)
+    color = scannet_synthetic(color_size, frames, depth_size, fx)
+    depth = scannet_synthetic(depth_size, frames, depth_size, fx)
+    for i in frame_ids:
+        rgb = color._raycast(color.gt_c2ws[i])[..., :3]
+        jpeg.write_jpeg(scene / "color" / f"{i}.jpg", np.round(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8))
+        d = depth._raycast(depth.gt_c2ws[i])[..., 3]
+        imageio.write_png(scene / "depth" / f"{i}.png", np.round(np.clip(d * 1000.0, 0, 65535)).astype(np.uint16))
+
+
+def write_scannet_scene(root: pathlib.Path, workers: int) -> dict:
+    """A ScanNet-layout scene under ``root`` (SCANNET_FRAMES frames, colour
+    at SCANNET_COLOR, depth at SCANNET_DEPTH): colour, depth, pose/{i}.txt
+    (OpenCV c2w), intrinsic/intrinsic_depth.txt and the ORB-SLAM2 files (no
+    drift), no ``aligned_color_to_depth/``; the frames by ``workers``
+    processes (1: this one)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV
+
+    t0 = time.perf_counter()
+    n, depth_size = SCANNET_FRAMES, SCANNET_DEPTH
+    scene = root / SCANNET_DATASET["dataset_config"]["scene"]
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        (scene / sub).mkdir(parents=True)
+    gt = scannet_synthetic(depth_size, n, depth_size, SCANNET_FX).gt_c2ws
+    for i in range(n):
+        np.savetxt(scene / "pose" / f"{i}.txt", gt[i] @ OGL2OCV)
+    intr = np.eye(4)
+    intr[0, 0] = intr[1, 1] = SCANNET_FX
+    intr[0, 2], intr[1, 2] = depth_size[0] / 2.0, depth_size[1] / 2.0
+    np.savetxt(scene / "intrinsic" / "intrinsic_depth.txt", intr)
+    write_slam_files(scene, gt, kf_freq=2, lc_frame=n, max_drift=0.0)
+    args = (n, SCANNET_COLOR, depth_size, SCANNET_FX)
+    if workers == 1:
+        write_scannet_frames(str(scene), range(n), *args)
+    else:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+            for fut in [pool.submit(write_scannet_frames, str(scene), list(range(w, n, workers)), *args)
+                        for w in range(workers)]:
+                fut.result()
+    return {"frames": n, "color": list(SCANNET_COLOR), "depth": list(depth_size), "workers": workers,
+            "write_seconds": time.perf_counter() - t0,
+            "color_bytes": sum(p.stat().st_size for p in (scene / "color").iterdir())}
+
+
+class _BlockPIL:
+    """A meta-path finder that refuses PIL."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "PIL":
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+def check_scannet(torch, run_mapping, permuto_cuda, topk, tmp: pathlib.Path, smi) -> dict:
+    """Phase scannet_scene: a ScanNet-layout scene written here (1296x968
+    JPEG colour by the port's encoder, 640x480 16-bit depth), loaded for the
+    first time with PIL refused by the import system (and not installed on
+    the card's machine), so its colour is resized and cached without PIL;
+    then the CLI runner trains on it at config/neural_graph_map.yaml +
+    config/scannet_dataset.yaml (no held-out frame, no mesh). Kernels 1-3
+    must launch. -> the run's launches."""
+    import importlib.util
+
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.utils import jpeg
+
+    pil_installed = importlib.util.find_spec("PIL") is not None
+    written = write_scannet_scene(tmp / "scannet", workers=max(1, min(SCANNET_FRAMES, (os.cpu_count() or 2) - 1)))
+    blocker = _BlockPIL()
+    sys.meta_path.insert(0, blocker)
+    try:
+        try:
+            import PIL  # noqa: F401
+
+            raise AssertionError("scannet_scene: PIL is importable")
+        except ImportError:
+            pass
+        cfg = copy.deepcopy(dict(MODEL_CONFIG, **SCANNET_DATASET))
+        cfg["dataset_config"].update(root_dir=str(tmp / "scannet"))
+        cfg.update(eval_ratio=0.0, extract_mesh=False, eval_store_details=False, render_vis=False,
+                   out_dir=str(tmp / "scannet_runs"))
+        torch.cuda.synchronize()
+        permuto_cuda.reset_launch_counts()
+        topk.reset_launch_counts()
+        runner = run_mapping.NeuralGraphMapRunner(cfg, device="cuda")
+        t0 = time.perf_counter()
+        metrics = runner.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = all_launches(permuto_cuda, topk)
+    finally:
+        sys.meta_path.remove(blocker)
+    aligned = sorted((tmp / "scannet" / cfg["dataset_config"]["scene"] / "aligned_color_to_depth").iterdir())
+    shapes = {tuple(jpeg.read_jpeg(p).shape) for p in aligned}
+    e = runner.engine
+    trained = int(e._map_arrays.training_iterations.sum())
+    if len(aligned) != SCANNET_FRAMES or shapes != {(SCANNET_DEPTH[1], SCANNET_DEPTH[0], 3)}:
+        raise AssertionError(f"scannet_scene: aligned frames {[p.name for p in aligned]}, shapes {shapes}")
+    if e.num_fields < 1 or trained < 1 or not np.isfinite(metrics["spf_estimate"]):
+        raise AssertionError(f"scannet_scene: {e.num_fields} fields, {trained} training steps")
+    for name in ("encode_fwd", "encode_bwd_table", "batched_gather"):
+        if launches[name] < 1:
+            raise AssertionError(f"scannet_scene: {name} never launched")
+    phase("scannet_scene", **written, pil_installed=pil_installed, pil_blocked=True,
+          aligned_frames=len(aligned), aligned_shape=sorted(shapes)[0], fit_seconds=fit_s, fields=e.num_fields,
+          training_iterations_sum=trained, spf_estimate=metrics["spf_estimate"],
+          launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=pathlib.Path, default=None, metavar="PATH",
@@ -3496,6 +4104,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="ngm_replica_") as tmp:
         replica_launches = check_replica(torch, permuto_cuda, topk, run_mapping, pathlib.Path(tmp), smi)
 
+    # -- 15. a run on the card in lockstep with the CPU; quality; ScanNet without PIL
+    from neural_graph_mapping_tpu_torch.mapping import map_state
+
+    trajectory_launches = check_trajectory(torch, engine, map_state, permuto_cuda, topk, smi)
+    with tempfile.TemporaryDirectory(prefix="ngm_quality_") as tmp:
+        quality_launches = check_quality(torch, run_mapping, permuto_cuda, topk, pathlib.Path(tmp), smi)
+    with tempfile.TemporaryDirectory(prefix="ngm_scannet_") as tmp:
+        scannet_launches = check_scannet(torch, run_mapping, permuto_cuda, topk, pathlib.Path(tmp), smi)
+
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:
         if launches[name] < 1:
@@ -3509,6 +4126,10 @@ def main() -> None:
                 row[f"single_view_{route}_launches"] = counts[name]
         if replica_launches[name]:
             row["replica_launches"] = replica_launches[name]
+        for path, counts in (("trajectory", trajectory_launches), ("quality", quality_launches),
+                             ("scannet", scannet_launches)):
+            if counts[name]:
+                row[f"{path}_launches"] = counts[name]
         sharded = {path: counts.get(name, 0) for path, counts in sharded_launches.items() if counts.get(name)}
         if sharded:
             row["sharded_rank0_launches"] = sharded

@@ -622,6 +622,391 @@ struct Decoder {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Baseline encoder: what libjpeg-turbo writes at its compression defaults
+// (the defaults of PIL's Image.save for JPEG): quality 75 by the IJG
+// scaling of the Annex K tables, 4:2:0 sampling for colour, the standard
+// Huffman tables (not optimised), the fixed-point RGB -> YCbCr tables of
+// jccolor.c, h2v2 downsampling with the alternating 1, 2 bias of
+// jcsample.c, edge columns and rows replicated as jcsample.c and jcprepct.c
+// pad them, the "islow" forward DCT of jfdctint.c and the reciprocal
+// quantisation of jcdctmgr.c, dummy blocks at the right and bottom edges as
+// jccoefct.c makes them, and jcmarker.c's marker order (SOI, JFIF APP0,
+// DQT, SOF0, DHT, SOS, EOI).
+
+const uint8_t kStdLumaQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+// jcparam.c jpeg_quality_scaling + jpeg_add_quant_table (force_baseline)
+void scaled_qtable(const uint8_t* base, int quality, uint16_t* q) {
+  if (quality <= 0) quality = 1;
+  if (quality > 100) quality = 100;
+  int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+  for (int i = 0; i < 64; ++i) {
+    long t = ((long)base[i] * scale + 50L) / 100L;
+    if (t <= 0) t = 1;
+    if (t > 255) t = 255;
+    q[i] = (uint16_t)t;
+  }
+}
+
+// jcdctmgr.c compute_reciprocal for 16-bit DCTELEMs: (|x| + corr) * recip >> shift
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;
+};
+
+Divisor reciprocal(uint32_t d) {
+  if (d == 1) return {1, 0, 0};
+  int b = 31 - __builtin_clz(d);  // flss(d) - 1
+  int r = 16 + b;
+  uint64_t fq = ((uint64_t)1 << r) / d, fr = ((uint64_t)1 << r) % d;
+  uint32_t c = d / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    --r;
+  } else if (fr <= d / 2U) {
+    ++c;
+  } else {
+    ++fq;
+  }
+  return {(uint32_t)fq, c, r};
+}
+
+// jfdctint.c jpeg_fdct_islow: in place, output scaled up by 8
+void fdct_islow(int32_t* data) {
+  const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373,
+                F1175 = 9633, F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819,
+                F2562 = 20995, F3072 = 25172;
+  const int CB = 13, P1 = 2;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass == 0 ? 1 : 8, next = pass == 0 ? 8 : 1;
+    const int odd_shift = pass == 0 ? CB - P1 : CB + P1;
+    for (int ctr = 0; ctr < 8; ++ctr) {
+      int32_t* p = data + ctr * next;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step], tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step], tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      if (pass == 0) {
+        p[0] = (int32_t)((tmp10 + tmp11) * (1 << P1));
+        p[4 * step] = (int32_t)((tmp10 - tmp11) * (1 << P1));
+      } else {
+        p[0] = descale(tmp10 + tmp11, P1);
+        p[4 * step] = descale(tmp10 - tmp11, P1);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0541;
+      p[2 * step] = descale(z1 + tmp13 * F0765, odd_shift);
+      p[6 * step] = descale(z1 - tmp12 * F1847, odd_shift);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * F1175;
+      tmp4 *= F0298;
+      tmp5 *= F2053;
+      tmp6 *= F3072;
+      tmp7 *= F1501;
+      z1 *= -F0899;
+      z2 *= -F2562;
+      z3 *= -F1961;
+      z4 *= -F0390;
+      z3 += z5;
+      z4 += z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, odd_shift);
+      p[5 * step] = descale(tmp5 + z2 + z4, odd_shift);
+      p[3 * step] = descale(tmp6 + z2 + z3, odd_shift);
+      p[step] = descale(tmp7 + z1 + z4, odd_shift);
+    }
+  }
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int n = 0;
+  void put(uint32_t code, int len) {
+    for (int i = len - 1; i >= 0; --i) {
+      acc = (acc << 1) | ((code >> i) & 1);
+      if (++n == 8) {
+        out.push_back((uint8_t)acc);
+        if (acc == 0xFF) out.push_back(0);
+        acc = 0;
+        n = 0;
+      }
+    }
+  }
+  void flush() {  // jchuff.c flush_bits: pad with one bits
+    if (n) put(0x7F, 8 - n);
+  }
+};
+
+struct HuffCodes {
+  uint16_t code[256];
+  uint8_t len[256];
+  void build(const uint8_t* bits, const uint8_t* vals) {
+    std::memset(len, 0, sizeof(len));
+    int c = 0, k = 0;
+    for (int l = 1; l <= 16; ++l) {
+      for (int i = 0; i < bits[l - 1]; ++i, ++k) {
+        code[vals[k]] = (uint16_t)c++;
+        len[vals[k]] = (uint8_t)l;
+      }
+      c <<= 1;
+    }
+  }
+};
+
+inline int bit_count(int v) {
+  int n = 0;
+  for (v = v < 0 ? -v : v; v; v >>= 1) ++n;
+  return n;
+}
+
+// one component's sample plane, padded to whole blocks as libjpeg pads it
+struct Plane {
+  int w = 0, h = 0;  // padded size (multiples of 8)
+  std::vector<uint8_t> px;
+};
+
+void put_marker_segment(std::vector<uint8_t>& out, int marker, const std::vector<uint8_t>& body) {
+  out.push_back(0xFF);
+  out.push_back((uint8_t)marker);
+  size_t len = body.size() + 2;
+  out.push_back((uint8_t)(len >> 8));
+  out.push_back((uint8_t)len);
+  out.insert(out.end(), body.begin(), body.end());
+}
+
+std::vector<uint8_t> encode_jpeg(const uint8_t* src, int width, int height, int channels, int quality) {
+  if (width < 1 || height < 1 || width > 65535 || height > 65535) fail("image size out of range");
+  if (channels != 1 && channels != 3) fail("the encoder takes 1 (gray) or 3 (RGB) channels");
+  const bool color = channels == 3;
+  const int hmax = color ? 2 : 1, vmax = hmax;
+  const int mcu_w = 8 * hmax, mcu_h = 8 * vmax;
+  const int mcus_x = (width + mcu_w - 1) / mcu_w, mcus_y = (height + mcu_h - 1) / mcu_h;
+  const int ncomp = channels;
+
+  // colour conversion into full-resolution planes (jccolor.c rgb_ycc_convert)
+  std::vector<std::vector<uint8_t>> full(ncomp, std::vector<uint8_t>((size_t)width * height));
+  if (color) {
+    const int32_t SB = 16, HALF = 1 << 15, OFF = 128 << 16;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    const int32_t ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+    const int32_t rcb = -fix(0.16874), gcb = -fix(0.33126), bcb = fix(0.50000);
+    const int32_t gcr = -fix(0.41869), bcr = -fix(0.08131);
+    for (size_t i = 0; i < (size_t)width * height; ++i) {
+      int32_t r = src[3 * i], g = src[3 * i + 1], b = src[3 * i + 2];
+      full[0][i] = (uint8_t)((ry * r + gy * g + by * b + HALF) >> SB);
+      full[1][i] = (uint8_t)((rcb * r + gcb * g + bcb * b + OFF + HALF - 1) >> SB);
+      full[2][i] = (uint8_t)((bcb * r + gcr * g + bcr * b + OFF + HALF - 1) >> SB);
+    }
+  } else {
+    std::memcpy(full[0].data(), src, (size_t)width * height);
+  }
+
+  // padded planes: rows padded to a multiple of vmax by replicating the last
+  // row (jcprepct.c), columns by replicating the last column (jcsample.c
+  // expand_right_edge), downsampled, then rows padded to the iMCU height by
+  // replicating the last (downsampled) row
+  std::vector<Plane> planes(ncomp);
+  int hs[3] = {hmax, 1, 1};
+  for (int c = 0; c < ncomp; ++c) {
+    Plane& p = planes[c];
+    const int wib = (width * hs[c] + 8 * hmax - 1) / (8 * hmax);  // width_in_blocks
+    p.w = wib * 8;
+    p.h = mcus_y * 8 * hs[c];
+    p.px.assign((size_t)p.w * p.h, 0);
+    const int in_rows = (height + vmax - 1) / vmax * vmax;
+    auto sample = [&](int x, int y) {  // replicated edges of the full plane
+      if (x >= width) x = width - 1;
+      if (y >= height) y = height - 1;
+      return (int)full[c][(size_t)y * width + x];
+    };
+    int rows_made;
+    if (hs[c] == hmax) {  // fullsize_downsample
+      rows_made = in_rows;
+      for (int y = 0; y < rows_made; ++y)
+        for (int x = 0; x < p.w; ++x) p.px[(size_t)y * p.w + x] = (uint8_t)sample(x, y);
+    } else {  // h2v2_downsample
+      rows_made = in_rows / 2;
+      for (int y = 0; y < rows_made; ++y) {
+        int bias = 1;
+        for (int x = 0; x < p.w; ++x) {
+          int s = sample(2 * x, 2 * y) + sample(2 * x + 1, 2 * y) + sample(2 * x, 2 * y + 1) +
+                  sample(2 * x + 1, 2 * y + 1);
+          p.px[(size_t)y * p.w + x] = (uint8_t)((s + bias) >> 2);
+          bias ^= 3;
+        }
+      }
+    }
+    for (int y = rows_made; y < p.h; ++y)
+      std::memcpy(&p.px[(size_t)y * p.w], &p.px[(size_t)(rows_made - 1) * p.w], p.w);
+  }
+
+  uint16_t qt[2][64];
+  scaled_qtable(kStdLumaQ, quality, qt[0]);
+  scaled_qtable(kStdChromaQ, quality, qt[1]);
+  Divisor div[2][64];
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 64; ++i) div[t][i] = reciprocal((uint32_t)qt[t][i] << 3);
+  HuffCodes dc[2], ac[2];
+  dc[0].build(kDcLumaBits, kDcVals);
+  ac[0].build(kAcLumaBits, kAcLumaVals);
+  dc[1].build(kDcChromaBits, kDcVals);
+  ac[1].build(kAcChromaBits, kAcChromaVals);
+
+  std::vector<uint8_t> out;
+  out.push_back(0xFF);
+  out.push_back(0xD8);
+  put_marker_segment(out, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < (color ? 2 : 1); ++t) {
+    std::vector<uint8_t> body{(uint8_t)t};
+    for (int i = 0; i < 64; ++i) body.push_back((uint8_t)qt[t][kZigzag[i]]);
+    put_marker_segment(out, 0xDB, body);
+  }
+  {
+    std::vector<uint8_t> body{8, (uint8_t)(height >> 8), (uint8_t)height, (uint8_t)(width >> 8),
+                              (uint8_t)width, (uint8_t)ncomp};
+    for (int c = 0; c < ncomp; ++c) {
+      body.push_back((uint8_t)(c + 1));
+      body.push_back((uint8_t)((hs[c] << 4) | hs[c]));
+      body.push_back((uint8_t)(c ? 1 : 0));
+    }
+    put_marker_segment(out, 0xC0, body);
+  }
+  const uint8_t* bits_tab[2][2] = {{kDcLumaBits, kAcLumaBits}, {kDcChromaBits, kAcChromaBits}};
+  const uint8_t* vals_tab[2][2] = {{kDcVals, kAcLumaVals}, {kDcVals, kAcChromaVals}};
+  for (int t = 0; t < (color ? 2 : 1); ++t)
+    for (int k = 0; k < 2; ++k) {
+      std::vector<uint8_t> body{(uint8_t)((k << 4) | t)};
+      int count = 0;
+      for (int i = 0; i < 16; ++i) {
+        body.push_back(bits_tab[t][k][i]);
+        count += bits_tab[t][k][i];
+      }
+      body.insert(body.end(), vals_tab[t][k], vals_tab[t][k] + count);
+      put_marker_segment(out, 0xC4, body);
+    }
+  {
+    std::vector<uint8_t> body{(uint8_t)ncomp};
+    for (int c = 0; c < ncomp; ++c) {
+      body.push_back((uint8_t)(c + 1));
+      body.push_back((uint8_t)(c ? 0x11 : 0x00));
+    }
+    body.insert(body.end(), {0, 63, 0});
+    put_marker_segment(out, 0xDA, body);
+  }
+
+  BitWriter bw{out};
+  int last_dc[3] = {0, 0, 0};
+  auto encode_block = [&](const int16_t* blk, int c) {  // jchuff.c encode_one_block
+    const int t = c ? 1 : 0;
+    int diff = blk[0] - last_dc[c];
+    last_dc[c] = blk[0];
+    int nb = bit_count(diff);
+    bw.put(dc[t].code[nb], dc[t].len[nb]);
+    if (nb) bw.put((uint32_t)(diff < 0 ? diff - 1 : diff) & ((1u << nb) - 1), nb);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      int v = blk[kZigzag[k]];
+      if (v == 0) {
+        ++run;
+        continue;
+      }
+      while (run > 15) {
+        bw.put(ac[t].code[0xF0], ac[t].len[0xF0]);
+        run -= 16;
+      }
+      nb = bit_count(v);
+      int sym = (run << 4) | nb;
+      bw.put(ac[t].code[sym], ac[t].len[sym]);
+      bw.put((uint32_t)(v < 0 ? v - 1 : v) & ((1u << nb) - 1), nb);
+      run = 0;
+    }
+    if (run > 0) bw.put(ac[t].code[0], ac[t].len[0]);
+  };
+  auto forward_block = [&](const Plane& p, int bx, int by, int t, int16_t* blk) {
+    int32_t ws[64];
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x)
+        ws[y * 8 + x] = (int32_t)p.px[(size_t)(by * 8 + y) * p.w + bx * 8 + x] - 128;
+    fdct_islow(ws);
+    for (int i = 0; i < 64; ++i) {
+      const Divisor& d = div[t][i];
+      uint32_t a = (uint32_t)(ws[i] < 0 ? -ws[i] : ws[i]);
+      int32_t qv = (int32_t)(((uint64_t)(a + d.corr) * d.recip) >> d.shift);
+      blk[i] = (int16_t)(ws[i] < 0 ? -qv : qv);
+    }
+  };
+
+  int16_t mcu[6][64];
+  for (int my = 0; my < mcus_y; ++my)
+    for (int mx = 0; mx < mcus_x; ++mx) {
+      int blkn = 0;
+      for (int c = 0; c < ncomp; ++c) {
+        const Plane& p = planes[c];
+        const int wib = p.w / 8, hib = (height * hs[c] + 8 * vmax - 1) / (8 * vmax);
+        for (int yi = 0; yi < hs[c]; ++yi) {
+          const int by = my * hs[c] + yi;
+          for (int xi = 0; xi < hs[c]; ++xi, ++blkn) {
+            const int bx = mx * hs[c] + xi;
+            if (by < hib && bx < wib) {
+              forward_block(p, bx, by, c ? 1 : 0, mcu[blkn]);
+            } else {  // dummy block: zeros, the DC of the block before it
+              std::memset(mcu[blkn], 0, sizeof(mcu[blkn]));
+              mcu[blkn][0] = by < hib ? mcu[blkn - 1][0] : mcu[blkn - xi - 1][0];
+            }
+          }
+        }
+      }
+      blkn = 0;
+      for (int c = 0; c < ncomp; ++c)
+        for (int i = 0; i < hs[c] * hs[c]; ++i) encode_block(mcu[blkn++], c);
+    }
+  bw.flush();
+  out.push_back(0xFF);
+  out.push_back(0xD9);
+  return out;
+}
+
 void copy_error(const std::string& msg, char* err, int errlen) {
   if (errlen <= 0) return;
   std::snprintf(err, (size_t)errlen, "%s", msg.c_str());
@@ -656,6 +1041,27 @@ int ngm_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, size_t out_len,
     dec.parse(false);
     if ((size_t)dec.width * dec.height * dec.ncomp != out_len) fail("output buffer size mismatch");
     dec.output(out);
+    return 0;
+  } catch (const Error& e) {
+    copy_error(e.msg, err, errlen);
+    return 1;
+  } catch (const std::bad_alloc&) {
+    copy_error("out of memory", err, errlen);
+    return 1;
+  }
+}
+
+// encode (height, width, channels) uint8 samples (gray or RGB) as a baseline
+// JPEG at quality; the file's bytes go to out when they fit out_cap, and
+// their count to out_len either way. 0 on success, 2 when out is too small,
+// 1 with a message in err on an error
+int ngm_jpeg_encode(const uint8_t* pixels, int width, int height, int channels, int quality,
+                    uint8_t* out, size_t out_cap, size_t* out_len, char* err, int errlen) {
+  try {
+    std::vector<uint8_t> file = encode_jpeg(pixels, width, height, channels, quality);
+    *out_len = file.size();
+    if (file.size() > out_cap) return 2;
+    std::memcpy(out, file.data(), file.size());
     return 0;
   } catch (const Error& e) {
     copy_error(e.msg, err, errlen);

@@ -6,10 +6,12 @@ Directory layout (ScanNet sens export):
     {root_dir}/{scene}/depth/*.png        depth (mm), depth-camera resolution
     {root_dir}/{scene}/pose/*.txt         per-frame 4x4 OpenCV c2w
     {root_dir}/{scene}/intrinsic/intrinsic_depth.txt
-Color frames are resized (Lanczos, PIL's) to the depth resolution and cached
-to ``aligned_color_to_depth/`` on first use (reference
-scannet_dataset.py:202-212); where that directory exists, PIL is needed only
-to read JPEG frames. Intrinsics use pixel_center = 1.0 (reference :200).
+Color frames are resized (PIL's Lanczos, reproduced by
+``imageio.resize_lanczos``) to the depth resolution and cached to
+``aligned_color_to_depth/`` on first use (reference
+scannet_dataset.py:202-212), written by the port's JPEG encoder at PIL's
+save defaults; no step needs PIL. Intrinsics use pixel_center = 1.0
+(reference :200).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 
 from neural_graph_mapping_tpu_torch.camera import Camera
 from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV, SLAMDataset
-from neural_graph_mapping_tpu_torch.utils import imageio, meshio
+from neural_graph_mapping_tpu_torch.utils import imageio, jpeg, meshio
 
 
 def _last_int(path) -> int:
@@ -75,18 +77,19 @@ class ScanNetDataset(SLAMDataset):
         return imageio.image_size(sorted(self._depth_dir.iterdir(), key=_last_int)[0])  # (w, h)
 
     def _preprocess_color(self) -> None:
-        """Resize color to the depth resolution, cached to disk
-        (reference scannet_dataset.py:202-212)."""
-        import PIL.Image
-
+        """Resize color to the depth resolution, cached to disk under the
+        same file names (reference scannet_dataset.py:202-212). Without PIL:
+        PIL's Lanczos resize (``imageio.resize_lanczos``) and the port's
+        JPEG encoder at PIL's save defaults, so the cached frames are the
+        files PIL writes."""
         self._color_dir.mkdir(parents=True)
         size = self._depth_image_size()
         raw_dir = self.scene_dir_path / "color"
         for raw_path in sorted(raw_dir.iterdir()):
-            img = PIL.Image.open(raw_path)
-            img.resize(size, resample=PIL.Image.Resampling.LANCZOS).save(
-                self._color_dir / raw_path.name
-            )
+            if raw_path.suffix.lower() not in (".jpg", ".jpeg"):
+                raise ValueError(f"{raw_path}: ScanNet colour frames are JPEG files")
+            jpeg.write_jpeg(self._color_dir / raw_path.name,
+                            imageio.resize_lanczos(imageio.read_image(raw_path), size))
 
     @staticmethod
     def get_available_scenes(root_dir: str) -> List[str]:

@@ -16,7 +16,12 @@ package.
 
 Randomness comes from ``torch.Generator``s on the engine's device; every
 ported function also takes its draws as optional tensors
-(:class:`IterationDraws`), which is how the tests replay JAX's draws.
+(:class:`IterationDraws`), and a map takes one optional :class:`DrawSource`
+that hands it every draw of a frame (field init, the allocation grid's
+shift, the observed-field test's Gumbel noise, each iteration's draws)
+instead of its generators: that is how the tests replay a whole run of the
+JAX package's draws, and how the smoke holds a run on the card to the same
+run on the CPU.
 
 Time accounting: ``phase_times`` sums the host phases of
 :meth:`NeuralGraphMap.process_frame` (graph, alloc, host_misc; the CLI
@@ -49,7 +54,7 @@ from __future__ import annotations
 import logging
 import math
 import time
-from typing import Dict, NamedTuple, Optional, Set
+from typing import Dict, NamedTuple, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -83,6 +88,59 @@ class IterationDraws(NamedTuple):
     cloud_idx: Optional[torch.Tensor] = None  # (50,000,) depth-cloud pixel draws
     u_fields: Optional[torch.Tensor] = None  # (N,) eligible-field Gumbel uniforms
     u_rays: Optional[torch.Tensor] = None  # (F, R) ray uniforms
+
+
+class DrawShapes(NamedTuple):
+    """The sizes a frame's draws take: N = field capacity, F = target
+    fields, R = rays per field, S = keyframe-cache slots, the coarse and
+    depth-guided samples per ray, and the frame's H x W."""
+
+    capacity: int
+    num_train_fields: int
+    num_rays: int
+    num_slots: int
+    num_coarse: int
+    num_guided: int
+    height: int
+    width: int
+
+
+class DrawSource:
+    """Every random draw of a map's frames, in place of its generators.
+
+    ``NeuralGraphMap(config, device, draws=source)`` calls these where it
+    would draw; each returns tensors on the map's device (so the map adds no
+    copy and no host sync), shaped as :class:`DrawShapes` says.
+    ``frame_counter`` is the map's frame counter, 1 for the first frame,
+    as the JAX engine folds it into its frame keys. Without a source (the
+    default) the map draws from ``_init_gen`` / ``_frame_gen``.
+    """
+
+    def init_fields(self, num_fields: int) -> dict:
+        """Stacked parameters for ``num_fields`` new fields (at construction
+        and at each capacity growth; JAX: ``init_fields(_next_key(), n)``)."""
+        raise NotImplementedError
+
+    def allocation_shift(self, frame_counter: int) -> torch.Tensor:
+        """(3,) allocation-grid shift ~ U(0, cell) for a keyframe."""
+        raise NotImplementedError
+
+    def observed_gumbel(self, frame_counter: int, shapes: DrawShapes, num_points: int) -> torch.Tensor:
+        """(num_points, H * W) Gumbel noise of the observed-field test."""
+        raise NotImplementedError
+
+    def multi_view(self, frame_counter: int, num_iters: int, shapes: DrawShapes) -> list:
+        """Each multi-view iteration's :class:`IterationDraws` (u_obs,
+        u_rand, offsets, kf_gumbel, pix_u, u_coarse, u_guided)."""
+        raise NotImplementedError
+
+    def single_view(self, num_iters: int, shapes: DrawShapes, cache_depth: torch.Tensor,
+                    cache_valid: torch.Tensor) -> list:
+        """Each single-view iteration's :class:`IterationDraws` (slot_gumbel,
+        cloud_idx, u_fields, u_rays, u_coarse, u_guided); the cloud is drawn
+        over the valid pixels of the view the iteration trains on, which the
+        cache says."""
+        raise NotImplementedError
 
 
 class LossConfig(NamedTuple):
@@ -433,16 +491,19 @@ def optimization_iterations_scan(
     cache_valid: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
+    iteration_draws: Optional[Sequence[IterationDraws]] = None,
 ):
-    """``num_iters`` iterations, each resampling its targets; returns the
-    last iteration's loss dict with the updated state. No host syncs
-    (sharded: one an iteration)."""
+    """``num_iters`` iterations, each resampling its targets (iteration i
+    from ``iteration_draws[i]`` where given); returns the last iteration's
+    loss dict with the updated state. No host syncs (sharded: one an
+    iteration)."""
     loss_dict = {}
-    for _ in range(num_iters):
+    for i in range(num_iters):
         params, adam, training_iterations, loss_dict = optimization_iteration(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam,
             training_iterations, map_positions, map_orientations, allocated_mask,
             observed_mask, cache_rgb, cache_depth, cache_c2w, cache_valid,
+            draws=iteration_draws[i] if iteration_draws else IterationDraws(),
             generator=generator, shard=shard,
         )
     return params, adam, training_iterations, loss_dict
@@ -518,17 +579,20 @@ def optimization_iterations_scan_sv(
     cache_valid: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
+    iteration_draws: Optional[Sequence[IterationDraws]] = None,
 ):
     """``num_iters`` single-view iterations (:func:`optimization_iteration_sv`,
-    iteration i choosing its view by i's parity); returns the last
-    iteration's loss dict with the updated state. No host syncs (sharded:
-    one an iteration)."""
+    iteration i choosing its view by i's parity, from ``iteration_draws[i]``
+    where given); returns the last iteration's loss dict with the updated
+    state. No host syncs (sharded: one an iteration)."""
     loss_dict = {}
     for i in range(num_iters):
         params, adam, training_iterations, loss_dict = optimization_iteration_sv(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam,
             training_iterations, map_positions, map_orientations, active_mask,
-            cache_rgb, cache_depth, cache_c2w, cache_valid, generator=generator, shard=shard,
+            cache_rgb, cache_depth, cache_c2w, cache_valid,
+            draws=iteration_draws[i] if iteration_draws else IterationDraws(),
+            generator=generator, shard=shard,
         )
     return params, adam, training_iterations, loss_dict
 
@@ -571,13 +635,16 @@ def frame_step(
     kf_slot: int,  # < 0 -> not a keyframe
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
+    observed_gumbel: Optional[torch.Tensor] = None,  # (500, H*W)
+    iteration_draws: Optional[Sequence[IterationDraws]] = None,
 ):
     """One frame: keyframe-cache writes (in place), the observed-field test,
-    and all optimization iterations."""
+    and all optimization iterations; draws not given come from
+    ``generator``."""
     write_cache(cache_rgb, cache_depth, rgbd, write_current, kf_slot)
     observed = sampling.observed_fields_mask(
         camera, rgbd[..., 3], c2w, map_positions, allocated_mask, fset.field_radius,
-        generator=generator,
+        gumbel=observed_gumbel, generator=generator,
     )
     loss_dict = {}
     if has_fields:
@@ -585,7 +652,7 @@ def frame_step(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, num_iters,
             params, adam, training_iterations, map_positions, map_orientations,
             allocated_mask, observed, cache_rgb, cache_depth, cache_c2w,
-            cache_valid, generator, shard,
+            cache_valid, generator, shard, iteration_draws,
         )
     return params, adam, training_iterations, cache_rgb, cache_depth, observed, loss_dict
 
@@ -849,7 +916,10 @@ class NeuralGraphMap:
     must have W ranks.
     """
 
-    def __init__(self, config: dict, device="cuda", group: Optional[sharding.FieldGroup] = None) -> None:
+    def __init__(
+        self, config: dict, device="cuda", group: Optional[sharding.FieldGroup] = None,
+        draws: Optional[DrawSource] = None,
+    ) -> None:
         if device is None:
             raise ValueError("NeuralGraphMap needs a device: 'cuda' (the default) or 'cpu'")
         self._device = torch.device(device)
@@ -858,6 +928,8 @@ class NeuralGraphMap:
                 f"NeuralGraphMap runs on {self._device} unless device='cpu' is given, "
                 "and CUDA is not available"
             )
+        # every random draw from this source instead of the generators
+        self._draws = draws
         self._read_config(config)
         self._init_model()
         self._init_state(group)
@@ -986,7 +1058,7 @@ class NeuralGraphMap:
         self._shard = self._field_group(group)
         dev = self._device
         self._map_arrays = map_state.init_map_arrays(cap, dev)
-        self._params = self._own_rows(self._fset.init_fields(cap, self._init_gen, dev))
+        self._params = self._own_rows(self._new_fields(cap))
         self._adam = optimizer.init_adam_state(self._params)
         self._num_fields = 0
         # the capacity route's full copy of a sharded map, during one render
@@ -1045,9 +1117,22 @@ class NeuralGraphMap:
         logger.info("growing field capacity %d -> %d", cap, new_cap)
         self._map_arrays = map_state.grow_capacity(self._map_arrays, new_cap)
         # every rank draws the whole block, so the init stream stays in step
-        extra = self._own_rows(self._fset.init_fields(new_cap - cap, self._init_gen, self._device))
+        extra = self._own_rows(self._new_fields(new_cap - cap))
         self._params = {k: torch.cat([v, extra[k]]) for k, v in self._params.items()}
         self._adam = optimizer.grow_adam_state(self._adam, self._params)
+
+    def _new_fields(self, num_fields: int) -> dict:
+        """Stacked initial parameters of ``num_fields`` fields, all ranks'."""
+        if self._draws is not None:
+            return self._draws.init_fields(num_fields)
+        return self._fset.init_fields(num_fields, self._init_gen, self._device)
+
+    def _draw_shapes(self) -> DrawShapes:
+        return DrawShapes(
+            self.capacity, self._num_train_fields, self._loss_cfg.num_rays_per_field, self._num_kf_slots,
+            self._rcfg.num_samples_coarse, self._rcfg.num_samples_depth_guided,
+            self._cache_depth.shape[1], self._cache_depth.shape[2],
+        )
 
     def _own_rows(self, tree: dict) -> dict:
         """This rank's rows of a full stacked-field dict (all of it unsharded)."""
@@ -1270,6 +1355,16 @@ class NeuralGraphMap:
         self._add_phase("host_misc", t_phase)
 
         if self._update_mode == "multi_view":
+            observed_gumbel = iteration_draws = None
+            if self._draws is not None:
+                shapes = self._draw_shapes()
+                observed_gumbel = self._draws.observed_gumbel(
+                    self._frame_counter, shapes, sampling.OBSERVED_NUM_POINTS
+                )
+                if self._num_fields > 0:
+                    iteration_draws = self._draws.multi_view(
+                        self._frame_counter, self._num_iterations_per_frame, shapes
+                    )
             (
                 self._params,
                 self._adam,
@@ -1303,6 +1398,8 @@ class NeuralGraphMap:
                 kf_slot,
                 self._frame_gen,
                 self._shard,
+                observed_gumbel,
+                iteration_draws,
             )
         else:  # single_view
             write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
@@ -1310,6 +1407,12 @@ class NeuralGraphMap:
             if self._num_fields > 0:
                 active_mask_np = np.zeros((self.capacity,), bool)
                 active_mask_np[self._active_field_ids(frame_id)] = True
+                iteration_draws = None
+                if self._draws is not None:
+                    iteration_draws = self._draws.single_view(
+                        self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
+                        self._cache_valid_dev,
+                    )
                 self._params, self._adam, new_ti, loss_dict = optimization_iterations_scan_sv(
                     self._fset,
                     self._camera,
@@ -1330,6 +1433,7 @@ class NeuralGraphMap:
                     self._cache_valid_dev,
                     self._init_gen,  # JAX: self._next_key(), the init / render stream
                     self._shard,
+                    iteration_draws,
                 )
         self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
         losses = {}
@@ -1354,6 +1458,7 @@ class NeuralGraphMap:
             c2w,
             self._map_arrays.positions,
             self._to_device(active_mask_np),
+            shift=None if self._draws is None else self._draws.allocation_shift(self._frame_counter),
             generator=self._frame_gen,
         )
         n_new = int(num_new)  # host needs the count: one sync per keyframe

@@ -100,6 +100,10 @@ def select_target_fields(
     return field_ids, field_valid
 
 
+# view points drawn by the observed-field test (the JAX package's default)
+OBSERVED_NUM_POINTS = 500
+
+
 def observed_fields_mask(
     camera: Camera,
     depth_image: torch.Tensor,  # (H, W)
@@ -107,7 +111,7 @@ def observed_fields_mask(
     field_positions: torch.Tensor,  # (N_cap, 3)
     allocated_mask: torch.Tensor,  # (N_cap,)
     field_radius: float,
-    num_points: int = 500,
+    num_points: int = OBSERVED_NUM_POINTS,
     gumbel: Optional[torch.Tensor] = None,  # (num_points, H*W)
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:

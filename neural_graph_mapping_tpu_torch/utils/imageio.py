@@ -13,6 +13,7 @@ file is opened.
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -151,6 +152,91 @@ def write_png(path: os.PathLike, image: np.ndarray, filter_type: int = 1) -> Non
         f.write(chunk(b"IHDR", ihdr))
         f.write(chunk(b"IDAT", zlib.compress(scan.tobytes())))
         f.write(chunk(b"IEND", b""))
+
+
+# fixed-point bits of PIL's 8-bit resampling coefficients (Resample.c)
+_PRECISION_BITS = 32 - 8 - 2
+_LANCZOS_SUPPORT = 3.0
+
+
+def _lanczos(x: float) -> float:
+    """PIL's Lanczos-3 window: sinc(x) * sinc(x / 3) on [-3, 3)."""
+
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v *= math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for a box of
+    the whole axis -> (first input index (out,), taps (out,), fixed-point
+    weights (out, ksize) int64). Scalar double arithmetic in PIL's order,
+    with ``math.sin`` as libm's."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    first = np.zeros(out_size, np.int64)
+    taps = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)  # int(): C's truncation
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for w in k:
+            ww += w
+        for x, w in enumerate(k):
+            w = w / ww if ww != 0.0 else w
+            w *= 1 << _PRECISION_BITS
+            weights[xx, x] = int(w - 0.5) if w < 0 else int(w + 0.5)
+        first[xx], taps[xx] = xmin, xmax
+    return first, taps, weights
+
+
+def _resample_axis0(img: np.ndarray, first, taps, weights) -> np.ndarray:
+    """One 8-bit pass of PIL's resampler along axis 0 of ``img`` (n, ...)
+    uint8 -> (out, ...) uint8: the fixed-point sum from half a unit, then
+    ``clip8`` (the sum >> PRECISION_BITS, clipped to 0..255)."""
+    ksize = weights.shape[1]
+    idx = np.minimum(first[:, None] + np.arange(ksize)[None, :], img.shape[0] - 1)
+    w = np.where(np.arange(ksize)[None, :] < taps[:, None], weights, 0)
+    src = img.astype(np.int64)[idx]  # (out, ksize, ...)
+    w = w.reshape(w.shape + (1,) * (img.ndim - 1))
+    acc = (1 << (_PRECISION_BITS - 1)) + np.sum(src * w, axis=1)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_lanczos(image: np.ndarray, size: tuple) -> np.ndarray:
+    """``Image.resize(size, Resampling.LANCZOS)`` of an 8-bit gray (H, W) or
+    colour (H, W, C) array, byte for byte as PIL's ``Resample.c`` computes
+    it. ``size`` is (width, height), as PIL takes it.
+
+    Two separable passes, horizontal first, each skipped where its axis
+    keeps its size: per output pixel the window of support 3 * max(scale,
+    1) centred at (i + 0.5) * scale, coefficients normalised to sum 1 and
+    rounded to 22-bit fixed point, the sum clipped to 8 bits after each
+    pass."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3):
+        raise ValueError(f"resize_lanczos takes (H, W) or (H, W, C) uint8, got {image.dtype} {image.shape}")
+    out_w, out_h = int(size[0]), int(size[1])
+    if out_w < 1 or out_h < 1:
+        raise ValueError(f"size must be positive, got {size}")
+    in_h, in_w = image.shape[:2]
+    out = image
+    if out_w != in_w:
+        # PIL's horizontal pass covers only the rows the vertical pass reads
+        out = np.swapaxes(_resample_axis0(np.swapaxes(out, 0, 1), *_lanczos_coeffs(in_w, out_w)), 0, 1)
+    if out_h != in_h:
+        out = _resample_axis0(out, *_lanczos_coeffs(in_h, out_h))
+    return np.ascontiguousarray(out)
 
 
 def _pil_image(path: os.PathLike):

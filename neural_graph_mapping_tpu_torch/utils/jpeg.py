@@ -1,4 +1,5 @@
-"""JPEG reading without PIL: ctypes bindings for ``csrc/jpeg.cpp``.
+"""JPEG reading and writing without PIL: ctypes bindings for
+``csrc/jpeg.cpp``.
 
 The decoder takes sequential Huffman JPEGs (SOF0 baseline and SOF1
 extended) of 8-bit samples, gray or three components (YCbCr, or RGB by the
@@ -10,6 +11,13 @@ which decodes through libjpeg-turbo. Progressive, arithmetic-coded,
 lossless, hierarchical, 12-bit and four-component files raise a
 ``ValueError`` that names the file and the marker; nothing falls back to
 PIL.
+
+The encoder (:func:`encode`, :func:`write_jpeg`) writes what PIL's
+``Image.save`` writes for an 8-bit gray or RGB array at its defaults: a
+baseline JPEG at quality 75, 4:2:0 for colour, the standard Huffman tables,
+through libjpeg's fixed-point colour conversion, h2v2 downsampling, islow
+forward DCT and quantisation rounding; so the decoder reads its file to the
+same bytes as PIL's file of the same array.
 
 The library is built with ``g++`` at first use into the port's ``_build/``
 (``ops.native.built_library``); a failed build raises.
@@ -50,6 +58,11 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
                 ctypes.c_int,
             ]
+            lib.ngm_jpeg_encode.restype = ctypes.c_int
+            lib.ngm_jpeg_encode.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int,
+            ]
             _lib = lib
         return _lib
 
@@ -85,3 +98,36 @@ def jpeg_size(path: os.PathLike) -> tuple:
         data = f.read()
     w, h, _ = _info(data, path)
     return w, h
+
+
+# PIL's (libjpeg's) default quality
+QUALITY = 75
+
+
+def encode(image: np.ndarray) -> bytes:
+    """(H, W) uint8 gray or (H, W, 3) uint8 RGB -> a baseline JPEG's bytes,
+    as PIL's ``Image.fromarray(image).save(f, "JPEG")`` writes them."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3 and image.shape[2] == 3)):
+        raise ValueError(f"the JPEG encoder takes (H, W) or (H, W, 3) uint8, got {image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    c = 1 if image.ndim == 2 else 3
+    cap = h * w * c + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = ctypes.c_size_t()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        rc = _load().ngm_jpeg_encode(image.ctypes.data, w, h, c, QUALITY, out.ctypes.data, cap,
+                                     ctypes.byref(n), err, _ERR_LEN)
+        if rc == 0:
+            return out[: n.value].tobytes()
+        if rc != 2:
+            raise ValueError(err.value.decode())
+        cap = n.value
+
+
+def write_jpeg(path: os.PathLike, image: np.ndarray) -> None:
+    """Write ``image`` to ``path`` as a JPEG (see :func:`encode`)."""
+    data = encode(image)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -26,3 +26,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA device (tests of the port's CUDA kernels); skips without one"
     )
+    config.addinivalue_line(
+        "markers", "slow: run by hand (minutes); the tier-1 run deselects it with -m 'not slow'"
+    )

@@ -3,6 +3,8 @@ optimization iteration on identical weights and replayed draws, and the
 online loop's field allocation over a few frames. Also pins chip_smoke.py's
 written-out config to the YAML files it stands for."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,21 +126,23 @@ def _configs(cfg):
     return rcfg, ocfg, lcfg, render.RenderConfig(**rcfg._asdict()), optimizer.AdamConfig(**ocfg._asdict()), tl
 
 
-def _replayed_draws(key, n_cap, f, r, s, sc, sg):
-    """JAX's draws of one optimization_iteration, in its split order."""
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _iteration_arrays(key, n_cap, f, r, s, sc, sg):
+    """JAX's draws of one optimization_iteration, in its split order, as
+    one program."""
     k_sel, k_sample, k_render = jax.random.split(key, 3)
     k1, k2 = jax.random.split(k_sel)
     k_off, k_kf, k_pix = jax.random.split(k_sample, 3)
     kr1, kr2 = jax.random.split(k_render)
-    return engine.IterationDraws(
-        u_obs=to_torch(jax.random.uniform(k1, (n_cap,))),
-        u_rand=to_torch(jax.random.uniform(k2, (n_cap,))),
-        offsets=to_torch(jax.random.normal(k_off, (20, 3))),
-        kf_gumbel=to_torch(jax.random.gumbel(k_kf, (f, r, s))),
-        pix_u=to_torch(jax.random.uniform(k_pix, (f, r, 2))),
-        u_coarse=to_torch(jax.random.uniform(kr1, (f, r, sc))),
-        u_guided=to_torch(jax.random.uniform(kr2, (f, r, sg))),
-    )
+    return (jax.random.uniform(k1, (n_cap,)), jax.random.uniform(k2, (n_cap,)),
+            jax.random.normal(k_off, (20, 3)), jax.random.gumbel(k_kf, (f, r, s)),
+            jax.random.uniform(k_pix, (f, r, 2)), jax.random.uniform(kr1, (f, r, sc)),
+            jax.random.uniform(kr2, (f, r, sg)))
+
+
+def _replayed_draws(key, n_cap, f, r, s, sc, sg):
+    """JAX's draws of one optimization_iteration as the port's IterationDraws."""
+    return engine.IterationDraws(*(to_torch(a) for a in _iteration_arrays(key, n_cap, f, r, s, sc, sg)))
 
 
 def test_one_iteration_matches_jax(iteration_state):

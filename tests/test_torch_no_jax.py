@@ -59,6 +59,7 @@ NEW_MODULES = [
     "neural_graph_mapping_tpu_torch.parallel",
     "neural_graph_mapping_tpu_torch.parallel.sharding",
     "neural_graph_mapping_tpu_torch.utils.jpeg",
+    "neural_graph_mapping_tpu_torch.scripts.score_checkpoint",
 ]
 
 _BLOCKER = """

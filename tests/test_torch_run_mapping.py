@@ -236,6 +236,33 @@ def test_jax_checkpoint_renders_in_port_as_carried_params(eval_runs, tmp_path):
     assert loaded.engine._frame_counter == 0
 
 
+def test_score_checkpoint_renders_a_jax_runs_held_out_frames(eval_runs, tmp_path):
+    """scripts/score_checkpoint on the JAX run's checkpoint: JAX's held-out
+    frames, the checkpoint's fields, and the port's PSNR / depth-L1 of them
+    at the last frame's pose estimate, equal to rendering them from a
+    runner that loaded the same file."""
+    from neural_graph_mapping_tpu_torch.scripts import score_checkpoint
+
+    cfg, dirs = eval_runs
+    cfg = dict(cfg, eval_metrics=["psnr", "depthl1"], out_dir=str(tmp_path / "score"))
+    path = _checkpoint(dirs["jax"])
+    got = score_checkpoint.score(cfg, str(path), "cpu")
+    jds = JaxNRGBD(cfg["dataset_config"])
+    jds.load_slam_results()
+    _, want_eval, _ = _split(jrun.NeuralGraphMapRunner, jds, cfg["eval_ratio"], cfg.get("eval_chunk_freq"))
+    assert got["eval_frames"] == sorted(want_eval) and want_eval
+    with np.load(path) as npz:
+        assert got["num_fields"] == int(npz["num_fields"]) > 0
+    runner = _runner(dict(cfg, eval_store_details=False), tmp_path / "direct")
+    runner.dataset = NRGBDDataset(cfg["dataset_config"])
+    runner.dataset.load_slam_results()
+    runner.load_model(path)
+    last = len(runner.dataset) - 1
+    direct = run_mapping.mean_metric_dicts([runner.evaluate_frame(f, last) for f in got["eval_frames"]])
+    assert got["final_psnr"] == direct["psnr"] and got["final_depthl1"] == direct["depthl1"]
+    assert np.isfinite(got["final_psnr"])
+
+
 def test_port_checkpoint_loads_in_jax(eval_runs, tmp_path):
     cfg, dirs = eval_runs
     path = _checkpoint(dirs["port"])

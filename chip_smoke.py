@@ -166,7 +166,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     one JPEG colour frame embedded in this script (``JPEG_FRAME_B64``)
     decoded by the port's own decoder, equal to PIL's array (SHA-256).
     replica: the CLI runner on it at config/neural_graph_map.yaml +
-    replica_imap_dataset.yaml + coslam_eval.yaml (60 frames, a held-out
+    replica_imap_dataset.yaml + coslam_eval.yaml (40 frames, a held-out
     frame, a mesh at 0.04 m scored with virt_cams culling, a map
     checkpoint): fit wall s, ``spf_estimate``, the host phases, the
     keyframe cache's bytes, peak device memory, median ms of a 1200x680
@@ -178,7 +178,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     within 1e-4 of the unedited render (a rotation and shift is reported).
     fit_synthetic: the example's 300 steps on the card lower the loss by
     half, through encode_fwd / encode_bwd_table and the tiled KNN check.
-16. trajectory: 10 frames of the synthetic scene at the production encoding
+16. trajectory: 6 frames of the synthetic scene at the production encoding
     and MLP widths (rays a field cut to 128) on the card and on the CPU
     (plain versions), both maps fed the same draws made on the host
     (``engine.DrawSource``): after every frame the same fields, capacity,
@@ -198,6 +198,36 @@ Phases, one line each; any failure raises and the exit code is non-zero:
     the port's encoder, 640x480 16-bit depth, 6 frames) loaded for the first
     time with PIL refused by the import system: the colour is resized and
     cached without PIL; then the CLI trains on it. Kernels 1-3.
+19. nrgbd_export: the port's exporter
+    (``scripts/export_synthetic_nrgbd.py``, worker processes) writes the
+    scenes of config/fps960.yaml (960 frames at 640x480, fx 560) and
+    config/refrun_synthetic.yaml (120 frames at 160x120, fx 140) in the
+    NRGBD layout: seconds, workers, bytes; one 640x480 frame's decode ms by
+    the port's reader from the exporter's Sub-filtered files, from
+    Paeth-filtered files of the same arrays and, where PIL is installed,
+    from PIL-written ones (PIL's adaptive rows take the reader's
+    anti-diagonal path).
+20. fps960: ``run_mapping.main`` on config/neural_graph_map.yaml +
+    config/fps960.yaml (FPS960, as JSON) with ``--dataset_config.root_dir``
+    the export: 960 frames through the NRGBD loader and the prefetcher,
+    192 keyframes, training only. ``fps_estimate``, ``spf_estimate``,
+    ``wall_fps``, every ``phase_*_s``, fields, capacity, the frame loop's
+    wall s, peak device memory over the run, the median trained-frame ms
+    of the first and the last 100 frames; kernels 1-3 launched 5 x the
+    trained frames each and nothing else; one iteration of the final map
+    against the CPU (rel <= 1e-3).
+21. refrun_synthetic: ``run_mapping.main`` on config/neural_graph_map.yaml
+    + config/refrun_synthetic.yaml on the 120-frame export: keyframes
+    only, held-out eval with ``eval_store_details`` on (comparison PNGs
+    and details.txt, without PIL or tabulate): final PSNR / depth-L1.
+    Kernels 1-5.
+22. scale_sweep: ``scripts/scale_sweep.sweep_one`` at 128, 512 and 2,048
+    fields (training rays/s, ms a render block, s a 640x480 image). At
+    2,048: every ``topk2_fields`` call of a 640x480 render against its plain
+    version at the map's own 2,048 centres (indices exact, distances within
+    1e-6; a ``kernel_variant`` line times it), one training iteration
+    against the CPU (rel <= 1e-3) and one 8,192-ray render block against
+    the CPU (max abs <= 1e-4). Kernels 1-5.
 
 Kernel times: ``ms`` is device time a launch, with the host's issue hidden:
 a device-side delay long enough for the host to queue 20 launches, then
@@ -237,7 +267,8 @@ single-view slices; ``gather_pairs`` its launches per capacity-route image
 and in the capacity route's mesh; the gather route's pair its
 ``feature_counts``; ``replica_launches`` from the replica phase's run;
 ``sharded_rank0_launches`` from rank 0 of the sharded phase, by path;
-``trajectory_launches``, ``quality_launches`` and ``scannet_launches``
+``trajectory_launches``, ``quality_launches``, ``scannet_launches``,
+``fps960_launches``, ``refrun_launches`` and ``scale_sweep_launches``
 from those phases' card runs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -387,10 +418,13 @@ COSLAM_EVAL = {
 }
 # Replica's own cam_params.json (the iMAP / NICE-SLAM rendering)
 REPLICA_CAMERA = {"w": 1200, "h": 680, "fx": 600.0, "fy": 600.0, "cx": 599.5, "cy": 339.5, "scale": 6553.5}
-REPLICA_FRAMES = 60
+# 40 frames (60 until the long-sequence phases joined the smoke; the mesh
+# eval's culling and scene bounds, most of the phase, scale with them)
+REPLICA_FRAMES = 40
 REPLICA_SCENE = "synth_room"  # not one of ReplicaDataset's scenes with custom bounds
 REPLICA_KF_FREQ = 5
-REPLICA_LC_FRAME = (REPLICA_FRAMES * 3 // 4) // REPLICA_KF_FREQ * REPLICA_KF_FREQ  # 45
+REPLICA_LC_FRAME = (REPLICA_FRAMES * 3 // 4) // REPLICA_KF_FREQ * REPLICA_KF_FREQ  # 30
+REPLICA_EVAL_RATIO = 0.14  # of the 7 keyframes left after the loop closure, the seventh (frame 35) held out
 
 # one colour frame as JPEG (the synthetic scene at 96x72, written by PIL at
 # quality 90, 4:2:0) and the SHA-256 of the array PIL decodes from it: the
@@ -3113,6 +3147,7 @@ def write_replica_scene(root: pathlib.Path, workers: int = 0) -> dict:
     import numpy as np
 
     from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV
+    from neural_graph_mapping_tpu_torch.scripts import export_synthetic_nrgbd
     from neural_graph_mapping_tpu_torch.utils import meshio
 
     t0 = time.perf_counter()
@@ -3131,7 +3166,8 @@ def write_replica_scene(root: pathlib.Path, workers: int = 0) -> dict:
         write_replica_frames(str(results), REPLICA_CAMERA, REPLICA_FRAMES, range(REPLICA_FRAMES))
     else:
         ctx = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        with export_synthetic_nrgbd.single_thread_workers(), \
+                concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
             futures = [pool.submit(write_replica_frames, str(results), REPLICA_CAMERA, REPLICA_FRAMES,
                                    list(range(w, REPLICA_FRAMES, workers))) for w in range(workers)]
             for fut in futures:
@@ -3147,8 +3183,8 @@ def replica_config(root: pathlib.Path, out_dir: pathlib.Path) -> dict:
     metrics, a mesh at 0.04 m and no eval artefacts on disk."""
     cfg = copy.deepcopy(dict(MODEL_CONFIG, **REPLICA_DATASET, **COSLAM_EVAL))
     cfg["dataset_config"].update(root_dir=str(root), scene=REPLICA_SCENE)
-    cfg.update(eval_ratio=0.1, eval_metrics=["psnr", "depthl1"], extract_mesh=True, mesh_resolution=0.04,
-               eval_store_details=False, render_vis=False, out_dir=str(out_dir))
+    cfg.update(eval_ratio=REPLICA_EVAL_RATIO, eval_metrics=["psnr", "depthl1"], extract_mesh=True,
+               mesh_resolution=0.04, eval_store_details=False, render_vis=False, out_dir=str(out_dir))
     return cfg
 
 
@@ -3210,7 +3246,7 @@ def check_vis_checkpoint_edit(torch, vis_checkpoint, runner, ckpt, c2w, fid, tmp
 def check_replica(torch, permuto_cuda, topk, run_mapping, tmp: pathlib.Path, smi) -> dict:
     """Phases replica_scene, replica, replica_vis_checkpoint, fit_synthetic:
     a Replica-layout scene at 1200x680 written and checked by check_dataset,
-    the CLI runner on it (60 frames, SLAM poses with a loop closure,
+    the CLI runner on it (40 frames, SLAM poses with a loop closure,
     held-out renders, a mesh at 0.04 m scored against the scene's mesh
     after virt_cams culling, a map checkpoint), a rigid edit of that
     checkpoint through vis_checkpoint, and the fit_synthetic example ->
@@ -3397,7 +3433,10 @@ LOCKSTEP_MOMENT_RTOL = 1e-3
 # one flip moves a first-layer gradient by that ray's share of the sum
 CARD_MOMENT_RTOL = 1e-2
 LOCKSTEP_STEP_BOUND = 2 * 3.17
-TRAJECTORY_FRAMES = 10
+# frames of the trajectory phase (10 until the long-sequence phases joined
+# the smoke: 6 keep two keyframes and the capacity's growth, and the CPU
+# half's minute to ~35 s)
+TRAJECTORY_FRAMES = 6
 TRAJECTORY_RAYS = 128  # rays a field (512 in the config): keeps the CPU run near a minute
 TRAJECTORY_SEED = 7
 
@@ -3863,6 +3902,7 @@ def write_scannet_scene(root: pathlib.Path, workers: int) -> dict:
     import numpy as np
 
     from neural_graph_mapping_tpu_torch.datasets.base import OGL2OCV
+    from neural_graph_mapping_tpu_torch.scripts import export_synthetic_nrgbd
 
     t0 = time.perf_counter()
     n, depth_size = SCANNET_FRAMES, SCANNET_DEPTH
@@ -3882,7 +3922,8 @@ def write_scannet_scene(root: pathlib.Path, workers: int) -> dict:
         write_scannet_frames(str(scene), range(n), *args)
     else:
         ctx = multiprocessing.get_context("spawn")
-        with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        with export_synthetic_nrgbd.single_thread_workers(), \
+                concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
             for fut in [pool.submit(write_scannet_frames, str(scene), list(range(w, n, workers)), *args)
                         for w in range(workers)]:
                 fut.result()
@@ -3903,8 +3944,8 @@ class _BlockPIL:
 def check_scannet(torch, run_mapping, permuto_cuda, topk, tmp: pathlib.Path, smi) -> dict:
     """Phase scannet_scene: a ScanNet-layout scene written here (1296x968
     JPEG colour by the port's encoder, 640x480 16-bit depth), loaded for the
-    first time with PIL refused by the import system (and not installed on
-    the card's machine), so its colour is resized and cached without PIL;
+    first time with PIL refused by the import system (installed or not), so
+    its colour is resized and cached without PIL;
     then the CLI runner trains on it at config/neural_graph_map.yaml +
     config/scannet_dataset.yaml (no held-out frame, no mesh). Kernels 1-3
     must launch. -> the run's launches."""
@@ -3955,6 +3996,382 @@ def check_scannet(torch, run_mapping, permuto_cuda, topk, tmp: pathlib.Path, smi
           aligned_frames=len(aligned), aligned_shape=sorted(shapes)[0], fit_seconds=fit_s, fields=e.num_fields,
           training_iterations_sum=trained, spf_estimate=metrics["spf_estimate"],
           launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+# -- the long-sequence and many-field paths: an NRGBD export, fps960,
+# -- refrun_synthetic, the field-count sweep ----------------------------------
+
+# config/fps960.yaml and config/refrun_synthetic.yaml, written out as CONFIG
+# is; tests/test_torch_export_nrgbd.py checks them against the files
+FPS960 = {
+    "dataset_type": "neural_graph_mapping_tpu.datasets.nrgbd.NRGBDDataset",
+    "dataset_config": {
+        "root_dir": "/tmp/ngm_fps960", "scene": "synthetic", "images_dir": "images", "depth_dir": "depth",
+        "poses_file": "poses.txt", "pose_source": "gt", "pg_source": "fixed_kf_freq", "fixed_kf_freq": 5,
+        "fps": 30, "up_axis": "y",
+        "camera": {"width": 640, "height": 480, "fx": 560.0, "fy": 560.0, "cx": 320.0, "cy": 240.0,
+                   "pixel_center": 0.0},
+    },
+    "num_iterations_per_frame": 5,
+    "eval_ratio": 0.0,
+    "disable_eval": True,
+    "extract_mesh": False,
+    "eval_mesh": False,
+    "render_frame_freq": 1000000,
+    "extract_mesh_frame_freq": 1000000,
+}
+REFRUN_SYNTHETIC = {
+    "dataset_type": "neural_graph_mapping_tpu.datasets.nrgbd.NRGBDDataset",
+    "dataset_config": {
+        "root_dir": "/tmp/ngm_nrgbd_export120", "scene": "synthetic", "images_dir": "images",
+        "depth_dir": "depth", "poses_file": "poses.txt", "pose_source": "gt", "pg_source": "fixed_kf_freq",
+        "fixed_kf_freq": 5, "fps": 30, "up_axis": "y",
+        "camera": {"width": 160, "height": 120, "fx": 140.0, "fy": 140.0, "cx": 80.0, "cy": 60.0,
+                   "pixel_center": 0.0},
+    },
+    "num_iterations_per_frame": 5,
+    "eval_ratio": 0.2,
+    "eval_chunk_freq": 50,
+    "eval_metrics": ["psnr", "depthl1"],
+    "eval_near_distance": 0.0,
+    "eval_far_distance": 8.0,
+    "eval_crop": 10,
+    "eval_store_details": True,
+    "keyframes_only": True,
+    "eval_mesh": False,
+    "extract_mesh": False,
+}
+# the exports each YAML's header names: frames, width, height, fx
+FPS960_EXPORT = (960, 640, 480, 560.0)
+REFRUN_EXPORT = (120, 160, 120, 140.0)
+FPS960_WINDOW = 100  # frames at each end of the run whose median trained-frame ms is reported
+TRAINING_KERNELS = ("encode_fwd", "encode_bwd_table", "batched_gather")
+
+
+def nrgbd_run_config(scene: dict, root=None) -> dict:
+    """config/neural_graph_map.yaml + a scene YAML (FPS960 or
+    REFRUN_SYNTHETIC) as the port's loader merges them; ``root`` replaces
+    the scene's root where given."""
+    cfg = copy.deepcopy(dict(MODEL_CONFIG, **scene))
+    if root is not None:
+        cfg["dataset_config"]["root_dir"] = str(root)
+    return cfg
+
+
+def write_png_paeth(path: pathlib.Path, image) -> None:
+    """(H, W[, C]) uint8 / (H, W) uint16 as a PNG whose every row uses filter
+    4 (Paeth), the rows a PIL-written file mixes in: the port's reader
+    undoes such files along anti-diagonals."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    image = np.asarray(image)
+    if image.dtype == np.uint16:
+        data, depth, ctype = image.astype(">u2").view(np.uint8).reshape(image.shape[0], -1, 2), 16, 0
+    else:
+        data = image if image.ndim == 3 else image[..., None]
+        depth, ctype = 8, {1: 0, 3: 2, 4: 6}[data.shape[-1]]
+    x = data.reshape(data.shape[0], -1, data.shape[-1]).astype(np.int16)
+    pad = np.zeros_like(x)
+    a = np.concatenate([pad[:, :1], x[:, :-1]], 1)  # left
+    b = np.concatenate([pad[:1], x[:-1]], 0)  # up
+    c = np.concatenate([pad[:1], a[:-1]], 0)  # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) & 0xFF).astype(np.uint8).reshape(x.shape[0], -1)
+    scan = np.concatenate([np.full((rows.shape[0], 1), 4, np.uint8), rows], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", image.shape[1], image.shape[0], depth, ctype, 0, 0, 0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(scan.tobytes()))
+                     + chunk(b"IEND", b""))
+
+
+def decode_ms(path: pathlib.Path, runs: int = 3):
+    """(median ms of ``runs`` reads of a PNG by the port's reader, the array)."""
+    from neural_graph_mapping_tpu_torch.utils import imageio
+
+    times, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = imageio.read_png(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def check_nrgbd_export(tmp: pathlib.Path, smi) -> dict:
+    """Phase nrgbd_export: the port's exporter writes the 960-frame 640x480
+    scene of config/fps960.yaml and the 120-frame 160x120 scene of
+    config/refrun_synthetic.yaml (worker processes; seconds, bytes); then
+    one frame's colour and depth read by the port's reader from the
+    exporter's Sub-filtered files, from Paeth-filtered files of the same
+    arrays (:func:`write_png_paeth`) and, where PIL is installed, from
+    PIL-written ones: the same arrays, the ms of each. -> the two roots."""
+    import importlib.util
+
+    import numpy as np
+
+    from neural_graph_mapping_tpu_torch.scripts import export_synthetic_nrgbd as exporter
+
+    roots, written = {}, {}
+    for name, (frames, w, h, fx) in (("fps960", FPS960_EXPORT), ("refrun_synthetic", REFRUN_EXPORT)):
+        roots[name] = tmp / name
+        written[name] = exporter.export(roots[name], frames, w, h, fx)
+        n_images = len(list((roots[name] / "synthetic" / "images").iterdir()))
+        n_depth = len(list((roots[name] / "synthetic" / "depth").iterdir()))
+        if n_images != frames or n_depth != frames:
+            raise AssertionError(f"nrgbd_export {name}: {n_images} colour, {n_depth} depth files of {frames}")
+    scene = roots["fps960"] / "synthetic"
+    decode = {}
+    for kind, path in (("rgb", scene / "images" / "img0480.png"), ("depth", scene / "depth" / "depth0480.png")):
+        ms, want = decode_ms(path)
+        decode[kind] = {"port_sub_ms": ms, "bytes": path.stat().st_size}
+        paeth = tmp / f"paeth_{kind}.png"
+        write_png_paeth(paeth, want)
+        ms, got = decode_ms(paeth)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"nrgbd_export: the Paeth-filtered {kind} file reads otherwise")
+        decode[kind].update(paeth_ms=ms, paeth_bytes=paeth.stat().st_size)
+        if importlib.util.find_spec("PIL") is not None:
+            import PIL.Image
+
+            pil = tmp / f"pil_{kind}.png"
+            PIL.Image.fromarray(want).save(pil)
+            ms, got = decode_ms(pil)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"nrgbd_export: the PIL-written {kind} file reads otherwise")
+            decode[kind].update(pil_ms=ms, pil_bytes=pil.stat().st_size)
+    phase("nrgbd_export", exports=written, decode_640x480=decode,
+          pil_installed=importlib.util.find_spec("PIL") is not None, card=smi)
+    return roots
+
+
+def run_cli_main(torch, run_mapping, permuto_cuda, topk, argv):
+    """``run_mapping.main(argv)`` with its stdout captured and the runner it
+    built kept -> (metrics JSON it printed, runner, launches, seconds, device
+    memory: the peak during the run and what was allocated before it, GB)."""
+    import contextlib
+    import gc
+    import io
+
+    runners = []
+    fit = run_mapping.NeuralGraphMapRunner.fit
+
+    def kept_fit(self):
+        runners.append(self)
+        return fit(self)
+
+    stdout = io.StringIO()
+    gc.collect()  # earlier phases' maps left in reference cycles: free them now, not during the run
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    memory = {"before_gb": torch.cuda.memory_allocated() / 1e9}
+    run_mapping.NeuralGraphMapRunner.fit = kept_fit
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            run_mapping.main(argv)
+    finally:
+        run_mapping.NeuralGraphMapRunner.fit = fit
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    memory["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = all_launches(permuto_cuda, topk)
+    return json.loads(stdout.getvalue().strip().splitlines()[-1]), runners[0], launches, seconds, memory
+
+
+def check_fps960(torch, engine, run_mapping, permuto_cuda, topk, root: pathlib.Path, tmp: pathlib.Path, smi):
+    """Phase fps960: ``run_mapping.main`` on config/neural_graph_map.yaml +
+    config/fps960.yaml (written as JSON) with ``--dataset_config.root_dir``
+    the export: 960 frames at 640x480 through the NRGBD loader and the
+    prefetcher, training only. Reports the CLI's throughput metrics, every
+    ``phase_*_s``, fields and capacity, the frame loop's wall s, peak
+    device memory (and what earlier phases held before the run), the
+    median trained-frame ms of the first and the last
+    FPS960_WINDOW frames and the keyframe slots in use; kernels 1-3 must
+    each launch 5 x the trained frames and no other kernel at all; then one
+    training iteration of the final map against the CPU (rel <= 1e-3).
+    -> the run's launches."""
+    config_path = tmp / "fps960.json"
+    config_path.write_text(json.dumps(nrgbd_run_config(FPS960)))
+    argv = ["--config", str(config_path), "--device", "cuda", "--dataset_config.root_dir", str(root),
+            "--out_dir", str(tmp / "fps960_runs")]
+    metrics, runner, launches, seconds, memory = run_cli_main(torch, run_mapping, permuto_cuda, topk, argv)
+    e = runner.engine
+    frames, iters = FPS960_EXPORT[0], FPS960["num_iterations_per_frame"]
+    trained = e.throughput.frames
+    want = ["fps_estimate", "spf_estimate", "wall_fps", "num_fields"]
+    bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    if bad or trained != frames:
+        raise AssertionError(f"fps960: missing or non-finite {bad}, {trained} of {frames} frames trained")
+    others = {k: v for k, v in launches.items() if v and k not in TRAINING_KERNELS}
+    counts = {k: launches[k] for k in TRAINING_KERNELS}
+    if others or any(v != iters * trained for v in counts.values()):
+        raise AssertionError(f"fps960: launches {counts}, others {others}; want {iters} x {trained} each")
+    frame_ms = [s * 1e3 for s in e.throughput.frame_seconds]
+    worst, losses = check_iteration_against_cpu(torch, engine, e)
+    phase("fps960", argv_overrides=argv[4:], frames=frames, trained_frames=trained,
+          keyframes=len(e._kf_ids), keyframe_slots_free=len(e._free_slots), main_seconds=seconds,
+          **{k: metrics[k] for k in want}, capacity=e.capacity, loop_wall_s=runner._loop_wall_s,
+          device_memory_gb=memory, phases_s={k: v for k, v in metrics.items() if k.startswith("phase_")},
+          frame_ms_median_first=statistics.median(frame_ms[:FPS960_WINDOW]),
+          frame_ms_median_last=statistics.median(frame_ms[-FPS960_WINDOW:]),
+          frame_ms_max=max(frame_ms), window_frames=FPS960_WINDOW, launches=counts,
+          iteration_vs_cpu={"max_rel_diff": worst, "tolerance": "rel <= 1e-3", "capacity": e.capacity,
+                            "losses": losses}, card=smi)
+    return launches
+
+
+def check_refrun(torch, run_mapping, permuto_cuda, topk, root: pathlib.Path, tmp: pathlib.Path, smi):
+    """Phase refrun_synthetic: ``run_mapping.main`` on
+    config/neural_graph_map.yaml + config/refrun_synthetic.yaml (as JSON)
+    with ``--dataset_config.root_dir`` the 120-frame 160x120 export: keyframes
+    only, every fifth keyframe held out, ``eval_store_details`` on (the
+    comparison PNGs and details.txt written without PIL or tabulate): final
+    PSNR / depth-L1, the files written; kernels 1-5 must launch. -> the
+    run's launches."""
+    from neural_graph_mapping_tpu_torch.utils import imageio
+
+    config_path = tmp / "refrun_synthetic.json"
+    config_path.write_text(json.dumps(nrgbd_run_config(REFRUN_SYNTHETIC)))
+    argv = ["--config", str(config_path), "--device", "cuda", "--dataset_config.root_dir", str(root),
+            "--out_dir", str(tmp / "refrun_runs")]
+    metrics, runner, launches, seconds, _ = run_cli_main(torch, run_mapping, permuto_cuda, topk, argv)
+    want = ["final_psnr", "final_depthl1", "spf_estimate", "num_fields"]
+    bad = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    eval_dir = runner._out_dir / "eval_data"
+    pngs = sorted(eval_dir.glob("*.png"))
+    details = (eval_dir / "details.txt").read_text().splitlines() if (eval_dir / "details.txt").is_file() else []
+    if bad or not pngs or len(details) != 2 + len(runner._eval_details):
+        raise AssertionError(f"refrun_synthetic: metrics {bad} missing, {len(pngs)} PNGs, details {details}")
+    shape = imageio.read_png(pngs[0]).shape
+    cam = REFRUN_SYNTHETIC["dataset_config"]["camera"]
+    if shape != (cam["height"], 2 * cam["width"], 3):
+        raise AssertionError(f"refrun_synthetic: comparison PNG of shape {shape}")
+    missing = [k for k in TRAINING_KERNELS + ("topk2_fields", "encode_fwd_moe_rays") if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"refrun_synthetic: {missing} never launched")
+    phase("refrun_synthetic", argv_overrides=argv[4:], frames=REFRUN_EXPORT[0],
+          trained_frames=runner.engine.throughput.frames, eval_frames=sorted(runner.eval_frame_ids),
+          main_seconds=seconds, **{k: metrics[k] for k in want}, online_psnr=metrics.get("online_psnr"),
+          online_depthl1=metrics.get("online_depthl1"), eval_pngs=len(pngs), details_rows=len(details) - 2,
+          launches={k: v for k, v in launches.items() if v}, card=smi)
+    return launches
+
+
+def check_topk_over_render(torch, topk, ngm, ds, scale_sweep) -> dict:
+    """Every ``topk2_fields`` call of one 640x480 render of the sweep's map
+    (its own centres) against the plain version on the same inputs: indices
+    exact, distances max abs <= 1e-6 -> the calls, points and largest
+    distance error. The launches of the plain version do not count."""
+    kernel = topk.topk2_fields
+    seen = {"calls": 0, "points": 0, "max_abs_dist": 0.0, "centres": None}
+
+    def checked(pts, cen, valid):
+        d, i = kernel(pts, cen, valid)
+        wd, wi = topk.topk2_fields_plain(pts, cen, valid)
+        finite = torch.isfinite(wd)
+        if not (torch.equal(i, wi) and torch.equal(torch.isfinite(d), finite)):
+            raise AssertionError(f"topk2_fields: indices differ from the plain version at {cen.shape[0]} centres")
+        err = float((d[finite] - wd[finite]).abs().max()) if bool(finite.any()) else 0.0
+        if err > 1e-6:
+            raise AssertionError(f"topk2_fields: distances {err} from the plain version (> 1e-6)")
+        seen.update(calls=seen["calls"] + 1, points=seen["points"] + pts.shape[1],
+                    max_abs_dist=max(seen["max_abs_dist"], err), centres=cen.shape[0],
+                    valid_centres=int(valid.sum()), args=seen.get("args") or (pts, cen, valid))
+        return d, i
+
+    topk.topk2_fields = checked
+    try:
+        ngm.render_image(ds[scale_sweep.RENDER_FRAME]["c2w"], scale_sweep.render_camera())
+        torch.cuda.synchronize()
+    finally:
+        topk.topk2_fields = kernel
+    return seen
+
+
+def check_scale_sweep(torch, engine, permuto_cuda, topk, smi):
+    """Phase scale_sweep: ``scripts/scale_sweep.sweep_one`` at N = 128, 512
+    and 2,048 fields (training rays/s, ms a render block, s a 640x480
+    image, fields, capacity; launches over the three). At the largest N:
+    every ``topk2_fields`` call of a 640x480 render against its plain
+    version at the map's own centres (:func:`check_topk_over_render`), the
+    kernel timed at the first block's inputs (``kernel_variant``); one
+    training iteration against the CPU (rel <= 1e-3); one 8,192-ray render
+    block (the middle of the 640x480 image) against the CPU, max abs
+    <= 1e-4. -> the sweep's launches."""
+    from neural_graph_mapping_tpu_torch.scripts import scale_sweep
+
+    torch.cuda.synchronize()
+    permuto_cuda.reset_launch_counts()
+    topk.reset_launch_counts()
+    results = []
+    for n in scale_sweep.DEFAULT_SIZES:
+        t0 = time.perf_counter()
+        result, ds, ngm = scale_sweep.sweep_one(n)
+        if result is None:
+            raise AssertionError(f"scale_sweep: the warm map has {ngm.num_fields} fields, more than {n}")
+        results.append(dict(result, seconds=time.perf_counter() - t0))
+        if n != scale_sweep.DEFAULT_SIZES[-1]:
+            del ngm
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = all_launches(permuto_cuda, topk)
+    missing = [k for k in TRAINING_KERNELS + ("topk2_fields", "encode_fwd_moe_rays") if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"scale_sweep: {missing} never launched")
+    phase("scale_sweep", results=results, launches={k: v for k, v in launches.items() if v},
+          peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+
+    n = ngm.num_fields
+    t0 = time.perf_counter()
+    seen = check_topk_over_render(torch, topk, ngm, ds, scale_sweep)
+    topk_s = time.perf_counter() - t0
+    pts, cen, valid = seen.pop("args")
+    timing = measure(torch, lambda: topk.topk2_fields(pts, cen, valid),
+                     lambda: topk.topk2_fields_plain(pts, cen, valid), plain_window=True)
+    evaluated = topk_evaluated_pairs(torch, topk, pts, cen, valid)
+    bound_ms, bound_by = topk_bound(pts.shape[1], cen.shape[0], evaluated)
+    phase("kernel_variant", name="topk2_fields", case=f"the {n}-field sweep map's own centres, a 640x480 "
+          "render's every block against the plain version; timed at its first block",
+          tolerance="indices exact, distances max abs <= 1e-6", max_abs_err=seen["max_abs_dist"],
+          image_calls=seen["calls"], image_points=seen["points"], check_seconds=topk_s,
+          shape={"points": pts.shape[1], "centres": cen.shape[0], "valid_centres": seen["valid_centres"],
+                 "box_points": topk.BOX_POINTS},
+          pairs_evaluated_share=evaluated / (pts.shape[1] * cen.shape[0]), **timing,
+          bound_ms=bound_ms, bound_by=bound_by)
+
+    t0 = time.perf_counter()
+    worst, losses = check_iteration_against_cpu(torch, engine, ngm)
+    iteration_s = time.perf_counter() - t0
+    camera = scale_sweep.render_camera()
+    dev = ngm._params["w0"].device
+    rays = scale_sweep.RENDER_BLOCK
+    offset = (camera.height * camera.width - rays) // 2
+    u = torch.rand((rays, ngm._eval_span_samples), generator=torch.Generator(dev).manual_seed(2048), device=dev)
+    args, kw = block_call(torch, ngm, camera, ds[scale_sweep.RENDER_FRAME]["c2w"], offset, rays, u)
+    gpu = engine.render_block_tiled(*args, use_ray_kernel=True, **kw)
+    t0 = time.perf_counter()
+    cpu = engine.render_block_tiled(copy.deepcopy(ngm._fset).to("cpu"), *to_cpu(args[1:]), use_ray_kernel=True,
+                                    **to_cpu(kw))
+    block_cpu_s = time.perf_counter() - t0
+    rgb_err = float((gpu[0][:, :3].cpu() - cpu[0][:, :3]).abs().max())
+    depth_err = float((gpu[0][:, 3].cpu() - cpu[0][:, 3]).abs().max())
+    if not (rgb_err <= 1e-4 and depth_err <= 1e-4):
+        raise AssertionError(f"scale_sweep render block card vs CPU: rgb {rgb_err}, depth {depth_err} > 1e-4")
+    phase("scale_sweep_vs_cpu", fields=n, capacity=ngm.capacity,
+          iteration={"max_rel_diff": worst, "tolerance": "rel <= 1e-3", "seconds": iteration_s, "losses": losses},
+          render_block={"rays": rays, "samples": ngm._eval_span_samples, "block_offset": offset,
+                        "max_abs_rgb": rgb_err, "max_abs_depth": depth_err, "tolerance": "max abs <= 1e-4",
+                        "cpu_seconds": block_cpu_s}, card=smi)
     return launches
 
 
@@ -4113,6 +4530,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="ngm_scannet_") as tmp:
         scannet_launches = check_scannet(torch, run_mapping, permuto_cuda, topk, pathlib.Path(tmp), smi)
 
+    # -- 19-22. the long-sequence and many-field paths: NRGBD exports, fps960,
+    # refrun_synthetic through the CLI, the field-count sweep to 2,048 fields
+    with tempfile.TemporaryDirectory(prefix="ngm_nrgbd_") as tmp:
+        roots = check_nrgbd_export(pathlib.Path(tmp), smi)
+        fps960_launches = check_fps960(torch, engine, run_mapping, permuto_cuda, topk, roots["fps960"],
+                                       pathlib.Path(tmp), smi)
+        refrun_launches = check_refrun(torch, run_mapping, permuto_cuda, topk, roots["refrun_synthetic"],
+                                       pathlib.Path(tmp), smi)
+    scale_sweep_launches = check_scale_sweep(torch, engine, permuto_cuda, topk, smi)
+
     kernels = []
     for name, source, replaces in permuto_cuda.KERNELS + topk.KERNELS:
         if launches[name] < 1:
@@ -4127,7 +4554,8 @@ def main() -> None:
         if replica_launches[name]:
             row["replica_launches"] = replica_launches[name]
         for path, counts in (("trajectory", trajectory_launches), ("quality", quality_launches),
-                             ("scannet", scannet_launches)):
+                             ("scannet", scannet_launches), ("fps960", fps960_launches),
+                             ("refrun", refrun_launches), ("scale_sweep", scale_sweep_launches)):
             if counts[name]:
                 row[f"{path}_launches"] = counts[name]
         sharded = {path: counts.get(name, 0) for path, counts in sharded_launches.items() if counts.get(name)}

@@ -35,8 +35,9 @@ KERNELS: Tuple[Tuple[str, str, str], ...] = (
      "neural_graph_mapping_tpu/ops/topk_pallas.py:97"),
 )
 
-# points per chunk of the plain version: bounds its (chunk, N) distance matrix
-_PLAIN_CHUNK = 1 << 20
+# entries of the plain version's (points, N) distance matrix at once: its
+# points go in chunks of this many over N (256 MB an f32 temporary)
+_PLAIN_ENTRIES = 1 << 26
 # consecutive points that share a box in the kernel (a warp's, csrc/topk.cu,
 # which refuses a launch that names another), and the pruning test's
 # relative margins as float32 factors; both go to the kernel with each launch
@@ -67,23 +68,35 @@ def load_library() -> cuda_build.Library:
 
 
 def topk2_fields_plain(points_fm: torch.Tensor, centers: torch.Tensor, valid: torch.Tensor):
-    """Plain top-2: points (3, P), centres (N, 3), valid (N,) bool ->
-    (dists (2, P) f32, idx (2, P) int32). A stable sort of the masked
-    squared distances gives the lexicographic (distance, index) order."""
+    """Plain top-2: points (3, P) finite, centres (N, 3), valid (N,) bool ->
+    (dists (2, P) f32, idx (2, P) int32): each point's two smallest masked
+    squared distances in lexicographic (distance, index) order, the order a
+    stable sort gives them. ``argmin`` takes the first of equal minima;
+    the first's entry set to +inf, a second ``argmin`` takes the next, and
+    where that is +inf every other entry is, so the second is the lowest
+    index but the first's. Points go in chunks of ``_PLAIN_ENTRIES``
+    matrix entries, so many centres take no more memory than a few."""
     n = centers.shape[0]
+    rows = max(1024, _PLAIN_ENTRIES // max(n, 2))
     d_parts, i_parts = [], []
-    for s in range(0, points_fm.shape[1], _PLAIN_CHUNK):
-        pts = points_fm[:, s : s + _PLAIN_CHUNK]
-        dx = pts[0][:, None] - centers[:, 0][None, :]
+    for s in range(0, points_fm.shape[1], rows):
+        pts = points_fm[:, s : s + rows]
+        d2 = pts[0][:, None] - centers[:, 0][None, :]
         dy = pts[1][:, None] - centers[:, 1][None, :]
         dz = pts[2][:, None] - centers[:, 2][None, :]
-        d2 = dx * dx + dy * dy + dz * dz
-        d2 = torch.where(valid[None, :], d2, torch.inf)
+        d2.mul_(d2).add_(dy.mul_(dy)).add_(dz.mul_(dz))  # dx * dx + dy * dy + dz * dz
+        del dy, dz
+        d2.masked_fill_(~valid[None, :], torch.inf)
         if n < 2:  # fewer centres than neighbours: pad with inf (index clamped)
             d2 = torch.cat([d2, d2.new_full((d2.shape[0], 2 - n), torch.inf)], dim=1)
-        vals, idx = torch.sort(d2, dim=1, stable=True)
-        d_parts.append(torch.sqrt(vals[:, :2]).T)
-        i_parts.append(torch.clamp(idx[:, :2], max=n - 1).T.to(torch.int32))
+        first = torch.argmin(d2, dim=1, keepdim=True)
+        d_first = torch.gather(d2, 1, first)
+        d2.scatter_(1, first, torch.inf)
+        second = torch.argmin(d2, dim=1, keepdim=True)
+        d_second = torch.gather(d2, 1, second)
+        second = torch.where(torch.isinf(d_second), (first == 0).long(), second)
+        d_parts.append(torch.sqrt(torch.cat([d_first, d_second], dim=1)).T)
+        i_parts.append(torch.clamp(torch.cat([first, second], dim=1), max=n - 1).T.to(torch.int32))
     if not d_parts:
         return points_fm.new_empty((2, 0)), torch.empty((2, 0), dtype=torch.int32, device=points_fm.device)
     return torch.cat(d_parts, dim=1).contiguous(), torch.cat(i_parts, dim=1).contiguous()

@@ -347,7 +347,8 @@ class NeuralGraphMapRunner:
     @profiling.benchmark
     def evaluate_frame(self, frame_id: int, at_frame_id: int) -> dict:
         """Held-out frame render metrics, plus the eval artifacts: a
-        side-by-side target|render PNG and a tabulated ``details.txt``.
+        side-by-side target|render PNG and a ``details.txt`` table (tabulate's
+        layout, written by ``chunking.format_table``).
 
         ``eval_render_scale`` (< 1.0) renders at a downscaled camera and
         block-averages the target to match (depth: mean over valid pixels).
@@ -401,14 +402,8 @@ class NeuralGraphMapRunner:
             self._eval_details.append(
                 [img_name] + [float(out.get(m, float("nan"))) for m in self._eval_render_metrics]
             )
-            import tabulate
-
             with open(eval_dir / "details.txt", "w") as f:
-                f.write(
-                    tabulate.tabulate(
-                        self._eval_details, headers=["filename", *self._eval_render_metrics]
-                    )
-                )
+                f.write(chunking.format_table(self._eval_details, ["filename", *self._eval_render_metrics]))
         return out
 
     @profiling.benchmark

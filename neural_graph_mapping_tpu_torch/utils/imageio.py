@@ -1,7 +1,7 @@
 """PNG reading and writing on numpy and ``zlib`` alone.
 
 Every loader of the port reads its PNG frames through :func:`read_png`, on
-every machine, so a machine without PIL (the card's) reads the same bytes
+every machine, so a machine with or without PIL reads the same bytes
 the same way. Scope: non-interlaced PNGs of 8-bit gray, gray + alpha, RGB
 or RGBA, and 16-bit gray (depth frames); all five scanline filters on read.
 :func:`write_png` writes the same formats with filter 0 (None) or 1 (Sub).

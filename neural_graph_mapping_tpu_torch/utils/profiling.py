@@ -81,10 +81,12 @@ class ThroughputTracker:
     def __init__(self) -> None:
         self.total_seconds = 0.0
         self.frames = 0
+        self.frame_seconds: list = []  # each frame's, in order
 
     def add_frame(self, seconds: float) -> None:
         self.total_seconds += seconds
         self.frames += 1
+        self.frame_seconds.append(seconds)
 
     @property
     def fps_estimate(self) -> float:

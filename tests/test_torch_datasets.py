@@ -283,7 +283,7 @@ def test_chip_smoke_replica_config_equals_yaml(monkeypatch, tmp_path):
     assert run["dataset_config"]["root_dir"] == str(tmp_path)
     assert run["dataset_config"]["scene"] == chip_smoke.REPLICA_SCENE
     assert {k: v for k, v in run.items() if k != "dataset_config"} == dict(
-        {k: v for k, v in want.items() if k != "dataset_config"}, eval_ratio=0.1,
+        {k: v for k, v in want.items() if k != "dataset_config"}, eval_ratio=chip_smoke.REPLICA_EVAL_RATIO,
         eval_metrics=["psnr", "depthl1"], extract_mesh=True, mesh_resolution=0.04, eval_store_details=False,
         render_vis=False, out_dir=str(tmp_path / "runs"))
 

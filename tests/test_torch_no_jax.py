@@ -60,6 +60,8 @@ NEW_MODULES = [
     "neural_graph_mapping_tpu_torch.parallel.sharding",
     "neural_graph_mapping_tpu_torch.utils.jpeg",
     "neural_graph_mapping_tpu_torch.scripts.score_checkpoint",
+    "neural_graph_mapping_tpu_torch.scripts.export_synthetic_nrgbd",
+    "neural_graph_mapping_tpu_torch.scripts.scale_sweep",
 ]
 
 _BLOCKER = """

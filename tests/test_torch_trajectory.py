@@ -13,6 +13,12 @@ Cases (64x48, the tiny model of ``tests/test_torch_engine.py``):
   then close a loop that drops a keyframe (``chip_smoke.write_slam_files``),
   so ``_update_graph`` re-anchors fields and moves them mid-run.
 - ``single_view``: ``update_mode: single_view``.
+- ``nrgbd``: the synthetic scene written by the port's NRGBD exporter
+  (``scripts/export_synthetic_nrgbd.py``) and read back by each package's
+  own NRGBD loader with config/fps960.yaml's ``dataset_config`` (the root
+  replaced, the camera scaled to 64x48: fx 56, cx 32, cy 24, pixel_center
+  0.0 as the YAML has it), 12 frames: the long-sequence configuration's
+  path at the tiny size.
 
 Held after every frame:
 
@@ -64,6 +70,7 @@ from torch_parity import assert_close, to_np, to_torch
 from test_torch_engine import _replayed_draws, tiny_config
 
 import chip_smoke
+from neural_graph_mapping_tpu.datasets.nrgbd import NRGBDDataset as JaxNRGBD
 from neural_graph_mapping_tpu.datasets.replica import ReplicaDataset as JaxReplica
 from neural_graph_mapping_tpu.datasets.synthetic import SyntheticDataset as JaxSynthetic
 from neural_graph_mapping_tpu.mapping import engine as jengine
@@ -71,6 +78,7 @@ from neural_graph_mapping_tpu.mapping import map_state as jmap_state
 from neural_graph_mapping_tpu.models.fields import NeuralFieldSet as JaxFieldSet
 from neural_graph_mapping_tpu_torch import config as tconfig
 from neural_graph_mapping_tpu_torch import interop
+from neural_graph_mapping_tpu_torch.datasets.nrgbd import NRGBDDataset
 from neural_graph_mapping_tpu_torch.datasets.replica import ReplicaDataset
 from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
 from neural_graph_mapping_tpu_torch.mapping import engine, optimizer
@@ -305,6 +313,18 @@ def _single_view_case():
     return cfg, jds, ds, range(3)
 
 
+def _nrgbd_case(root: pathlib.Path):
+    from neural_graph_mapping_tpu_torch.scripts import export_synthetic_nrgbd
+
+    export_synthetic_nrgbd.export(root, SYNTH["num_frames"], SYNTH["width"], SYNTH["height"], SYNTH["fx"], workers=1)
+    dcfg = tconfig.load_config("fps960.yaml")["dataset_config"]
+    camera = dict(dcfg["camera"], width=SYNTH["width"], height=SYNTH["height"], fx=SYNTH["fx"], fy=SYNTH["fy"],
+                  cx=SYNTH["width"] / 2, cy=SYNTH["height"] / 2)
+    dcfg = dict(dcfg, root_dir=str(root), camera=camera)
+    cfg = tiny_config(num_iterations_per_frame=2)
+    return cfg, JaxNRGBD(dcfg), NRGBDDataset(dcfg), range(SYNTH["num_frames"])
+
+
 def _full_width_case():
     """config/neural_graph_map.yaml + config/synthetic.yaml as they are
     (160x120, L = 16, T = 4096, 32 fields x 512 rays x (8 + 16) samples, 5
@@ -327,12 +347,14 @@ def test_full_width_run_in_lockstep_with_jax(tmp_path, monkeypatch):
     print(json.dumps({"case": "full_width", "gaps": gaps}))
 
 
-@pytest.mark.parametrize("case", ["growth", "loop_closure", "single_view"])
+@pytest.mark.parametrize("case", ["growth", "loop_closure", "single_view", "nrgbd"])
 def test_online_run_in_lockstep_with_jax(case, tmp_path, monkeypatch):
     if case == "growth":
         cfg, jds, ds, frames = _growth_case()
     elif case == "loop_closure":
         cfg, jds, ds, frames = _loop_closure_case(tmp_path)
+    elif case == "nrgbd":
+        cfg, jds, ds, frames = _nrgbd_case(tmp_path)
     else:
         cfg, jds, ds, frames = _single_view_case()
     jds.load_slam_results()
@@ -350,6 +372,8 @@ def test_online_run_in_lockstep_with_jax(case, tmp_path, monkeypatch):
         assert by_frame[LC_FRAME]["fields_moved"] > 0.1  # re-anchored to the snapped poses
         assert all(g["fields_moved"] == 0.0 for f, g in by_frame.items() if f != LC_FRAME)
         assert not by_frame[LOST_FRAME]["current_cached"] and by_frame[LOST_FRAME + 1]["current_cached"]
+    if case == "nrgbd":
+        assert sorted(tm._kf_ids) == [0, 5, 10] and tm._frame_to_slot == {0: 1, 5: 2, 10: 3}
     print(json.dumps({"case": case, "gaps": gaps}))
 
 

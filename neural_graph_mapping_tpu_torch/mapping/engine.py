@@ -25,10 +25,13 @@ run on the CPU.
 
 Time accounting: ``phase_times`` sums the host phases of
 :meth:`NeuralGraphMap.process_frame` (graph, alloc, host_misc; the CLI
-runner adds data_wait and h2d), and ``throughput`` (a
+runner adds data_wait and h2d), each timed by ``profiling.phase``, and
+``throughput`` (a
 :class:`~neural_graph_mapping_tpu_torch.utils.profiling.ThroughputTracker`)
 gives ``fps_estimate`` / ``spf_estimate`` from the frames processed and their
-optimization seconds.
+optimization seconds. While the tracer is on (``utils/profiling.py``),
+the frame, its phases, its step, each iteration's stages and each render
+block's stages are spans ``ngm.frame.*``, ``ngm.iter.*``, ``ngm.render.*``.
 
 Draw streams, as the JAX engine's two keys: ``_init_gen`` (JAX's ``_key``)
 draws field init, render jitter and the single-view iterations (JAX feeds
@@ -320,13 +323,17 @@ def loss_and_grads(
 ):
     """Render the target's rays through the gathered fields, take the losses
     and their gradients w.r.t. ``sub_params`` -> (loss_dict, grads)."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
-    pred = render.render_rays_vmap(
-        fset, leaves, sub_positions, sub_orientations, camera, target, rcfg,
-        draws.u_coarse, draws.u_guided, generator,
-    )
-    combined, loss_dict = compute_losses(loss_cfg, rcfg, target, pred)
-    return {k: v.detach() for k, v in loss_dict.items()}, _grads(combined, leaves)
+    with profiling.span("ngm.iter.render"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
+        pred = render.render_rays_vmap(
+            fset, leaves, sub_positions, sub_orientations, camera, target, rcfg,
+            draws.u_coarse, draws.u_guided, generator,
+        )
+    with profiling.span("ngm.iter.loss"):
+        combined, loss_dict = compute_losses(loss_cfg, rcfg, target, pred)
+    with profiling.span("ngm.iter.backward"):
+        grads = _grads(combined, leaves)
+    return {k: v.detach() for k, v in loss_dict.items()}, grads
 
 
 def _grads(loss: torch.Tensor, leaves: dict) -> dict:
@@ -411,18 +418,21 @@ def _optimization_iteration_core(
             fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations, map_positions,
             map_orientations, target, draws, generator, shard,
         )
-    sub_params = fset.gather_fields(params, target.field_ids)
+    with profiling.span("ngm.iter.gather"):
+        sub_params = fset.gather_fields(params, target.field_ids)
+        sub_positions = map_positions[target.field_ids]
+        sub_orientations = map_orientations[target.field_ids]
     loss_dict, grads = loss_and_grads(
-        fset, camera, rcfg, loss_cfg, sub_params,
-        map_positions[target.field_ids], map_orientations[target.field_ids],
+        fset, camera, rcfg, loss_cfg, sub_params, sub_positions, sub_orientations,
         target, draws, generator,
     )
-    optimizer.adam_slice_update(
-        ocfg, params, adam, target.field_ids, target.field_valid, grads, sub_params
-    )
-    training_iterations.index_add_(
-        0, target.field_ids, target.field_valid.to(training_iterations.dtype)
-    )
+    with profiling.span("ngm.iter.adam"):
+        optimizer.adam_slice_update(
+            ocfg, params, adam, target.field_ids, target.field_valid, grads, sub_params
+        )
+        training_iterations.index_add_(
+            0, target.field_ids, target.field_valid.to(training_iterations.dtype)
+        )
     return params, adam, training_iterations, loss_dict
 
 
@@ -455,15 +465,17 @@ def optimization_iteration(
         only = torch.arange(allocated_mask.shape[0], device=allocated_mask.device) == loss_cfg.single_field_id
         allocated_mask = allocated_mask & only
         observed_mask = observed_mask & only
-    field_ids, field_valid = sampling.select_target_fields(
-        observed_mask, allocated_mask, num_train_fields, draws.u_obs, draws.u_rand, generator
-    )
-    target = sampling.sample_target_mv(
-        camera, field_ids, field_valid, map_positions, cache_rgb, cache_depth, cache_c2w,
-        cache_valid, fset.field_radius, loss_cfg.num_rays_per_field,
-        offsets=draws.offsets, kf_gumbel=draws.kf_gumbel, pix_u=draws.pix_u,
-        generator=generator,
-    )
+    with profiling.span("ngm.iter.select"):
+        field_ids, field_valid = sampling.select_target_fields(
+            observed_mask, allocated_mask, num_train_fields, draws.u_obs, draws.u_rand, generator
+        )
+    with profiling.span("ngm.iter.sample"):
+        target = sampling.sample_target_mv(
+            camera, field_ids, field_valid, map_positions, cache_rgb, cache_depth, cache_c2w,
+            cache_valid, fset.field_radius, loss_cfg.num_rays_per_field,
+            offsets=draws.offsets, kf_gumbel=draws.kf_gumbel, pix_u=draws.pix_u,
+            generator=generator,
+        )
     return _optimization_iteration_core(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
         map_positions, map_orientations, target, draws, generator, shard,
@@ -538,21 +550,23 @@ def optimization_iteration_sv(
     (``sampling.sample_target_sv``); then render, losses and Adam as in the
     multi-view iteration. Returns (params, adam, training_iterations,
     loss_dict). No host sync."""
-    slot_gumbel = draws.slot_gumbel
-    if slot_gumbel is None:
-        slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
-    others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
-    random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
-    use_current = cache_valid[0] & (iter_idx % 2 != 0)
-    slot = torch.where(use_current, 0, random_slot).reshape(1)
-    rgbd = torch.cat(
-        [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
-    )
-    target = sampling.sample_target_sv(
-        camera, rgbd, cache_c2w.index_select(0, slot)[0], map_positions, active_mask,
-        fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
-        cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=generator,
-    )
+    with profiling.span("ngm.iter.select"):
+        slot_gumbel = draws.slot_gumbel
+        if slot_gumbel is None:
+            slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
+        others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
+        random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
+        use_current = cache_valid[0] & (iter_idx % 2 != 0)
+        slot = torch.where(use_current, 0, random_slot).reshape(1)
+    with profiling.span("ngm.iter.sample"):
+        rgbd = torch.cat(
+            [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
+        )
+        target = sampling.sample_target_sv(
+            camera, rgbd, cache_c2w.index_select(0, slot)[0], map_positions, active_mask,
+            fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
+            cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=generator,
+        )
     return _optimization_iteration_core(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
         map_positions, map_orientations, target, draws, generator, shard,
@@ -641,11 +655,13 @@ def frame_step(
     """One frame: keyframe-cache writes (in place), the observed-field test,
     and all optimization iterations; draws not given come from
     ``generator``."""
-    write_cache(cache_rgb, cache_depth, rgbd, write_current, kf_slot)
-    observed = sampling.observed_fields_mask(
-        camera, rgbd[..., 3], c2w, map_positions, allocated_mask, fset.field_radius,
-        gumbel=observed_gumbel, generator=generator,
-    )
+    with profiling.span("ngm.frame.cache_write"):
+        write_cache(cache_rgb, cache_depth, rgbd, write_current, kf_slot)
+    with profiling.span("ngm.frame.observed"):
+        observed = sampling.observed_fields_mask(
+            camera, rgbd[..., 3], c2w, map_positions, allocated_mask, fset.field_radius,
+            gumbel=observed_gumbel, generator=generator,
+        )
     loss_dict = {}
     if has_fields:
         params, adam, training_iterations, loss_dict = optimization_iterations_scan(
@@ -735,53 +751,54 @@ def render_block_tiled(
     ``shard``, ``params`` are this rank's rows and the blend goes through
     ``sharding.render_points_sharded`` (one all-reduce).
     """
-    b = ijs.shape[0]
-    dirs = camera.ijs_to_directions(ijs)  # (B, 3) camera frame
-    rot = c2w[:3, :3]
-    origin = c2w[:3, 3]
-    dirs_w = dirs @ rot.T  # (B, 3) world
+    with profiling.span("ngm.render.span"):
+        b = ijs.shape[0]
+        dirs = camera.ijs_to_directions(ijs)  # (B, 3) camera frame
+        rot = c2w[:3, :3]
+        origin = c2w[:3, 3]
+        dirs_w = dirs @ rot.T  # (B, 3) world
 
-    # per-ray span over the allocated field spheres
-    co = positions - origin[None, :]  # (N, 3)
-    proj = dirs_w @ co.T  # (B, N)
-    c_sq = torch.sum(co * co, dim=-1)  # (N,)
-    r = float(fset.field_radius)
-    disc = proj * proj - (c_sq[None, :] - r * r)
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    enter = proj - sq
-    exit_ = proj + sq
-    hit = (disc > 0.0) & allocated_mask[None, :] & (exit_ > near) & (enter < far)
-    enter_c = torch.clamp(enter, near, far)
-    exit_c = torch.clamp(exit_, near, far)
-    t0 = torch.amin(torch.where(hit, enter_c, far), dim=-1)  # (B,)
-    t1 = torch.amax(torch.where(hit, exit_c, near), dim=-1)
-    any_hit = torch.any(hit, dim=-1)
-    t0 = torch.where(any_hit, t0, near)
-    t1 = torch.where(any_hit, torch.maximum(t1, t0), far)
+        # per-ray span over the allocated field spheres
+        co = positions - origin[None, :]  # (N, 3)
+        proj = dirs_w @ co.T  # (B, N)
+        c_sq = torch.sum(co * co, dim=-1)  # (N,)
+        r = float(fset.field_radius)
+        disc = proj * proj - (c_sq[None, :] - r * r)
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        enter = proj - sq
+        exit_ = proj + sq
+        hit = (disc > 0.0) & allocated_mask[None, :] & (exit_ > near) & (enter < far)
+        enter_c = torch.clamp(enter, near, far)
+        exit_c = torch.clamp(exit_, near, far)
+        t0 = torch.amin(torch.where(hit, enter_c, far), dim=-1)  # (B,)
+        t1 = torch.amax(torch.where(hit, exit_c, near), dim=-1)
+        any_hit = torch.any(hit, dim=-1)
+        t0 = torch.where(any_hit, t0, near)
+        t1 = torch.where(any_hit, torch.maximum(t1, t0), far)
 
-    if u is None:
-        u = torch.rand((b, num_samples), generator=generator, device=ijs.device)
-    distances = span_sample_distances(t0, t1, u, sample_spacing)  # (B, S)
-    points_world = origin[None, None, :] + dirs_w[:, None, :] * distances[..., None]
+        if u is None:
+            u = torch.rand((b, num_samples), generator=generator, device=ijs.device)
+        distances = span_sample_distances(t0, t1, u, sample_spacing)  # (B, S)
+        points_world = origin[None, None, :] + dirs_w[:, None, :] * distances[..., None]
 
-    ray_ctx = None
-    if use_ray_kernel:
-        ks = fset.num_knn * num_samples
-        log2_ks = ks.bit_length() - 1
-        if (1 << log2_ks) != ks or block_offset is None:
-            raise ValueError("the ray kernel needs a power-of-two k * S and a block_offset")
-        fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
-        # a non-blocking copy: a blocking one would wait for the device
-        intr = torch.tensor([1.0 / fx, 1.0 / fy, cx, cy], dtype=torch.float32).to(
-            c2w.device, non_blocking=True
-        )
-        ray_ctx = {
-            "dist": distances.reshape(-1),
-            "ray_params": torch.cat([rot.reshape(-1), origin, intr]).contiguous(),
-            "block_offset": int(block_offset),
-            "log2_ks": log2_ks,
-            "width": int(camera.width),
-        }
+        ray_ctx = None
+        if use_ray_kernel:
+            ks = fset.num_knn * num_samples
+            log2_ks = ks.bit_length() - 1
+            if (1 << log2_ks) != ks or block_offset is None:
+                raise ValueError("the ray kernel needs a power-of-two k * S and a block_offset")
+            fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
+            # a non-blocking copy: a blocking one would wait for the device
+            intr = torch.tensor([1.0 / fx, 1.0 / fy, cx, cy], dtype=torch.float32).to(
+                c2w.device, non_blocking=True
+            )
+            ray_ctx = {
+                "dist": distances.reshape(-1),
+                "ray_params": torch.cat([rot.reshape(-1), origin, intr]).contiguous(),
+                "block_offset": int(block_offset),
+                "log2_ks": log2_ks,
+                "width": int(camera.width),
+            }
 
     if shard is None:
         outs = fset.apply_knn_tiled(
@@ -793,22 +810,23 @@ def render_block_tiled(
             fset, params, positions, orientations, allocated_mask, points_world.reshape(-1, 3), shard,
             ray_ctx=ray_ctx,
         )
-    outs = outs.reshape(b, num_samples, -1)
+    with profiling.span("ngm.render.composite"):
+        outs = outs.reshape(b, num_samples, -1)
 
-    sample_colors = rcfg.color_factor * outs[..., :3]
-    sample_geometries = outs[..., 3]
-    # depth = -z in the camera frame = distance * (-dir_z); dirs are unit
-    sample_depths = distances * (-dirs[:, 2])[:, None]
-    neus_isds = None
-    if rcfg.geometry_mode == "neus":
-        mean_sd = (torch.mean(params["neus_sd"]) if shard is None
-                   else sharding.field_mean(params["neus_sd"], shard, positions.shape[0]))
-        neus_isds = 1.0 / torch.abs(mean_sd)
-    q = quad_mod.quadrature(
-        rcfg.geometry_mode, sample_colors, sample_geometries, distances, sample_depths,
-        geometry_factor=rcfg.geometry_factor, neus_isds=neus_isds,
-    )
-    rgbd = torch.cat([q.colors, q.depths[..., None]], dim=-1)
+        sample_colors = rcfg.color_factor * outs[..., :3]
+        sample_geometries = outs[..., 3]
+        # depth = -z in the camera frame = distance * (-dir_z); dirs are unit
+        sample_depths = distances * (-dirs[:, 2])[:, None]
+        neus_isds = None
+        if rcfg.geometry_mode == "neus":
+            mean_sd = (torch.mean(params["neus_sd"]) if shard is None
+                       else sharding.field_mean(params["neus_sd"], shard, positions.shape[0]))
+            neus_isds = 1.0 / torch.abs(mean_sd)
+        q = quad_mod.quadrature(
+            rcfg.geometry_mode, sample_colors, sample_geometries, distances, sample_depths,
+            geometry_factor=rcfg.geometry_factor, neus_isds=neus_isds,
+        )
+        rgbd = torch.cat([q.colors, q.depths[..., None]], dim=-1)
     return rgbd, q.depth_vars, q.term_probs
 
 
@@ -1273,15 +1291,16 @@ class NeuralGraphMap:
             ids |= self._kf2fields.get(kf, set())
         return np.fromiter(ids, np.int64) if ids else np.zeros((0,), np.int64)
 
-    def _add_phase(self, name: str, t0: float) -> None:
-        self.phase_times[name] = self.phase_times.get(name, 0.0) + time.perf_counter() - t0
-
     def process_frame(self, dataset, frame_id: int, rgbd) -> dict:
         """Ingest one frame (H, W, 4 RGB-D) and run the per-frame
         optimization. ``rgbd`` is a numpy array (uploaded here) or a float32
         tensor already on the map's device (used as it is, no copy, as the
         CLI's prefetcher hands it over). Returns the last iteration's losses
         as floats (one device sync per frame)."""
+        with profiling.span("ngm.frame.process", frame=frame_id):
+            return self._process_frame(dataset, frame_id, rgbd)
+
+    def _process_frame(self, dataset, frame_id: int, rgbd) -> dict:
         t_start = time.time()
         self._frame_counter += 1
         rgbd = self._to_device(rgbd).float()
@@ -1300,28 +1319,43 @@ class NeuralGraphMap:
         c2w_missing = not np.isfinite(c2w_np).all()
         c2w = self._to_device(c2w_np if not c2w_missing else np.eye(4, dtype=np.float32))
 
-        t_phase = time.perf_counter()
-        self._update_graph(dataset, frame_id)
-        self._add_phase("graph", t_phase)
+        with profiling.phase("graph", into=self.phase_times):
+            self._update_graph(dataset, frame_id)
 
-        t_phase = time.perf_counter()
-        is_kf = dataset.is_keyframe(frame_id)
-        kf_slot = -1
-        if is_kf:
-            self._kf_ids.add(frame_id)
-            if not self._free_slots:
-                raise ValueError("Maximum number of keyframes reached.")
-            kf_slot = self._free_slots.pop(0)
-            self._frame_to_slot[frame_id] = kf_slot
-            self._cache_valid_np[kf_slot] = True
-            self._cache_valid_dirty = True
-            if not c2w_missing:
-                self._allocate_new_fields(frame_id, rgbd[..., 3], c2w, kf_slot)
-        self._add_phase("alloc", t_phase)
+        with profiling.phase("alloc", into=self.phase_times):
+            is_kf = dataset.is_keyframe(frame_id)
+            kf_slot = -1
+            if is_kf:
+                self._kf_ids.add(frame_id)
+                if not self._free_slots:
+                    raise ValueError("Maximum number of keyframes reached.")
+                kf_slot = self._free_slots.pop(0)
+                self._frame_to_slot[frame_id] = kf_slot
+                self._cache_valid_np[kf_slot] = True
+                self._cache_valid_dirty = True
+                if not c2w_missing:
+                    self._allocate_new_fields(frame_id, rgbd[..., 3], c2w, kf_slot)
 
-        t_phase = time.perf_counter()
-        # current frame occupies slot 0
+        with profiling.phase("host_misc", into=self.phase_times):
+            allocated = self._host_misc(is_kf, kf_slot, c2w_np, c2w_missing)
         write_current = not self._keyframes_only and not c2w_missing
+
+        with profiling.span("ngm.frame.step", frame=frame_id):
+            loss_dict = self._frame_step(frame_id, rgbd, c2w, kf_slot, write_current, allocated)
+            losses = {}
+            if loss_dict:
+                with profiling.span("ngm.frame.sync", frame=frame_id):
+                    values = torch.stack(list(loss_dict.values())).tolist()
+                losses = dict(zip(loss_dict.keys(), values))
+        # the frame's time ends after the losses' copy, which waits for the
+        # device: the JAX engine stops its clock before that wait
+        self.throughput.add_frame(time.time() - t_start)
+        return losses
+
+    def _host_misc(self, is_kf: bool, kf_slot: int, c2w_np, c2w_missing: bool) -> torch.Tensor:
+        """The current frame's and the keyframe slots' poses and validity to
+        the device -> the allocated-field mask."""
+        # current frame occupies slot 0
         if not self._keyframes_only:
             if bool(self._cache_valid_np[0]) != (not c2w_missing):
                 self._cache_valid_np[0] = not c2w_missing
@@ -1351,20 +1385,24 @@ class NeuralGraphMap:
         if self._cache_valid_dirty or self._cache_valid_dev is None:
             self._cache_valid_dev = self._to_device(self._cache_valid_np.copy())
             self._cache_valid_dirty = False
-        allocated = self._allocated_mask()
-        self._add_phase("host_misc", t_phase)
+        return self._allocated_mask()
 
+    def _frame_step(self, frame_id: int, rgbd, c2w, kf_slot: int, write_current: bool,
+                    allocated: torch.Tensor) -> dict:
+        """The frame's device program (the multi-view ``frame_step`` or the
+        single-view iterations) -> the last iteration's loss dict."""
         if self._update_mode == "multi_view":
             observed_gumbel = iteration_draws = None
             if self._draws is not None:
-                shapes = self._draw_shapes()
-                observed_gumbel = self._draws.observed_gumbel(
-                    self._frame_counter, shapes, sampling.OBSERVED_NUM_POINTS
-                )
-                if self._num_fields > 0:
-                    iteration_draws = self._draws.multi_view(
-                        self._frame_counter, self._num_iterations_per_frame, shapes
+                with profiling.span("ngm.frame.draws"):
+                    shapes = self._draw_shapes()
+                    observed_gumbel = self._draws.observed_gumbel(
+                        self._frame_counter, shapes, sampling.OBSERVED_NUM_POINTS
                     )
+                    if self._num_fields > 0:
+                        iteration_draws = self._draws.multi_view(
+                            self._frame_counter, self._num_iterations_per_frame, shapes
+                        )
             (
                 self._params,
                 self._adam,
@@ -1402,17 +1440,19 @@ class NeuralGraphMap:
                 iteration_draws,
             )
         else:  # single_view
-            write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
+            with profiling.span("ngm.frame.cache_write"):
+                write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
             loss_dict, new_ti = {}, self._map_arrays.training_iterations
             if self._num_fields > 0:
                 active_mask_np = np.zeros((self.capacity,), bool)
                 active_mask_np[self._active_field_ids(frame_id)] = True
                 iteration_draws = None
                 if self._draws is not None:
-                    iteration_draws = self._draws.single_view(
-                        self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
-                        self._cache_valid_dev,
-                    )
+                    with profiling.span("ngm.frame.draws"):
+                        iteration_draws = self._draws.single_view(
+                            self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
+                            self._cache_valid_dev,
+                        )
                 self._params, self._adam, new_ti, loss_dict = optimization_iterations_scan_sv(
                     self._fset,
                     self._camera,
@@ -1436,14 +1476,7 @@ class NeuralGraphMap:
                     iteration_draws,
                 )
         self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
-        losses = {}
-        if loss_dict:
-            values = torch.stack(list(loss_dict.values())).tolist()
-            losses = dict(zip(loss_dict.keys(), values))
-        # the frame's time ends after the losses' copy, which waits for the
-        # device: the JAX engine stops its clock before that wait
-        self.throughput.add_frame(time.time() - t_start)
-        return losses
+        return loss_dict
 
     def _allocate_new_fields(self, frame_id, depth, c2w, kf_slot) -> None:
         active_ids = self._active_field_ids(frame_id)
@@ -1513,7 +1546,12 @@ class NeuralGraphMap:
         their jitter from the init stream. ``render_stats`` records the
         route, and on the capacity route the capacity, the probe's demand
         and the dropped pairs (one host sync at the end).
+        A span ``ngm.render.image`` while tracing.
         """
+        with profiling.span("ngm.render.image"):
+            return self._render_image(c2w, camera, capacity_per_field)
+
+    def _render_image(self, c2w, camera, capacity_per_field: Optional[int]):
         h, w = camera.height, camera.width
         dev = self._device
         ii, jj = torch.meshgrid(
@@ -1527,20 +1565,20 @@ class NeuralGraphMap:
         ks = self._fset.num_knn * self._eval_span_samples
         use_ray_kernel = (ks & (ks - 1)) == 0
         allocated = self._allocated_mask()
+        block = self.render_block_size()
 
-        def model(ijs, offset=0):
-            rgbd, dv, _ = render_block_tiled(
-                self._fset, camera, self._rcfg, self._eval_span_samples, self._eval_near,
-                self._eval_far, self._params, self._map_arrays.positions,
-                self._map_arrays.orientations, allocated, ijs, c2w,
-                generator=self._init_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
-                sample_spacing=float(self._sample_spacing), shard=self._shard,
-            )
+        def model(ijs, offset):
+            with profiling.span("ngm.render.block", block=offset // block):
+                rgbd, dv, _ = render_block_tiled(
+                    self._fset, camera, self._rcfg, self._eval_span_samples, self._eval_near,
+                    self._eval_far, self._params, self._map_arrays.positions,
+                    self._map_arrays.orientations, allocated, ijs, c2w,
+                    generator=self._init_gen, use_ray_kernel=use_ray_kernel, block_offset=offset,
+                    sample_spacing=float(self._sample_spacing), shard=self._shard,
+                )
             return rgbd, dv
 
-        rgbds, depth_vars = chunking.batched_evaluation(
-            model, ijs_all, self.render_block_size(), pass_offset=use_ray_kernel
-        )
+        rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block, pass_offset=True)
         return rgbds.reshape(h, w, 4), depth_vars.reshape(h, w)
 
     def _render_image_capacity(self, c2w, camera, ijs_all, capacity_per_field: Optional[int]):
@@ -1562,15 +1600,16 @@ class NeuralGraphMap:
             logger.info("render dispatch: max demand %d -> capacity %d", max_count, capacity_per_field)
         drop_counts = []
 
-        def model(ijs):
-            rgbd, dv, _, dropped = self._render_ij_block(ijs, c2w, camera, capacity_per_field)
+        def model(ijs, offset):
+            with profiling.span("ngm.render.block", block=offset // block):
+                rgbd, dv, _, dropped = self._render_ij_block(ijs, c2w, camera, capacity_per_field)
             drop_counts.append(dropped)
             return rgbd, dv
 
         if self._shard is not None:  # every rank evaluates the full copy, as XLA does for JAX's
             self._gathered_params = self.full_params()
         try:
-            rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block)
+            rgbds, depth_vars = chunking.batched_evaluation(model, ijs_all, block, pass_offset=True)
         finally:
             self._gathered_params = None
         dropped = chunking.warn_dropped_pairs(drop_counts, logger, "render", capacity_per_field)

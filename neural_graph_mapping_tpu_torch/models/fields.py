@@ -23,7 +23,7 @@ from torch import nn
 
 from neural_graph_mapping_tpu_torch.config import str_to_object
 from neural_graph_mapping_tpu_torch.ops import dispatch, permuto, permuto_cuda, topk
-from neural_graph_mapping_tpu_torch.utils import transforms
+from neural_graph_mapping_tpu_torch.utils import profiling, transforms
 
 Params = Dict[str, torch.Tensor]
 
@@ -404,6 +404,10 @@ class NeuralFieldSet(nn.Module):
         kernel launch, pushed through the MLP with per-tile weights, and put
         back in pair order. Points whose nearest field is beyond the radius
         get ``outside_value``. No per-field capacity, no dropped pairs.
+        While tracing, each stage is a span ``ngm.render.*``, and the
+        counters ``render.pairs_valid``, ``render.lanes_encoded`` and
+        ``render.lanes_mlp`` add the pairs inside a radius and the lanes
+        the encode and the MLP run (``utils/profiling.py``).
 
         Routing, as the JAX package at its defaults: k = 2 runs the
         ``topk2_fields`` kernel and keeps pairs k-major (pair i of rank kk
@@ -433,109 +437,121 @@ class NeuralFieldSet(nn.Module):
         enc = self.prototype.encoding
         m = p * k
 
-        k_major = k == 2
-        if routing is not None:
-            dists, ids, owned, inside = routing
-            if k_major:
-                d_fm = dists.T
-                valid_fm = torch.isfinite(d_fm) & inside[None, :]
-                owned_fm = valid_fm & owned.T
-                pair_ids = ids.T.reshape(-1)
-                pair_valid = owned_fm.reshape(-1)
+        with profiling.span("ngm.render.route"):
+            k_major = k == 2
+            if routing is not None:
+                dists, ids, owned, inside = routing
+                if k_major:
+                    d_fm = dists.T
+                    valid_fm = torch.isfinite(d_fm) & inside[None, :]
+                    owned_fm = valid_fm & owned.T
+                    pair_ids = ids.T.reshape(-1)
+                    pair_valid = owned_fm.reshape(-1)
+                else:
+                    knn_dists = dists
+                    pair_ids = ids.reshape(-1)
+                    pair_valid = (
+                        owned.reshape(-1) & torch.repeat_interleave(inside, k) & torch.isfinite(dists.reshape(-1))
+                    )
+            elif k_major:
+                d_fm, i_fm = topk.topk2_fields(
+                    query_points.T.contiguous(), field_positions.contiguous(), field_valid
+                )  # (2, P)
+                inside = d_fm[0] < radius
+                valid_fm = owned_fm = torch.isfinite(d_fm) & inside[None, :]
+                pair_ids = i_fm.reshape(-1)
+                pair_valid = valid_fm.reshape(-1)
             else:
-                knn_dists = dists
-                pair_ids = ids.reshape(-1)
-                pair_valid = (
-                    owned.reshape(-1) & torch.repeat_interleave(inside, k) & torch.isfinite(dists.reshape(-1))
+                knn_dists, knn_idx = dispatch.topk_fields(query_points, field_positions, field_valid, k)
+                inside = knn_dists[:, 0] < radius
+                pair_ids = knn_idx.reshape(-1)
+                pair_valid = torch.repeat_interleave(inside, k) & torch.isfinite(knn_dists.reshape(-1))
+
+        with profiling.span("ngm.render.dispatch"):
+            def pairs_of(x):  # (P,) point payload -> (M,) in pair order
+                return x.repeat(k) if k_major else torch.repeat_interleave(x, k)
+
+            if ray_ctx is not None:
+                payloads = (pairs_of(ray_ctx["dist"]),)
+            else:
+                payloads = tuple(pairs_of(query_points[:, i]) for i in range(3))
+            (
+                sorted_payloads, sorted_orig, tile_src, tile_expert, tile_count, num_live, num_tiles,
+            ) = dispatch.tiled_dispatch_sorted(pair_ids, pair_valid, payloads, n, tile)
+
+            # per-tile contiguous slices of the (one-tile padded) sorted arrays
+            lane = torch.arange(tile, device=query_points.device)
+            src = tile_src.long()[:, None] + lane[None, :]  # (tiles, TILE)
+
+            def tile_buffer(x):
+                return torch.cat([x, x.new_zeros(tile)])[src]
+
+            buf_orig = tile_buffer(sorted_orig)
+            te = tile_expert.long()
+            if profiling.tracing_on():  # pairs inside a radius against the lanes run
+                live = torch.arange(num_tiles, device=tile_count.device) < num_live
+                profiling.count("render.pairs_valid", torch.where(live, tile_count, 0).sum())
+                profiling.count("render.lanes_encoded", num_live.to(torch.int64) * tile)
+                profiling.count("render.lanes_mlp", num_tiles * tile)
+
+        with profiling.span("ngm.render.encode"):
+            consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
+            table = stacked_params["enc.table"]
+            if ray_ctx is not None:
+                # the ray kernel derives the ray from a k-MINOR pair index
+                kern_orig = (buf_orig % p) * k + buf_orig // p if k_major else buf_orig
+                cs, csh = self._coord_scale_shift()
+                field_poses = torch.cat([field_positions, field_orientations], dim=-1).contiguous()
+                feats = permuto_cuda.encode_fwd_moe_rays(
+                    table, kern_orig.contiguous(), tile_buffer(sorted_payloads[0]), tile_expert,
+                    ray_ctx["ray_params"], field_poses, ray_ctx["block_offset"], *consts,
+                    log2_ks=ray_ctx["log2_ks"], width=ray_ctx["width"], coord_scale=cs,
+                    coord_shift=csh, num_live_tiles=num_live,
+                )  # (tiles, 2L, TILE)
+            else:
+                bx, by, bz = (tile_buffer(c) for c in sorted_payloads)
+                local = self.world_to_local_soa((bx, by, bz), field_positions[te], field_orientations[te])
+                feats = permuto_cuda.encode_fwd_moe(
+                    table, torch.stack(local, dim=1).contiguous(), tile_expert, *consts,
+                    num_live_tiles=num_live,
                 )
-        elif k_major:
-            d_fm, i_fm = topk.topk2_fields(
-                query_points.T.contiguous(), field_positions.contiguous(), field_valid
-            )  # (2, P)
-            inside = d_fm[0] < radius
-            valid_fm = owned_fm = torch.isfinite(d_fm) & inside[None, :]
-            pair_ids = i_fm.reshape(-1)
-            pair_valid = valid_fm.reshape(-1)
-        else:
-            knn_dists, knn_idx = dispatch.topk_fields(query_points, field_positions, field_valid, k)
-            inside = knn_dists[:, 0] < radius
-            pair_ids = knn_idx.reshape(-1)
-            pair_valid = torch.repeat_interleave(inside, k) & torch.isfinite(knn_dists.reshape(-1))
 
-        def pairs_of(x):  # (P,) point payload -> (M,) in pair order
-            return x.repeat(k) if k_major else torch.repeat_interleave(x, k)
+        with profiling.span("ngm.render.mlp"):
+            mlp_params = {key: v[te] for key, v in stacked_params.items() if not key.startswith("enc.")}
+            outs = self.prototype.mlp_fm(mlp_params, feats)  # (tiles, dim_out, TILE)
 
-        if ray_ctx is not None:
-            payloads = (pairs_of(ray_ctx["dist"]),)
-        else:
-            payloads = tuple(pairs_of(query_points[:, i]) for i in range(3))
-        (
-            sorted_payloads, sorted_orig, tile_src, tile_expert, tile_count, num_live, num_tiles,
-        ) = dispatch.tiled_dispatch_sorted(pair_ids, pair_valid, payloads, n, tile)
+        with profiling.span("ngm.render.scatter_blend"):
+            dim_out = self.prototype.dim_out
+            # back to pair order: one scatter by the carried pair index (real
+            # lanes' keys are unique; padding lanes all land in the dump slot m)
+            bkey = torch.where(lane[None, :] < tile_count[:, None], buf_orig, m).long().reshape(-1)
+            flat_fm = outs.permute(1, 0, 2).reshape(dim_out, num_tiles * tile)
+            pair_outs = outs.new_empty((dim_out, m + 1)).index_copy_(1, bkey, flat_fm)[:, :m]
 
-        # per-tile contiguous slices of the (one-tile padded) sorted arrays
-        lane = torch.arange(tile, device=query_points.device)
-        src = tile_src.long()[:, None] + lane[None, :]  # (tiles, TILE)
-
-        def tile_buffer(x):
-            return torch.cat([x, x.new_zeros(tile)])[src]
-
-        buf_orig = tile_buffer(sorted_orig)
-        te = tile_expert.long()
-        consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
-        table = stacked_params["enc.table"]
-        if ray_ctx is not None:
-            # the ray kernel derives the ray from a k-MINOR pair index
-            kern_orig = (buf_orig % p) * k + buf_orig // p if k_major else buf_orig
-            cs, csh = self._coord_scale_shift()
-            field_poses = torch.cat([field_positions, field_orientations], dim=-1).contiguous()
-            feats = permuto_cuda.encode_fwd_moe_rays(
-                table, kern_orig.contiguous(), tile_buffer(sorted_payloads[0]), tile_expert,
-                ray_ctx["ray_params"], field_poses, ray_ctx["block_offset"], *consts,
-                log2_ks=ray_ctx["log2_ks"], width=ray_ctx["width"], coord_scale=cs,
-                coord_shift=csh, num_live_tiles=num_live,
-            )  # (tiles, 2L, TILE)
-        else:
-            bx, by, bz = (tile_buffer(c) for c in sorted_payloads)
-            local = self.world_to_local_soa((bx, by, bz), field_positions[te], field_orientations[te])
-            feats = permuto_cuda.encode_fwd_moe(
-                table, torch.stack(local, dim=1).contiguous(), tile_expert, *consts,
-                num_live_tiles=num_live,
-            )
-
-        mlp_params = {key: v[te] for key, v in stacked_params.items() if not key.startswith("enc.")}
-        outs = self.prototype.mlp_fm(mlp_params, feats)  # (tiles, dim_out, TILE)
-        dim_out = self.prototype.dim_out
-        # back to pair order: one scatter by the carried pair index (real
-        # lanes' keys are unique; padding lanes all land in the dump slot m)
-        bkey = torch.where(lane[None, :] < tile_count[:, None], buf_orig, m).long().reshape(-1)
-        flat_fm = outs.permute(1, 0, 2).reshape(dim_out, num_tiles * tile)
-        pair_outs = outs.new_empty((dim_out, m + 1)).index_copy_(1, bkey, flat_fm)[:, :m]
-
-        if k_major:
-            # feature-major softmax blend over the (k, P) kernel outputs;
-            # invalid pairs get weight 0 by SELECT (dead tiles may hold NaN),
-            # and so do pairs another rank evaluates (never written here)
-            logits = torch.where(valid_fm, -self.distance_factor * d_fm, -torch.inf)
-            mx = torch.amax(logits, dim=0)
-            e = torch.exp(logits - torch.where(torch.isfinite(mx), mx, 0.0)[None, :])
-            e = torch.where(valid_fm, e, 0.0)
-            w = e / torch.clamp(torch.sum(e, dim=0), min=1e-38)[None, :]  # (k, P)
-            per_rank = pair_outs.reshape(dim_out, k, p)
-            blended = sum(
-                torch.where(owned_fm[kk][None, :], per_rank[:, kk] * w[kk][None, :], 0.0)
-                for kk in range(k)
-            ).T  # (P, dim_out)
-        else:
-            pair_outs = torch.where(pair_valid[None, :], pair_outs, 0.0)
-            logits = -self.distance_factor * knn_dists
-            logits = torch.where(torch.isfinite(knn_dists) & inside[:, None], logits, -torch.inf)
-            safe_logits = torch.where(inside[:, None], logits, 0.0)
-            weights = torch.softmax(safe_logits, dim=-1)  # (P, k)
-            blended = torch.einsum("cpk,pk->pc", pair_outs.reshape(dim_out, p, k), weights)
-        if partial_blend:
-            return torch.where(inside[:, None], blended, 0.0)
-        return torch.where(inside[:, None], blended, self.outside_value)
+            if k_major:
+                # feature-major softmax blend over the (k, P) kernel outputs;
+                # invalid pairs get weight 0 by SELECT (dead tiles may hold NaN),
+                # and so do pairs another rank evaluates (never written here)
+                logits = torch.where(valid_fm, -self.distance_factor * d_fm, -torch.inf)
+                mx = torch.amax(logits, dim=0)
+                e = torch.exp(logits - torch.where(torch.isfinite(mx), mx, 0.0)[None, :])
+                e = torch.where(valid_fm, e, 0.0)
+                w = e / torch.clamp(torch.sum(e, dim=0), min=1e-38)[None, :]  # (k, P)
+                per_rank = pair_outs.reshape(dim_out, k, p)
+                blended = sum(
+                    torch.where(owned_fm[kk][None, :], per_rank[:, kk] * w[kk][None, :], 0.0)
+                    for kk in range(k)
+                ).T  # (P, dim_out)
+            else:
+                pair_outs = torch.where(pair_valid[None, :], pair_outs, 0.0)
+                logits = -self.distance_factor * knn_dists
+                logits = torch.where(torch.isfinite(knn_dists) & inside[:, None], logits, -torch.inf)
+                safe_logits = torch.where(inside[:, None], logits, 0.0)
+                weights = torch.softmax(safe_logits, dim=-1)  # (P, k)
+                blended = torch.einsum("cpk,pk->pc", pair_outs.reshape(dim_out, p, k), weights)
+            if partial_blend:
+                return torch.where(inside[:, None], blended, 0.0)
+            return torch.where(inside[:, None], blended, self.outside_value)
 
     def apply_knn(
         self,

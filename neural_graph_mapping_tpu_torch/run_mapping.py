@@ -223,19 +223,15 @@ class NeuralGraphMapRunner:
         try:
             for frame_id in range(len(dataset)):
                 if frame_id in self.train_frame_ids:
-                    t_data = time.perf_counter()
-                    item = prefetcher.get(frame_id) if prefetcher else dataset[frame_id]
                     # host wait for the frame: ~0 with the prefetch thread ahead
-                    e.phase_times["data_wait"] = (
-                        e.phase_times.get("data_wait", 0.0) + time.perf_counter() - t_data
-                    )
-                    t_h2d = time.perf_counter()
-                    if "rgbd_dev" in item:
-                        # the prefetch thread already copied it on its stream
-                        rgbd_dev = item["rgbd_dev"]
-                    else:
-                        rgbd_dev = torch.as_tensor(item["rgbd"], device=self.device)
-                    e.phase_times["h2d"] = e.phase_times.get("h2d", 0.0) + time.perf_counter() - t_h2d
+                    with profiling.phase("data_wait", into=e.phase_times):
+                        item = prefetcher.get(frame_id) if prefetcher else dataset[frame_id]
+                    with profiling.phase("h2d", into=e.phase_times):
+                        if "rgbd_dev" in item:
+                            # the prefetch thread already copied it on its stream
+                            rgbd_dev = item["rgbd_dev"]
+                        else:
+                            rgbd_dev = torch.as_tensor(item["rgbd"], device=self.device)
                     losses = e.process_frame(dataset, frame_id, rgbd_dev)
                     self._iteration += e._num_iterations_per_frame
                     self._log(frame_id, losses, item)

@@ -20,7 +20,7 @@ import zlib
 
 import numpy as np
 
-from neural_graph_mapping_tpu_torch.utils import jpeg
+from neural_graph_mapping_tpu_torch.utils import jpeg, profiling
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels, for the colour types this module reads
@@ -79,7 +79,12 @@ def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int) -> np.ndarray:
 def read_png(path: os.PathLike) -> np.ndarray:
     """A PNG file -> (H, W) for gray, (H, W, C) otherwise; uint8, or uint16
     for 16-bit gray. Raises ``ValueError`` for a file or a format outside
-    this module's scope."""
+    this module's scope. A span ``ngm.input.decode`` while tracing."""
+    with profiling.span("ngm.input.decode"):
+        return _read_png(path)
+
+
+def _read_png(path: os.PathLike) -> np.ndarray:
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != PNG_SIGNATURE:

@@ -15,6 +15,9 @@ on that event before handing the tensor over, and records the tensor's use
 on that stream for the caching allocator. The frame is shipped as it was
 read (float32 RGB-D), so the device copy equals the synchronous upload byte
 for byte; the JAX package ships RGB as 8 bits to spare its slower link.
+
+While the tracer is on (``utils/profiling.py``), the worker's read and
+upload and the consumer's wait are spans ``ngm.input.*``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 import torch
+
+from neural_graph_mapping_tpu_torch.utils import profiling
 
 
 class FramePrefetcher:
@@ -80,10 +85,12 @@ class FramePrefetcher:
                 # the worker after at most one in-flight item
                 if self._stop.is_set():
                     break
-                item = self._dataset[fid]
+                with profiling.span("ngm.input.read", frame=fid):
+                    item = self._dataset[fid]
                 if self._to_device:
                     item = dict(item)
-                    item["rgbd_dev"] = self._upload(item["rgbd"])
+                    with profiling.span("ngm.input.upload", frame=fid):
+                        item["rgbd_dev"] = self._upload(item["rgbd"])
                 self._queue.put((fid, item, None))
         except BaseException as exc:  # noqa: BLE001 — re-raised in get()
             self._queue.put((None, None, exc))
@@ -93,7 +100,8 @@ class FramePrefetcher:
     def get(self, frame_id: int):
         if self._pos < len(self._ids) and self._ids[self._pos] == frame_id:
             self._pos += 1
-            entry = self._queue.get()
+            with profiling.span("ngm.input.wait", frame=frame_id):
+                entry = self._queue.get()
             if entry is self._SENTINEL:
                 raise RuntimeError("prefetch worker ended before the sequence")
             fid, item, exc = entry
@@ -109,7 +117,8 @@ class FramePrefetcher:
                 item["rgbd_dev"] = dev
             return item
         # schedule mismatch: serve synchronously rather than desync the queue
-        return self._dataset[frame_id]
+        with profiling.span("ngm.input.read", frame=frame_id):
+            return self._dataset[frame_id]
 
     def close(self) -> None:
         """Drain so the daemon thread exits promptly (tests, early abort)."""

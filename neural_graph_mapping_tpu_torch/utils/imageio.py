@@ -1,10 +1,16 @@
-"""PNG reading and writing on numpy and ``zlib`` alone.
+"""PNG reading and writing without PIL.
 
 Every loader of the port reads its PNG frames through :func:`read_png`, on
 every machine, so a machine with or without PIL reads the same bytes
 the same way. Scope: non-interlaced PNGs of 8-bit gray, gray + alpha, RGB
 or RGBA, and 16-bit gray (depth frames); all five scanline filters on read.
-:func:`write_png` writes the same formats with filter 0 (None) or 1 (Sub).
+Inflate stays in ``zlib`` (which releases the GIL while it inflates); the
+row filters are undone in native code, ``csrc/png.cpp``, called through
+``ctypes`` with the GIL released, so a frame loop on another thread keeps
+running while a prefetch thread decodes. The library is built with ``g++``
+at first use into the port's ``_build/`` (``ops.native.built_library``); a
+failed build raises. :func:`write_png` writes the same formats with filter
+0 (None) or 1 (Sub).
 JPEG files (the colour frames of real Replica and ScanNet scenes) go to the
 port's own decoder (``utils/jpeg.py``), also on every machine; other image
 formats are read by :func:`read_image` through PIL, imported where such a
@@ -13,67 +19,44 @@ file is opened.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
+import pathlib
 import struct
+import threading
 import zlib
 
 import numpy as np
 
+from neural_graph_mapping_tpu_torch.ops import native
 from neural_graph_mapping_tpu_torch.utils import jpeg, profiling
 
+SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "png.cpp"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels, for the colour types this module reads
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
-
-def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
-    """PNG's Paeth predictor on int16 arrays of byte values."""
-    p = a + b - c
-    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+_lock = threading.Lock()
+_lib = None
+_ERR_LEN = 128
 
 
-def _unfilter(raw: np.ndarray, height: int, width: int, bpp: int) -> np.ndarray:
-    """(height, 1 + width * bpp) filtered scanlines -> (height, width, bpp)
-    uint8 bytes. Rows of filters 0-2 only are undone row by row, each row at
-    once; where a row uses Average (3) or Paeth (4), whose predictor needs
-    the row's own previous pixel, the whole image is undone along its
-    anti-diagonals (pixel (r, x) depends on (r, x - 1), (r - 1, x) and
-    (r - 1, x - 1) only), each diagonal at once."""
-    filters = raw[:, 0]
-    if filters.size and int(filters.max()) > 4:
-        raise ValueError(f"unknown PNG filter type {int(filters.max())}")
-    data = raw[:, 1:].reshape(height, width, bpp)
-    out = np.empty((height, width, bpp), np.uint8)
-    if not np.isin(filters, (3, 4)).any():
-        prev = np.zeros((width, bpp), np.uint8)
-        for r in range(height):
-            f = filters[r]
-            if f == 0:
-                out[r] = data[r]
-            elif f == 1:
-                out[r] = np.cumsum(data[r], axis=0, dtype=np.uint8)
-            else:
-                out[r] = data[r] + prev
-            prev = out[r]
-        return out
-    # one pixel of zeros above and to the left of the image
-    rec = np.zeros((height + 1, width + 1, bpp), np.int16)
-    filt = filters.astype(np.int16)
-    for d in range(height + width - 1):
-        r = np.arange(max(0, d - width + 1), min(d, height - 1) + 1)
-        x = d - r
-        a = rec[r + 1, x]  # left
-        b = rec[r, x + 1]  # up
-        c = rec[r, x]  # up-left
-        fr = filt[r][:, None]
-        pred = np.where(
-            fr == 1, a, np.where(fr == 2, b, np.where(fr == 3, (a + b) >> 1, np.where(fr == 4, _paeth(a, b, c), 0)))
-        )
-        rec[r + 1, x + 1] = (data[r, x].astype(np.int16) + pred) & 0xFF
-    out[:] = rec[1:, 1:]
-    return out
+def _load() -> ctypes.CDLL:
+    """The unfilter library, built and loaded once. A ``CDLL`` (not a
+    ``PyDLL``): ctypes drops the GIL for the length of each call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(native.built_library(SOURCE, "libngm_png", CXX_FLAGS)))
+            lib.ngm_png_unfilter.restype = ctypes.c_int
+            lib.ngm_png_unfilter.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+                ctypes.c_int,
+            ]
+            _lib = lib
+        return _lib
 
 
 def read_png(path: os.PathLike) -> np.ndarray:
@@ -116,10 +99,13 @@ def _read_png(path: os.PathLike) -> np.ndarray:
         )
     channels = _CHANNELS[ctype]
     bpp = channels * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (1 + width * bpp):
-        raise ValueError(f"{path}: image data of {raw.size} bytes for {width}x{height}")
-    pixels = _unfilter(raw.reshape(height, 1 + width * bpp), height, width, bpp)
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != height * (1 + width * bpp):
+        raise ValueError(f"{path}: image data of {len(raw)} bytes for {width}x{height}")
+    pixels = np.empty((height, width, bpp), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if _load().ngm_png_unfilter(raw, height, width, bpp, pixels.ctypes.data, err, _ERR_LEN):
+        raise ValueError(f"{path}: {err.value.decode()}")
     if depth == 16:
         return pixels.view(">u2").reshape(height, width).astype(np.uint16)
     return pixels[..., 0] if channels == 1 else pixels

@@ -1,10 +1,16 @@
 """The port's PNG reader and writer (``utils/imageio.py``) against PIL:
 byte-equal arrays on files PIL wrote (its encoder picks a filter a row), on
-hand-built files with every scanline filter, on 16-bit depth above 32,767
-and on odd widths; files the port writes read back equal in PIL."""
+hand-built files with every scanline filter, on 16-bit depth above 32,767,
+on odd widths, on one-pixel-wide and one-row images and on full-size
+frames written with adaptive filters; files the port writes read back equal
+in PIL. The native unfilter (``csrc/png.cpp``): unknown filter types raise,
+two threads may load and run it at once, and ctypes runs it without the
+GIL."""
 
+import ctypes
 import struct
 import sys
+import threading
 import zlib
 
 import numpy as np
@@ -12,6 +18,7 @@ import PIL.Image
 import pytest
 
 from neural_graph_mapping_tpu_torch.utils import imageio
+from port_bench import pngwrite
 
 
 def _images():
@@ -67,13 +74,18 @@ def _filtered_png(arr: np.ndarray, filters, ctype: int, depth: int, interlace: i
             c = rows[r - 1, x - bpp] if r > 0 and x >= bpp else 0
             pred = [0, a, b, (a + b) // 2, _paeth(a, b, c)][f]
             out.append(int(rows[r, x] - pred) & 0xFF)
+    return _png(w, h, depth, ctype, bytes(out), interlace)
+
+
+def _png(w: int, h: int, depth: int, ctype: int, scanlines: bytes, interlace: int = 0) -> bytes:
+    """A PNG of the given header whose IDAT inflates to ``scanlines``."""
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)
     return (imageio.PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"tEXt", b"comment\x00a chunk to skip")
-            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(scanlines)) + chunk(b"IEND", b""))
 
 
 @pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4], [0, 1, 2, 3, 4], [2, 1, 0]])
@@ -86,6 +98,109 @@ def test_every_filter_type(tmp_path, filters, mode, ctype, depth):
     assert np.array_equal(want, arr)
     got = imageio.read_png(path)
     assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+_MODES = {"L": (0, 8), "LA": (4, 8), "RGB": (2, 8), "RGBA": (6, 8), "I;16": (0, 16)}
+
+
+@pytest.mark.parametrize("filters", [[0], [1], [2], [3], [4], [3, 4, 1, 2, 0]])
+@pytest.mark.parametrize("mode", list(_MODES))
+@pytest.mark.parametrize("shape", [(1, 1), (6, 1), (1, 6)])
+def test_one_pixel_wide_and_one_row(tmp_path, shape, mode, filters):
+    """Images where "left" (one pixel wide) or "up" (one row) never exists,
+    at 1-4 bytes a pixel and 16-bit."""
+    src = _images()[mode]
+    arr = np.resize(src, shape + src.shape[2:])
+    ctype, depth = _MODES[mode]
+    path = tmp_path / "edge.png"
+    path.write_bytes(_filtered_png(arr, filters, ctype, depth))
+    want = np.asarray(PIL.Image.open(path))
+    assert np.array_equal(want, arr)
+    got = imageio.read_png(path)
+    assert got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)
+
+
+def _frames():
+    """A 640x480 RGB frame and a 16-bit depth frame whose rows the adaptive
+    filter heuristic writes with every one of the five types."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:480, 0:640]
+    rgb = np.stack([(xx // 3) % 256, (yy // 2) % 256, ((xx + yy) // 4) % 256], -1) + rng.integers(0, 3, (480, 640, 3))
+    rgb[::7] = rng.integers(0, 256, rgb[::7].shape)
+    band = yy // 96
+    depth = np.select(
+        [band == 0, band == 1, band == 2, band == 3],
+        [np.full(xx.shape, 2500), 700 + xx * 13, rng.integers(0, 65536, xx.shape), 1000 + (xx * 3 + yy * 7) % 4000],
+        30000 + ((xx - 320) ** 2 + (yy - 400) ** 2) // 9,
+    )
+    return {"rgb": (rgb.astype(np.uint8), 3), "depth": (depth.astype(np.uint16), 2)}
+
+
+@pytest.mark.parametrize("name", ["rgb", "depth"])
+def test_reads_adaptive_filtered_frames(tmp_path, name):
+    """Full-size frames as the benchmark's lap writes them
+    (``port_bench.pngwrite``): rows of Sub, Up, Average and Paeth mixed."""
+    arr, bpp = _frames()[name]
+    rows = arr.astype(">u2").view(np.uint8) if arr.dtype == np.uint16 else arr
+    assert set(pngwrite.filter_rows(rows.reshape(480, -1), bpp)[:, 0]) == {0, 1, 2, 3, 4}
+    path = tmp_path / f"{name}.png"
+    pngwrite.write_png(path, arr)
+    want = np.asarray(PIL.Image.open(path))
+    got = imageio.read_png(path)
+    assert got.dtype == arr.dtype and np.array_equal(got, arr) and np.array_equal(got, want)
+
+
+def test_unknown_filter_type_raises(tmp_path):
+    scan = bytes([0, 1, 2, 3]) + bytes([1, 5, 5, 5]) + bytes([5, 0, 0, 0]) + bytes([4, 1, 1, 1])
+    path = tmp_path / "bad.png"
+    path.write_bytes(_png(1, 4, 8, 2, scan))
+    with pytest.raises(ValueError, match=r"bad\.png: unknown PNG filter type 5 in row 2"):
+        imageio.read_png(path)
+
+
+def test_two_threads_load_and_read_at_once(tmp_path, monkeypatch):
+    """Two threads read the same files at once, the first time the library
+    is loaded: it is loaded once and both read the files' arrays."""
+    paths = {}
+    for name, (arr, _) in _frames().items():
+        paths[name] = tmp_path / f"{name}.png"
+        pngwrite.write_png(paths[name], arr)
+    loads = []
+
+    class CountingCDLL(ctypes.CDLL):
+        def __init__(self, *args, **kwargs):
+            loads.append(args[0])
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(imageio, "_lib", None)
+    monkeypatch.setattr(ctypes, "CDLL", CountingCDLL)
+    start = threading.Barrier(2)
+    results = [None, None]
+
+    def read(i):
+        start.wait(timeout=30)
+        results[i] = [imageio.read_png(paths[name]) for _ in range(3) for name in ("rgb", "depth")]
+
+    threads = [threading.Thread(target=read, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert len(loads) == 1
+    frames = _frames()
+    for got in results:
+        assert got is not None and len(got) == 6
+        for k, name in enumerate(("rgb", "depth") * 3):
+            assert np.array_equal(got[k], frames[name][0])
+
+
+def test_unfilter_runs_without_the_gil():
+    """The library is a ``ctypes.CDLL``, not a ``ctypes.PyDLL``: ctypes
+    releases the GIL for the length of each call into it."""
+    lib = imageio._load()
+    assert type(lib) is ctypes.CDLL and not isinstance(lib, ctypes.PyDLL)
+    assert not lib.ngm_png_unfilter._flags_ & ctypes._FUNCFLAG_PYTHONAPI
 
 
 @pytest.mark.parametrize("filter_type", [0, 1])

@@ -53,8 +53,11 @@ def segments_intersect_spheres(
     closest = closest_points_on_segments(p1s, p2s, centers)
     ctr = centers.reshape(c_lead + (1,) * len(s_lead) + (3,))
     dist_sq = torch.sum((ctr - closest) ** 2, dim=-1)
-    radii = torch.as_tensor(radii, dtype=dist_sq.dtype, device=dist_sq.device)
-    radii = torch.broadcast_to(radii, c_lead).reshape(c_lead + (1,) * len(s_lead))
+    radii = torch.as_tensor(radii, dtype=dist_sq.dtype)
+    if radii.dim() == 0 and radii.device.type == "cpu":
+        # one radius, squared on the host: its upload would wait for the device
+        return dist_sq <= (radii * radii).item()
+    radii = torch.broadcast_to(radii.to(dist_sq.device), c_lead).reshape(c_lead + (1,) * len(s_lead))
     return dist_sq <= radii**2
 
 

@@ -559,9 +559,10 @@ def optimization_iteration_sv(
         use_current = cache_valid[0] & (iter_idx % 2 != 0)
         slot = torch.where(use_current, 0, random_slot).reshape(1)
     with profiling.span("ngm.iter.sample"):
-        rgbd = torch.cat(
-            [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
-        )
+        with profiling.span("ngm.iter.sv_cloud"):  # the view, then its cloud in the sampler
+            rgbd = torch.cat(
+                [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
+            )
         target = sampling.sample_target_sv(
             camera, rgbd, cache_c2w.index_select(0, slot)[0], map_positions, active_mask,
             fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
@@ -1291,6 +1292,16 @@ class NeuralGraphMap:
             ids |= self._kf2fields.get(kf, set())
         return np.fromiter(ids, np.int64) if ids else np.zeros((0,), np.int64)
 
+    def _active_mask(self, frame_id: int) -> torch.Tensor:
+        """(capacity,) mask of :meth:`_active_field_ids` on the device. On a
+        card it goes up from pinned memory without blocking: a copy from
+        pageable memory would wait for the frame's queued work."""
+        mask = torch.zeros((self.capacity,), dtype=torch.bool)
+        mask[torch.from_numpy(self._active_field_ids(frame_id))] = True
+        if self._device.type != "cuda":
+            return mask.to(self._device)
+        return mask.pin_memory().to(self._device, non_blocking=True)
+
     def process_frame(self, dataset, frame_id: int, rgbd) -> dict:
         """Ingest one frame (H, W, 4 RGB-D) and run the per-frame
         optimization. ``rgbd`` is a numpy array (uploaded here) or a float32
@@ -1444,8 +1455,7 @@ class NeuralGraphMap:
                 write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
             loss_dict, new_ti = {}, self._map_arrays.training_iterations
             if self._num_fields > 0:
-                active_mask_np = np.zeros((self.capacity,), bool)
-                active_mask_np[self._active_field_ids(frame_id)] = True
+                active_mask = self._active_mask(frame_id)
                 iteration_draws = None
                 if self._draws is not None:
                     with profiling.span("ngm.frame.draws"):
@@ -1466,7 +1476,7 @@ class NeuralGraphMap:
                     new_ti,
                     self._map_arrays.positions,
                     self._map_arrays.orientations,
-                    self._to_device(active_mask_np),
+                    active_mask,
                     self._cache_rgb,
                     self._cache_depth,
                     self._cache_c2w_dev,

@@ -21,7 +21,7 @@ import torch
 from neural_graph_mapping_tpu_torch import geometry
 from neural_graph_mapping_tpu_torch.camera import Camera
 from neural_graph_mapping_tpu_torch.ops import permuto_cuda
-from neural_graph_mapping_tpu_torch.utils import transforms
+from neural_graph_mapping_tpu_torch.utils import profiling, transforms
 
 
 class Target(NamedTuple):
@@ -295,65 +295,75 @@ def sample_target_sv(
     4. For the F chosen fields only, the dense hit mask; each field's R rays
        are drawn uniformly among its hit segments by inverse CDF
        (``u_rays``; ``searchsorted`` on the right, clipped as JAX clips).
+
+    Spans ``ngm.iter.sv_cloud`` (1 and the centres in the view's frame),
+    ``ngm.iter.sv_count`` (2 and the eligibility test) and
+    ``ngm.iter.sv_rays`` (3, 4 and the targets); counters ``sv.slots_valid``
+    and ``sv.fields_eligible`` (device) and ``sv.slots`` (host, F a call).
     """
     f, r = num_train_fields, num_rays_per_field
     dev = rgbd_image.device
-    points, ijs, valid = camera.depth_to_points_full(rgbd_image[..., 3], "opengl")
-    if cloud_idx is None:
-        probs = torch.where(valid, 1.0, 1e-20)
-        cloud_idx = torch.multinomial(probs, num_cloud_points, replacement=True, generator=generator)
-    if u_rays is None:
-        u_rays = torch.rand((f, r), generator=generator, device=dev)
-    pts = points[cloud_idx]
-    pts_ok = valid[cloud_idx]
-    pt_ijs = ijs[cloud_idx]
-
-    field_pos_c = transforms.transform_points(field_positions, c2w, inv=True)
-    origin = torch.zeros((1, 3), device=dev)
+    with profiling.span("ngm.iter.sv_cloud"):
+        points, ijs, valid = camera.depth_to_points_full(rgbd_image[..., 3], "opengl")
+        if cloud_idx is None:
+            probs = torch.where(valid, 1.0, 1e-20)
+            cloud_idx = torch.multinomial(probs, num_cloud_points, replacement=True, generator=generator)
+        if u_rays is None:
+            u_rays = torch.rand((f, r), generator=generator, device=dev)
+        pts = points[cloud_idx]
+        pts_ok = valid[cloud_idx]
+        pt_ijs = ijs[cloud_idx]
+        field_pos_c = transforms.transform_points(field_positions, c2w, inv=True)
+        origin = torch.zeros((1, 3), device=dev)
 
     # 1) streamed per-field hit counts over the cloud
-    counts = torch.zeros(field_positions.shape[0], dtype=torch.int64, device=dev)
-    for s0 in range(0, pts.shape[0], cloud_chunk):
-        p_c = pts[s0 : s0 + cloud_chunk]
-        hit = geometry.segments_intersect_spheres(origin.expand_as(p_c), p_c, field_pos_c, field_radius)
-        hit = hit & pts_ok[None, s0 : s0 + cloud_chunk] & active_mask[:, None]
-        counts += torch.sum(hit, dim=-1)
-
-    eligible = counts >= num_rays_per_field
-    field_ids, field_valid = masked_choice_without_replacement(eligible, f, u_fields, generator)
+    with profiling.span("ngm.iter.sv_count"):
+        counts = torch.zeros(field_positions.shape[0], dtype=torch.int64, device=dev)
+        for s0 in range(0, pts.shape[0], cloud_chunk):
+            p_c = pts[s0 : s0 + cloud_chunk]
+            hit = geometry.segments_intersect_spheres(origin.expand_as(p_c), p_c, field_pos_c, field_radius)
+            hit = hit & pts_ok[None, s0 : s0 + cloud_chunk] & active_mask[:, None]
+            counts += torch.sum(hit, dim=-1)
+        eligible = counts >= num_rays_per_field
 
     # 2) dense hit mask for the chosen fields only; inverse-CDF ray draws
-    field_hits = geometry.segments_intersect_spheres(
-        origin.expand_as(pts), pts, field_pos_c[field_ids], field_radius
-    ) & pts_ok[None, :]  # (F, P)
-    w = torch.where(field_valid[:, None], field_hits, True).float()
-    cdf = torch.cumsum(w, dim=-1)
-    u = u_rays * cdf[:, -1:]
-    segments = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, w.shape[-1] - 1)
+    with profiling.span("ngm.iter.sv_rays"):
+        field_ids, field_valid = masked_choice_without_replacement(eligible, f, u_fields, generator)
+        field_hits = geometry.segments_intersect_spheres(
+            origin.expand_as(pts), pts, field_pos_c[field_ids], field_radius
+        ) & pts_ok[None, :]  # (F, P)
+        w = torch.where(field_valid[:, None], field_hits, True).float()
+        cdf = torch.cumsum(w, dim=-1)
+        u = u_rays * cdf[:, -1:]
+        segments = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, w.shape[-1] - 1)
 
-    target_ijs = pt_ijs[segments]  # (F, R, 2)
-    ijs_f = target_ijs.float()
-    dirs = camera.ijs_to_directions(ijs_f)
-    pos_c = field_pos_c[field_ids]  # (F, 3)
-    center_distance = torch.sum(pos_c[:, None, :] * dirs, dim=-1)
-    near = center_distance - field_radius
-    far = center_distance + field_radius
+        target_ijs = pt_ijs[segments]  # (F, R, 2)
+        ijs_f = target_ijs.float()
+        dirs = camera.ijs_to_directions(ijs_f)
+        pos_c = field_pos_c[field_ids]  # (F, 3)
+        center_distance = torch.sum(pos_c[:, None, :] * dirs, dim=-1)
+        near = center_distance - field_radius
+        far = center_distance + field_radius
 
-    rgbds = rgbd_image[target_ijs[..., 0], target_ijs[..., 1]]
-    gt_distances = camera.depth_to_distance(rgbds[..., 3], ijs_f)
-    depth_mask = gt_distances < far
-    fv = field_valid[:, None]
-    return Target(
-        ijs=target_ijs,
-        c2ws=c2w.expand(f, r, 4, 4),
-        near_distances=near,
-        far_distances=far,
-        gt_distances=gt_distances,
-        field_ids=field_ids,
-        field_valid=field_valid,
-        rgbds=rgbds,
-        rgb_mask=depth_mask & fv,
-        depth_mask=depth_mask & fv,
-        term_probs=depth_mask.float(),
-        term_mask=torch.ones_like(depth_mask) & fv,
-    )
+        rgbds = rgbd_image[target_ijs[..., 0], target_ijs[..., 1]]
+        gt_distances = camera.depth_to_distance(rgbds[..., 3], ijs_f)
+        depth_mask = gt_distances < far
+        fv = field_valid[:, None]
+        if profiling.tracing_on():  # target slots filled against the slots run
+            profiling.count("sv.slots_valid", field_valid.sum())
+            profiling.count("sv.slots", f)
+            profiling.count("sv.fields_eligible", eligible.sum())
+        return Target(
+            ijs=target_ijs,
+            c2ws=c2w.expand(f, r, 4, 4),
+            near_distances=near,
+            far_distances=far,
+            gt_distances=gt_distances,
+            field_ids=field_ids,
+            field_valid=field_valid,
+            rgbds=rgbds,
+            rgb_mask=depth_mask & fv,
+            depth_mask=depth_mask & fv,
+            term_probs=depth_mask.float(),
+            term_mask=torch.ones_like(depth_mask) & fv,
+        )

@@ -64,6 +64,9 @@ SPANS: Dict[str, str] = {
     # one optimization iteration (engine.optimization_iteration / _sv)
     "ngm.iter.select": "target field selection",
     "ngm.iter.sample": "target rays sampled from the keyframe cache",
+    "ngm.iter.sv_cloud": "single view: the view gathered from the cache, its depth cloud and the centres in its frame",
+    "ngm.iter.sv_count": "single view: each field's cloud segments through its sphere, streamed; eligibility",
+    "ngm.iter.sv_rays": "single view: the chosen fields' dense hit mask, inverse-CDF ray draws and the targets",
     "ngm.iter.gather": "the target fields' parameters gathered",
     "ngm.iter.render": "forward render of the target rays",
     "ngm.iter.loss": "the loss terms",
@@ -85,6 +88,9 @@ COUNTERS: Dict[str, str] = {
     "render.pairs_valid": "(point, field) pairs inside a radius: tile_count over the live tiles (device)",
     "render.lanes_encoded": "lanes the MoE encode runs: live tiles x TILE (device)",
     "render.lanes_mlp": "lanes the per-tile MLP runs: all tiles x TILE (host)",
+    "sv.slots_valid": "single-view target slots filled: the sum of field_valid (device)",
+    "sv.slots": "single-view target slots run: F a sampler call (host)",
+    "sv.fields_eligible": "fields with at least R cloud segments through their sphere (device)",
 }
 
 MAX_RECORDED_SPANS = 1 << 20

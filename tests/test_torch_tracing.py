@@ -15,11 +15,13 @@ import torch
 import torch.utils._python_dispatch
 from torch.profiler import ProfilerActivity, profile
 
+from neural_graph_mapping_tpu_torch import geometry
+from neural_graph_mapping_tpu_torch.camera import Camera
 from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
-from neural_graph_mapping_tpu_torch.mapping import engine
+from neural_graph_mapping_tpu_torch.mapping import engine, sampling
 from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet
 from neural_graph_mapping_tpu_torch.ops import dispatch, permuto_cuda
-from neural_graph_mapping_tpu_torch.utils import imageio, profiling
+from neural_graph_mapping_tpu_torch.utils import imageio, profiling, transforms
 from neural_graph_mapping_tpu_torch.utils.prefetch import FramePrefetcher
 from port_bench import manifest as mf
 from port_bench import spans
@@ -271,6 +273,110 @@ def test_input_spans_sit_on_the_worker_thread(traced_run):
     assert set(counters) == {"render.pairs_valid", "render.lanes_encoded", "render.lanes_mlp"}
 
 
+SV_SPANS = ("ngm.iter.sv_cloud", "ngm.iter.sv_count", "ngm.iter.sv_rays")
+
+
+@pytest.fixture(scope="module")
+def traced_sv_run(dataset):
+    """A single-view map's first three frames (two with fields) under a CPU
+    profiler, the tracer following it -> (trace, counters)."""
+    profiling.reset()
+    ngm = engine.NeuralGraphMap(tiny_config(update_mode="single_view"), "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for f in range(3):
+            ngm.process_frame(dataset, f, dataset[f]["rgbd"])
+    trace = _export(prof)
+    counters = profiling.counters()
+    profiling.reset()
+    return trace, counters
+
+
+def test_single_view_sampler_spans_nest_in_sample(traced_sv_run):
+    trace, counters = traced_sv_run
+    ev = _events_by_name(trace)
+    samples = ev["ngm.iter.sample"]
+    assert len(samples) == 3 * 2  # frame 0 allocates before its step
+    for name in SV_SPANS:
+        assert all(any(_inside(e, s) for s in samples) for e in ev[name]), name
+    assert [len(ev[n]) for n in SV_SPANS] == [2 * 6, 6, 6]  # the view in the engine, its cloud in the sampler
+    covered = sum(e["dur"] for n in SV_SPANS for e in ev[n]) / sum(e["dur"] for e in samples)
+    assert 0.9 < covered <= 1.0
+    assert counters["sv.slots"] == 6 * 4 and 0 < counters["sv.slots_valid"] <= counters["sv.slots"]
+    assert counters["sv.fields_eligible"] >= counters["sv.slots_valid"]
+
+
+@pytest.mark.parametrize("active_fields", [None, 2])
+def test_single_view_counters_against_the_iteration(monkeypatch, active_fields):
+    """The sampler's counters equal its own target's filled slots and a
+    direct count of the fields that at least R cloud segments reach."""
+    from port_bench import scene
+
+    sc = {"width": 40, "height": 30, "fx": 35.0, "fy": 35.0, "lap_frames": 40, "orbit_radius": 2.5, "room_half": 3.0}
+    frames, poses = scene.cast_lap(sc, "cpu", [7])
+    rgbd, c2w = torch.from_numpy(frames[7]), torch.from_numpy(poses[7])
+    cam = Camera.create(width=40, height=30, fx=35.0, fy=35.0, cx=20.0, cy=15.0)
+    g = torch.Generator().manual_seed(3)
+    positions = (torch.rand((48, 3), generator=g) * 2.0 - 1.0) * 2.5
+    active = torch.ones(48, dtype=torch.bool)
+    if active_fields is not None:
+        active[active_fields:] = False
+    f, r, points = 4, 16, 2_000
+    cloud_idx = torch.randint(0, 40 * 30, (points,), generator=g)
+    _trace(monkeypatch, True)
+    target = sampling.sample_target_sv(cam, rgbd, c2w, positions, active, 1.0, f, r, num_cloud_points=points,
+                                       cloud_idx=cloud_idx, u_fields=torch.rand(48, generator=g),
+                                       u_rays=torch.rand((f, r), generator=g))
+    pts, _, ok = cam.depth_to_points_full(rgbd[..., 3], "opengl")
+    centres = transforms.transform_points(positions, c2w, inv=True)
+    hits = geometry.segments_intersect_spheres(torch.zeros_like(pts[cloud_idx]), pts[cloud_idx], centres, 1.0)
+    eligible = ((hits & ok[cloud_idx][None, :]).sum(-1) >= r) & active
+    assert profiling.counters() == {"sv.slots_valid": int(target.field_valid.sum()), "sv.slots": f,
+                                    "sv.fields_eligible": int(eligible.sum())}
+    assert (int(target.field_valid.sum()) < f) == (active_fields is not None)
+
+
+def test_untraced_single_view_frames_record_nothing(monkeypatch, dataset):
+    _forbid_record_function(monkeypatch)
+    ngm = engine.NeuralGraphMap(tiny_config(update_mode="single_view"), "cpu")
+    losses = [ngm.process_frame(dataset, f, dataset[f]["rgbd"]) for f in range(3)]
+    assert losses[-1] and all(np.isfinite(v) for v in losses[-1].values())
+    assert profiling.counters() == {} and profiling.recorded_spans() == []
+
+
+def test_a_traced_tiny_sv_replay_run_reads_its_metrics(tmp_path, monkeypatch):
+    """The benchmark's single-view cell at a tiny size on the CPU, traced
+    (host activity only): both of its per-layer metrics read, and the three
+    sampler spans cover nearly all of ``ngm.iter.sample``."""
+    import contextlib
+
+    from port_bench import run
+    from port_bench.tests.tiny import tiny_cell
+
+    class NoEntries:
+        calls = []
+
+        def totals(self):
+            return {}
+
+    @contextlib.contextmanager
+    def host_only(traced, *args):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            yield prof, NoEntries()
+
+    monkeypatch.setattr(run, "CACHE", tmp_path)
+    monkeypatch.setattr(run, "traced_window", host_only)
+    monkeypatch.setattr(spans, "trace_path", lambda workload: tmp_path / f"trace-{workload}.json")
+    cfg, wl = tiny_cell("sv_replay")
+    wl["trace_seconds"] = 1
+    res = run.run_cell("sv_replay", cfg, wl, mf.load_manifest(), 2**31 + 7, 1.0, True, "cpu", time.perf_counter())
+    assert res["correct"] is True
+    assert res["metrics"]["sv_sample_ms.train"]["value"] > 0
+    assert 0 < res["metrics"]["sv_slot_yield_pct.train"]["value"] <= 100.0
+    (red,) = spans._memo.values()
+    sv = sum(red["spans"][n]["s"] for n in SV_SPANS)
+    assert 0.9 < sv / red["spans"]["ngm.iter.sample"]["s"] <= 1.0
+
+
 def test_kept_spans_share_the_trace_clock(traced_run):
     """A span the tracer keeps itself lands on the trace's clock: a kept
     span opened inside a profiled range falls inside it."""
@@ -492,7 +598,10 @@ READERS = {
     "mlp_lane_yield_pct.render": ("images", 100 * 300 / 1024),
     "encode_lane_yield_pct.render": ("images", 100 * 300 / 512),
     "block_host_ms.render": ("images", 1e3 * 600e-6 / 3),
+    "sv_sample_ms.train": ("sv_frames", 1e3 * 2 * (20 + 20 + 100 + 40) * 1e-6 / 2),
+    "sv_slot_yield_pct.train": ("sv_frames", 100 * 50 / 64),
 }
+SV_COUNTERS = {"sv.slots_valid": 50, "sv.slots": 64, "sv.fields_eligible": 7}
 
 
 def _hand_render_trace():
@@ -501,22 +610,55 @@ def _hand_render_trace():
     return ev
 
 
+def _hand_sv_trace():
+    """Two single-view frames; each one's sampling [100, 300] us into the
+    frame, its view and cloud, counts and rays inside it."""
+    ev = [_x("port_bench.window", 0, 1000)]
+    for f0 in (0, 500):
+        ev += [_x("ngm.frame.process", f0 + 10, 480), _x("ngm.frame.step", f0 + 50, 430),
+               _x("ngm.iter.sample", f0 + 100, 200), _x("ngm.iter.sv_cloud", f0 + 100, 20),
+               _x("ngm.iter.sv_cloud", f0 + 130, 20), _x("ngm.iter.sv_count", f0 + 150, 100),
+               _x("ngm.iter.sv_rays", f0 + 250, 40)]
+    return ev
+
+
 def _reading(tmp_path, monkeypatch, kind, tracer):
-    events = _hand_trace() if kind == "frames" else _hand_render_trace()
+    events = {"frames": _hand_trace, "images": _hand_render_trace, "sv_frames": _hand_sv_trace}[kind]()
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     monkeypatch.setattr(spans, "trace_path", lambda workload: path)
     monkeypatch.setattr(spans, "program_tracer", lambda: tracer)
-    return {"workload": "w", "frames": 2 if kind == "frames" else 0, "images": 3 if kind == "images" else 0,
+    return {"workload": "w", "frames": 0 if kind == "images" else 2, "images": 3 if kind == "images" else 0,
             "window_s": 1e-3, "entries": {}, "trace": {}, "phase_s": None}
 
 
 @pytest.mark.parametrize("name", list(READERS))
 def test_each_new_reader_on_a_hand_made_trace(tmp_path, monkeypatch, name):
     kind, want = READERS[name]
-    counters = {"render.pairs_valid": 300, "render.lanes_encoded": 512, "render.lanes_mlp": 1024}
+    counters = {"render.pairs_valid": 300, "render.lanes_encoded": 512, "render.lanes_mlp": 1024, **SV_COUNTERS}
     r = _reading(tmp_path, monkeypatch, kind, _FakeTracer(counters=counters))
     assert mf.load_reader(name).read(r) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("name,missing", [("sv_sample_ms.train", "frames"), ("sv_sample_ms.train", "ngm.iter.sv_rays"),
+                                          ("sv_sample_ms.train", "multi_view"),
+                                          ("sv_slot_yield_pct.train", "frames"),
+                                          ("sv_slot_yield_pct.train", "sv.slots"),
+                                          ("sv_slot_yield_pct.train", "sv.slots_valid")])
+def test_single_view_readers_read_nothing_without_their_frames_spans_or_counters(tmp_path, monkeypatch, name,
+                                                                                missing):
+    """No frames, a span missing, a multi-view window (no sampler spans at
+    all), or a counter missing: None, and no error."""
+    counters = {k: v for k, v in SV_COUNTERS.items() if k != missing}
+    r = _reading(tmp_path, monkeypatch, "sv_frames", _FakeTracer(counters=counters))
+    if missing == "frames":
+        r["frames"] = 0
+    elif missing.startswith("ngm.") or missing == "multi_view":
+        events = [e for e in _hand_sv_trace() if e["name"] == missing
+                  or (missing == "multi_view" and e["name"].startswith("ngm.iter.sv_"))]
+        kept = [e for e in _hand_sv_trace() if e not in events]
+        spans.trace_path(r["workload"]).write_text(json.dumps({"traceEvents": kept}))
+    assert mf.load_reader(name).read(r) is None
 
 
 @pytest.mark.parametrize("name", list(READERS))

@@ -9,6 +9,7 @@ the JAX package's: the principal point is stored at pixel_center 0.5, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -91,7 +92,7 @@ class Camera:
 
         Returns (points2d (..., 2) [x, y], in_front_mask (...)).
         """
-        proj = self.get_projection_matrix(convention, pixel_center, points.device)
+        proj = _projection_matrix(self, convention, pixel_center, points.device)
         homo = torch.einsum("oi,...i->...o", proj, points)
         z = homo[..., 2]
         return homo[..., :2] / z[..., None], z > 0.0
@@ -220,3 +221,10 @@ class Camera:
         else:
             raise ValueError(f"Unsupported camera convention {convention}.")
         return points, ijs, depth != 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def _projection_matrix(camera: Camera, convention: str, pixel_center: float, device) -> torch.Tensor:
+    """``camera``'s projection matrix on ``device``, made once: a copy from
+    the host waits for the device, and a CUDA graph cannot record one."""
+    return camera.get_projection_matrix(convention, pixel_center, device)

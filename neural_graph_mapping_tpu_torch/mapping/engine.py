@@ -461,6 +461,34 @@ def optimization_iteration(
     """One multi-view optimization iteration (selection, sampling, render,
     losses, Adam); returns (params, adam, training_iterations, loss_dict).
     With ``shard``, ``params`` and ``adam`` are this rank's rows."""
+    target = mv_target(
+        fset, camera, loss_cfg, num_train_fields, map_positions, allocated_mask, observed_mask, cache_rgb,
+        cache_depth, cache_c2w, cache_valid, draws, generator,
+    )
+    return _optimization_iteration_core(
+        fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
+        map_positions, map_orientations, target, draws, generator, shard,
+    )
+
+
+def mv_target(
+    fset: NeuralFieldSet,
+    camera,
+    loss_cfg: LossConfig,
+    num_train_fields: int,
+    map_positions: torch.Tensor,
+    allocated_mask: torch.Tensor,
+    observed_mask: torch.Tensor,
+    cache_rgb: torch.Tensor,
+    cache_depth: torch.Tensor,
+    cache_c2w: torch.Tensor,
+    cache_valid: torch.Tensor,
+    draws: IterationDraws,
+    generator: Optional[torch.Generator],
+) -> sampling.Target:
+    """A multi-view iteration's targets: half observed, half random fields
+    (``sampling.select_target_fields``), then their rays from the keyframe
+    cache (``sampling.sample_target_mv``)."""
     if loss_cfg.single_field_id is not None:
         only = torch.arange(allocated_mask.shape[0], device=allocated_mask.device) == loss_cfg.single_field_id
         allocated_mask = allocated_mask & only
@@ -470,16 +498,12 @@ def optimization_iteration(
             observed_mask, allocated_mask, num_train_fields, draws.u_obs, draws.u_rand, generator
         )
     with profiling.span("ngm.iter.sample"):
-        target = sampling.sample_target_mv(
+        return sampling.sample_target_mv(
             camera, field_ids, field_valid, map_positions, cache_rgb, cache_depth, cache_c2w,
             cache_valid, fset.field_radius, loss_cfg.num_rays_per_field,
             offsets=draws.offsets, kf_gumbel=draws.kf_gumbel, pix_u=draws.pix_u,
             generator=generator,
         )
-    return _optimization_iteration_core(
-        fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
-        map_positions, map_orientations, target, draws, generator, shard,
-    )
 
 
 def optimization_iterations_scan(
@@ -511,6 +535,7 @@ def optimization_iterations_scan(
     iteration)."""
     loss_dict = {}
     for i in range(num_iters):
+        profiling.count("step.iterations")
         params, adam, training_iterations, loss_dict = optimization_iteration(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam,
             training_iterations, map_positions, map_orientations, allocated_mask,
@@ -550,21 +575,11 @@ def optimization_iteration_sv(
     (``sampling.sample_target_sv``); then render, losses and Adam as in the
     multi-view iteration. Returns (params, adam, training_iterations,
     loss_dict). No host sync."""
-    with profiling.span("ngm.iter.select"):
-        slot_gumbel = draws.slot_gumbel
-        if slot_gumbel is None:
-            slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
-        others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
-        random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
-        use_current = cache_valid[0] & (iter_idx % 2 != 0)
-        slot = torch.where(use_current, 0, random_slot).reshape(1)
+    slot = sv_slot(cache_valid, iter_idx % 2 != 0, draws.slot_gumbel, generator)
     with profiling.span("ngm.iter.sample"):
-        with profiling.span("ngm.iter.sv_cloud"):  # the view, then its cloud in the sampler
-            rgbd = torch.cat(
-                [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
-            )
+        view, view_c2w = sv_view(cache_rgb, cache_depth, cache_c2w, slot)
         target = sampling.sample_target_sv(
-            camera, rgbd, cache_c2w.index_select(0, slot)[0], map_positions, active_mask,
+            camera, view, view_c2w, map_positions, active_mask,
             fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
             cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=generator,
         )
@@ -572,6 +587,34 @@ def optimization_iteration_sv(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
         map_positions, map_orientations, target, draws, generator, shard,
     )
+
+
+def sv_slot(
+    cache_valid: torch.Tensor,
+    odd,  # Python bool or 0-d bool tensor: the iteration's parity
+    slot_gumbel: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """A single-view iteration's cache slot (1,): the current frame (slot 0)
+    on odd iterations if it is valid, else a random valid keyframe slot
+    other than 0. A span ``ngm.iter.select``."""
+    with profiling.span("ngm.iter.select"):
+        if slot_gumbel is None:
+            slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
+        others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
+        random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
+        use_current = cache_valid[0] & odd
+        return torch.where(use_current, 0, random_slot).reshape(1)
+
+
+def sv_view(cache_rgb: torch.Tensor, cache_depth: torch.Tensor, cache_c2w: torch.Tensor, slot: torch.Tensor):
+    """The cached view in ``slot`` -> (its RGB-D (H, W, 4), its c2w (4, 4)).
+    A span ``ngm.iter.sv_cloud``: the sampler draws the view's cloud next."""
+    with profiling.span("ngm.iter.sv_cloud"):
+        rgbd = torch.cat(
+            [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
+        )
+    return rgbd, cache_c2w.index_select(0, slot)[0]
 
 
 def optimization_iterations_scan_sv(
@@ -602,6 +645,7 @@ def optimization_iterations_scan_sv(
     state. No host syncs (sharded: one an iteration)."""
     loss_dict = {}
     for i in range(num_iters):
+        profiling.count("step.iterations")
         params, adam, training_iterations, loss_dict = optimization_iteration_sv(
             fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam,
             training_iterations, map_positions, map_orientations, active_mask,
@@ -1046,6 +1090,19 @@ class NeuralGraphMap:
         self._frame_gen = torch.Generator(self._device).manual_seed(self._seed + 1)
         self._frame_counter = 0
 
+    def _frame_graphs(self):
+        """The frame step's CUDA graphs (:mod:`frame_graphs`), or None where
+        the map trains eagerly: on the CPU, sharded, on the ``fused_mlp``
+        route, with fields the encode cut does not take."""
+        from neural_graph_mapping_tpu_torch.mapping import frame_graphs
+
+        single_view = self._update_mode == "single_view"
+        gen = None if self._draws is not None else (self._init_gen if single_view else self._frame_gen)
+        if not frame_graphs.supported(self._fset, self._device, self._shard, gen):
+            return None
+        return frame_graphs.FrameGraphs(self._fset, self._rcfg, self._ocfg, self._loss_cfg, self._num_train_fields,
+                                        single_view, gen, self._device)
+
     def _field_group(self, group: Optional[sharding.FieldGroup]) -> Optional[sharding.FieldGroup]:
         """The group the field axis is split over, None unsharded."""
         import torch.distributed as dist
@@ -1079,6 +1136,7 @@ class NeuralGraphMap:
         self._map_arrays = map_state.init_map_arrays(cap, dev)
         self._params = self._own_rows(self._new_fields(cap))
         self._adam = optimizer.init_adam_state(self._params)
+        self._graphs = self._frame_graphs()
         self._num_fields = 0
         # the capacity route's full copy of a sharded map, during one render
         self._gathered_params: Optional[dict] = None
@@ -1188,6 +1246,17 @@ class NeuralGraphMap:
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self._device)
 
+    def _upload(self, x: np.ndarray, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A host array to the device (into ``out`` where given). On a card
+        it goes up from pinned memory without blocking: a copy from pageable
+        memory would wait for the frame's queued work."""
+        host = torch.from_numpy(np.array(x))  # a copy: the host array changes later
+        if self._device.type == "cuda":
+            host = host.pin_memory()
+        if out is None or out.shape != host.shape:
+            return host.to(self._device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
+
     # -- per-frame pipeline ------------------------------------------------------
 
     def _init_cache(self, h: int, w: int) -> None:
@@ -1245,10 +1314,9 @@ class NeuralGraphMap:
                     kf_ids_np[mask] = new_anchor
                     kf_slots_np[mask] = self._frame_to_slot.get(new_anchor, 0)
                     dirty = True
-            if dirty:
-                self._map_arrays = self._map_arrays._replace(
-                    kf_ids=self._to_device(kf_ids_np), kf_slots=self._to_device(kf_slots_np)
-                )
+            if dirty:  # in place: the frame step's graphs hold the map's tensors
+                self._map_arrays.kf_ids.copy_(torch.from_numpy(kf_ids_np))
+                self._map_arrays.kf_slots.copy_(torch.from_numpy(kf_slots_np))
 
         # loop-closure deformation against the previous frame's slot poses
         self._pending_slot_poses = None
@@ -1260,11 +1328,13 @@ class NeuralGraphMap:
                 and self._num_fields > 0
                 and not np.array_equal(new_slot_poses, self._prev_kf2w_slots)
             ):
-                self._map_arrays = map_state.reanchor_field_poses(
+                moved = map_state.reanchor_field_poses(
                     self._map_arrays,
                     self._to_device(self._prev_kf2w_slots),
                     self._to_device(new_slot_poses),
                 )
+                self._map_arrays.positions.copy_(moved.positions)
+                self._map_arrays.orientations.copy_(moved.orientations)
         if graph_changed:
             self._graph = {k: set(v) for k, v in new_graph.items()}
             self._last_graph_obj = new_graph
@@ -1293,14 +1363,11 @@ class NeuralGraphMap:
         return np.fromiter(ids, np.int64) if ids else np.zeros((0,), np.int64)
 
     def _active_mask(self, frame_id: int) -> torch.Tensor:
-        """(capacity,) mask of :meth:`_active_field_ids` on the device. On a
-        card it goes up from pinned memory without blocking: a copy from
-        pageable memory would wait for the frame's queued work."""
-        mask = torch.zeros((self.capacity,), dtype=torch.bool)
-        mask[torch.from_numpy(self._active_field_ids(frame_id))] = True
-        if self._device.type != "cuda":
-            return mask.to(self._device)
-        return mask.pin_memory().to(self._device, non_blocking=True)
+        """(capacity,) mask of :meth:`_active_field_ids` on the device
+        (:meth:`_upload`)."""
+        mask = np.zeros((self.capacity,), bool)
+        mask[self._active_field_ids(frame_id)] = True
+        return self._upload(mask)
 
     def process_frame(self, dataset, frame_id: int, rgbd) -> dict:
         """Ingest one frame (H, W, 4 RGB-D) and run the per-frame
@@ -1328,7 +1395,7 @@ class NeuralGraphMap:
 
         c2w_np = np.asarray(dataset.get_slam_c2ws(frame_id), dtype=np.float32)
         c2w_missing = not np.isfinite(c2w_np).all()
-        c2w = self._to_device(c2w_np if not c2w_missing else np.eye(4, dtype=np.float32))
+        c2w = self._upload(c2w_np if not c2w_missing else np.eye(4, dtype=np.float32))
 
         with profiling.phase("graph", into=self.phase_times):
             self._update_graph(dataset, frame_id)
@@ -1390,18 +1457,22 @@ class NeuralGraphMap:
             self._cache_c2w_np[kf_slot] = c2w_np
             self._cache_c2w_dirty = True
 
+        # in place: the frame step's graphs read these tensors
         if self._cache_c2w_dirty or self._cache_c2w_dev is None:
-            self._cache_c2w_dev = self._to_device(self._cache_c2w_np.copy())
+            self._cache_c2w_dev = self._upload(self._cache_c2w_np, self._cache_c2w_dev)
             self._cache_c2w_dirty = False
         if self._cache_valid_dirty or self._cache_valid_dev is None:
-            self._cache_valid_dev = self._to_device(self._cache_valid_np.copy())
+            self._cache_valid_dev = self._upload(self._cache_valid_np, self._cache_valid_dev)
             self._cache_valid_dirty = False
         return self._allocated_mask()
 
     def _frame_step(self, frame_id: int, rgbd, c2w, kf_slot: int, write_current: bool,
                     allocated: torch.Tensor) -> dict:
         """The frame's device program (the multi-view ``frame_step`` or the
-        single-view iterations) -> the last iteration's loss dict."""
+        single-view iterations; replayed from CUDA graphs where
+        :mod:`frame_graphs` takes the map and fields train) -> the last
+        iteration's loss dict."""
+        graphed = self._graphs is not None and self._num_fields > 0
         if self._update_mode == "multi_view":
             observed_gumbel = iteration_draws = None
             if self._draws is not None:
@@ -1414,15 +1485,15 @@ class NeuralGraphMap:
                         iteration_draws = self._draws.multi_view(
                             self._frame_counter, self._num_iterations_per_frame, shapes
                         )
-            (
-                self._params,
-                self._adam,
-                new_ti,
-                self._cache_rgb,
-                self._cache_depth,
-                self._observed_mask,
-                loss_dict,
-            ) = frame_step(
+            if graphed:
+                with profiling.span("ngm.frame.cache_write"):
+                    write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
+                self._observed_mask, loss_dict = self._graphed_iterations(
+                    allocated, rgbd=rgbd, c2w=c2w, observed_gumbel=observed_gumbel, iteration_draws=iteration_draws,
+                )
+                return loss_dict
+            # the training counts, cache and map change in place
+            self._params, self._adam, _, _, _, self._observed_mask, loss_dict = frame_step(
                 self._fset,
                 self._camera,
                 self._rcfg,
@@ -1450,43 +1521,54 @@ class NeuralGraphMap:
                 observed_gumbel,
                 iteration_draws,
             )
-        else:  # single_view
-            with profiling.span("ngm.frame.cache_write"):
-                write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
-            loss_dict, new_ti = {}, self._map_arrays.training_iterations
-            if self._num_fields > 0:
-                active_mask = self._active_mask(frame_id)
-                iteration_draws = None
-                if self._draws is not None:
-                    with profiling.span("ngm.frame.draws"):
-                        iteration_draws = self._draws.single_view(
-                            self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
-                            self._cache_valid_dev,
-                        )
-                self._params, self._adam, new_ti, loss_dict = optimization_iterations_scan_sv(
-                    self._fset,
-                    self._camera,
-                    self._rcfg,
-                    self._ocfg,
-                    self._loss_cfg,
-                    self._num_train_fields,
-                    self._num_iterations_per_frame,
-                    self._params,
-                    self._adam,
-                    new_ti,
-                    self._map_arrays.positions,
-                    self._map_arrays.orientations,
-                    active_mask,
-                    self._cache_rgb,
-                    self._cache_depth,
-                    self._cache_c2w_dev,
+            return loss_dict
+        # single_view
+        with profiling.span("ngm.frame.cache_write"):
+            write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
+        if self._num_fields == 0:
+            return {}
+        active_mask = self._active_mask(frame_id)
+        iteration_draws = None
+        if self._draws is not None:
+            with profiling.span("ngm.frame.draws"):
+                iteration_draws = self._draws.single_view(
+                    self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
                     self._cache_valid_dev,
-                    self._init_gen,  # JAX: self._next_key(), the init / render stream
-                    self._shard,
-                    iteration_draws,
                 )
-        self._map_arrays = self._map_arrays._replace(training_iterations=new_ti)
+        if graphed:
+            return self._graphed_iterations(allocated, active=active_mask, iteration_draws=iteration_draws)[1]
+        self._params, self._adam, _, loss_dict = optimization_iterations_scan_sv(
+            self._fset,
+            self._camera,
+            self._rcfg,
+            self._ocfg,
+            self._loss_cfg,
+            self._num_train_fields,
+            self._num_iterations_per_frame,
+            self._params,
+            self._adam,
+            self._map_arrays.training_iterations,
+            self._map_arrays.positions,
+            self._map_arrays.orientations,
+            active_mask,
+            self._cache_rgb,
+            self._cache_depth,
+            self._cache_c2w_dev,
+            self._cache_valid_dev,
+            self._init_gen,  # JAX: self._next_key(), the init / render stream
+            self._shard,
+            iteration_draws,
+        )
         return loss_dict
+
+    def _graphed_iterations(self, allocated: torch.Tensor, **frame_inputs):
+        """The frame's observed test (multi-view) and iterations through
+        ``self._graphs`` -> (the observed mask or None, the loss dict)."""
+        return self._graphs.frame(
+            camera=self._camera, params=self._params, adam=self._adam, arrays=self._map_arrays,
+            cache=(self._cache_rgb, self._cache_depth, self._cache_c2w_dev, self._cache_valid_dev),
+            allocated=allocated, num_iters=self._num_iterations_per_frame, **frame_inputs,
+        )
 
     def _allocate_new_fields(self, frame_id, depth, c2w, kf_slot) -> None:
         active_ids = self._active_field_ids(frame_id)

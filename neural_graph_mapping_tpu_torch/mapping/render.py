@@ -74,20 +74,25 @@ def sample_ray_distances(
     return torch.sort(torch.cat([coarse, guided], dim=-1), dim=-1).values
 
 
-def render_rays_vmap(
-    fset,
-    sub_params,
-    field_positions: torch.Tensor,  # (F, 3) world poses of the target fields
-    field_orientations: torch.Tensor,  # (F, 4)
+class RaySamples(NamedTuple):
+    """The samples of a training render: distances along each ray, the
+    sample points in world coordinates and their camera-frame z."""
+
+    distances: torch.Tensor  # (F, R, S)
+    points: tuple  # 3 x (F, R*S) world x, y, z
+    camera_z: torch.Tensor  # (F, R, S)
+
+
+def sample_rays(
     camera: Camera,
     target: Target,
     cfg: RenderConfig,
-    u_coarse: Optional[torch.Tensor] = None,
-    u_guided: Optional[torch.Tensor] = None,
+    u_coarse: Optional[torch.Tensor] = None,  # (F, R, coarse) ~ U(0, 1)
+    u_guided: Optional[torch.Tensor] = None,  # (F, R, guided) ~ U(0, 1)
     generator: Optional[torch.Generator] = None,
-) -> Prediction:
-    """Field-parallel training render of the target's rays through the
-    gathered fields ``sub_params`` (leading axis F)."""
+) -> RaySamples:
+    """The target rays' sample distances (:func:`sample_ray_distances`) and
+    the sample points they give in the world."""
     f, r = target.near_distances.shape
     distances = sample_ray_distances(
         target.near_distances, target.far_distances, target.gt_distances, cfg,
@@ -117,14 +122,20 @@ def render_rays_vmap(
     wx = coef(0, 0) * pcx + coef(0, 1) * pcy + coef(0, 2) * pcz + coef(0, 3)
     wy = coef(1, 0) * pcx + coef(1, 1) * pcy + coef(1, 2) * pcz + coef(1, 3)
     wz = coef(2, 0) * pcx + coef(2, 1) * pcy + coef(2, 2) * pcz + coef(2, 3)
+    return RaySamples(distances, (wx.reshape(f, r * s), wy.reshape(f, r * s), wz.reshape(f, r * s)), pcz)
 
-    outs = fset.apply_vmap_fm_soa(
-        sub_params,
-        (wx.reshape(f, r * s), wy.reshape(f, r * s), wz.reshape(f, r * s)),
-        field_positions,
-        field_orientations,
-    )  # (F, 4, R*S)
 
+def composite(
+    sub_params,
+    target: Target,
+    samples: RaySamples,
+    outs: torch.Tensor,  # (F, 4, R*S) field outputs at the samples
+    cfg: RenderConfig,
+) -> Prediction:
+    """The rays' prediction from the fields' outputs at their samples:
+    behind-camera samples forced empty, the residual masks, quadrature."""
+    distances, pcz = samples.distances, samples.camera_z
+    f, r, s = distances.shape
     sample_colors = cfg.color_factor * outs[:, :3, :].reshape(f, 3, r, s)
     sample_geometries = outs[:, 3, :].reshape(f, r, s)
     sample_depths = -pcz
@@ -164,3 +175,23 @@ def render_rays_vmap(
         freespace_mask=freespace_mask & fv,
         tsdf_mask=tsdf_mask & fv,
     )
+
+
+def render_rays_vmap(
+    fset,
+    sub_params,
+    field_positions: torch.Tensor,  # (F, 3) world poses of the target fields
+    field_orientations: torch.Tensor,  # (F, 4)
+    camera: Camera,
+    target: Target,
+    cfg: RenderConfig,
+    u_coarse: Optional[torch.Tensor] = None,
+    u_guided: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Prediction:
+    """Field-parallel training render of the target's rays through the
+    gathered fields ``sub_params`` (leading axis F): :func:`sample_rays`,
+    the fields at the samples, :func:`composite`."""
+    samples = sample_rays(camera, target, cfg, u_coarse, u_guided, generator)
+    outs = fset.apply_vmap_fm_soa(sub_params, samples.points, field_positions, field_orientations)  # (F, 4, R*S)
+    return composite(sub_params, target, samples, outs, cfg)

@@ -43,10 +43,10 @@ class Target(NamedTuple):
 
 
 def gumbel_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard Gumbel noise, -log(-log(U)), U ~ U(tiny, 1)."""
+    """Standard Gumbel noise, -log(-log(U)), U ~ U(tiny, 1), in one buffer
+    (the observed test's is (500, H*W))."""
     u = torch.rand(shape, generator=generator, device=device)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    return u.clamp_(min=torch.finfo(torch.float32).tiny).log_().neg_().log_().neg_()
 
 
 def masked_choice_without_replacement(
@@ -119,9 +119,11 @@ def observed_fields_mask(
     View points are drawn with replacement among the valid depth pixels."""
     points, _, valid = camera.depth_to_points_full(depth_image, "opengl")
     logits = torch.log(valid.float() + 1e-20)
-    if gumbel is None:
-        gumbel = gumbel_noise((num_points, logits.shape[0]), generator, logits.device)
-    sel = torch.argmax(gumbel + logits, dim=-1)
+    if gumbel is None:  # drawn here: the noise's buffer takes the sum
+        scores = gumbel_noise((num_points, logits.shape[0]), generator, logits.device).add_(logits)
+    else:
+        scores = gumbel + logits
+    sel = torch.argmax(scores, dim=-1)
     pts = points[sel]
     pts_ok = valid[sel]
     field_pos_c = transforms.transform_points(field_positions, c2w, inv=True)
@@ -217,15 +219,17 @@ def sample_target_mv(
     min_xy_all = torch.amin(torch.where(inf3, xy, torch.full_like(xy, big)), dim=1)  # (F, S, 2)
     max_xy_all = torch.amax(torch.where(inf3, xy, torch.full_like(xy, -big)), dim=1)
     min_xy_all = torch.clamp(min_xy_all, min=0.0)
-    wh = torch.tensor([float(w), float(h)], device=dev)
-    max_xy_all = torch.minimum(max_xy_all, wh)
+    max_xy_all[..., 0].clamp_(max=float(w))
+    max_xy_all[..., 1].clamp_(max=float(h))
     slot_idx = target_slots[..., None].expand(f, r, 2)
     min_xy = torch.gather(min_xy_all, 1, slot_idx)  # (F, R, 2)
     max_xy = torch.gather(max_xy_all, 1, slot_idx)
     max_xy = torch.maximum(max_xy, min_xy)  # degenerate bbox -> single pixel
 
     target_xy = (max_xy - min_xy) * pix_u + min_xy
-    target_ji = torch.minimum(target_xy.long(), torch.tensor([w - 1, h - 1], device=dev))
+    target_ji = target_xy.long()
+    target_ji[..., 0].clamp_(max=w - 1)
+    target_ji[..., 1].clamp_(max=h - 1)
     target_ijs = torch.stack([target_ji[..., 1], target_ji[..., 0]], dim=-1)
 
     target_c2ws = cache_c2w[target_slots]  # (F, R, 4, 4)
@@ -301,6 +305,36 @@ def sample_target_sv(
     ``ngm.iter.sv_rays`` (3, 4 and the targets); counters ``sv.slots_valid``
     and ``sv.fields_eligible`` (device) and ``sv.slots`` (host, F a call).
     """
+    target, eligible = sample_target_sv_eligible(
+        camera, rgbd_image, c2w, field_positions, active_mask, field_radius, num_train_fields,
+        num_rays_per_field, num_cloud_points, cloud_chunk, cloud_idx, u_fields, u_rays, generator,
+    )
+    if profiling.tracing_on():  # target slots filled against the slots run
+        profiling.count("sv.slots_valid", target.field_valid.sum())
+        profiling.count("sv.slots", num_train_fields)
+        profiling.count("sv.fields_eligible", eligible.sum())
+    return target
+
+
+def sample_target_sv_eligible(
+    camera: Camera,
+    rgbd_image: torch.Tensor,  # (H, W, 4)
+    c2w: torch.Tensor,  # (4, 4)
+    field_positions: torch.Tensor,  # (N_cap, 3)
+    active_mask: torch.Tensor,  # (N_cap,)
+    field_radius: float,
+    num_train_fields: int,
+    num_rays_per_field: int,
+    num_cloud_points: int = 50_000,
+    cloud_chunk: int = 8192,
+    cloud_idx: Optional[torch.Tensor] = None,  # (num_cloud_points,) pixel indices
+    u_fields: Optional[torch.Tensor] = None,  # (N_cap,) Gumbel uniforms
+    u_rays: Optional[torch.Tensor] = None,  # (F, R) ~ U(0, 1)
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Target, torch.Tensor]:
+    """:func:`sample_target_sv` without its counters -> (the targets, the
+    (N_cap,) mask of eligible fields): the counters' values for a caller
+    that adds them itself (a captured iteration adds its graph's outputs)."""
     f, r = num_train_fields, num_rays_per_field
     dev = rgbd_image.device
     with profiling.span("ngm.iter.sv_cloud"):
@@ -349,11 +383,7 @@ def sample_target_sv(
         gt_distances = camera.depth_to_distance(rgbds[..., 3], ijs_f)
         depth_mask = gt_distances < far
         fv = field_valid[:, None]
-        if profiling.tracing_on():  # target slots filled against the slots run
-            profiling.count("sv.slots_valid", field_valid.sum())
-            profiling.count("sv.slots", f)
-            profiling.count("sv.fields_eligible", eligible.sum())
-        return Target(
+        target = Target(
             ijs=target_ijs,
             c2ws=c2w.expand(f, r, 4, 4),
             near_distances=near,
@@ -367,3 +397,4 @@ def sample_target_sv(
             term_probs=depth_mask.float(),
             term_mask=torch.ones_like(depth_mask) & fv,
         )
+    return target, eligible

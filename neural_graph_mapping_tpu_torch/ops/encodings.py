@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from neural_graph_mapping_tpu_torch.ops import permuto
+from neural_graph_mapping_tpu_torch.ops import permuto, permuto_cuda
 
 Params = Dict[str, torch.Tensor]
 
@@ -114,6 +114,26 @@ class PermutohedralEncoding(nn.Module):
     def _uses_fused(self) -> bool:
         return self.pos_dim == 3 and self.nr_feat_per_level == 2
 
+    @property
+    def graphable(self) -> bool:
+        """Whether the encode is the fused kernel pair alone (no points
+        concatenated), so that a caller may run its forward and its table
+        gradient as :meth:`fused_forward` and :meth:`fused_table_grad`."""
+        return self._uses_fused() and not self.concat_points
+
+    def _consts(self) -> tuple:
+        return self._scales_t, self._shifts_t, self._elev_t, self.level_capacities
+
+    def fused_forward(self, table: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+        """The ``encode_fwd`` kernel outside autograd: table (..., 2, L, T),
+        stacked coords (..., 3, P) -> (..., 2L, P)."""
+        return permuto_cuda.encode_fwd(table, coords, *self._consts())
+
+    def fused_table_grad(self, coords: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+        """The ``encode_bwd_table`` kernel: d loss / d table from the
+        gradient of :meth:`fused_forward`'s output."""
+        return permuto_cuda.encode_bwd_table(coords, grad.contiguous(), *self._consts())
+
     def apply_fm_soa(self, params: Params, coords) -> torch.Tensor:
         """Feature-major encode from SoA coords (d tensors of (..., P))
         -> (..., out_dim, P); ``params["table"]`` is (..., F, L, T).
@@ -125,10 +145,7 @@ class PermutohedralEncoding(nn.Module):
         if not self._uses_fused():
             return self.gather_fm_soa(params, coords)
         stacked = torch.stack(coords, dim=-2).contiguous()  # (..., 3, P)
-        out = permuto.encode_fused(
-            params["table"], stacked, self._scales_t, self._shifts_t, self._elev_t,
-            self.level_capacities,
-        )
+        out = permuto.encode_fused(params["table"], stacked, *self._consts())
         return self._concat_points(out, coords)
 
     def gather_fm_soa(self, params: Params, coords) -> torch.Tensor:

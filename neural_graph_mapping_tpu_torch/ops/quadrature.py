@@ -50,11 +50,66 @@ class QuadratureResult(NamedTuple):
     sample_weights: torch.Tensor  # (..., S or S-1)
 
 
+def _reversed_cumsum(w: torch.Tensor) -> torch.Tensor:
+    return w.flip(-1).cumsum(-1).flip(-1)
+
+
+def cumprod_grad(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``out = cumprod(x)`` along the last axis for the
+    cotangent ``g``, by PyTorch's own formula (``cumprod_backward``), with
+    the choice its host reads (``(x == 0).any().item()``) made per element
+    on the device instead.
+
+    With f the index of a row's first zero: before f, the reversed cumulative
+    sum of ``out * g`` over ``x`` (the zero-free formula; ``out`` is 0 from f
+    on); at f, ``out[f - 1] * sum_{j=f}^{z-1} g_j prod_{l=f+1}^{j} x_l``, with
+    z the row's second zero; after f, 0. The same operations on the same
+    values as PyTorch's, so the gradient equals its bit for bit."""
+    is_zero = x == 0
+    zeros_before = is_zero.cumsum(-1)
+    before_first = zeros_before == 0
+    dense = _reversed_cumsum((out * g).masked_fill(~before_first, 0.0)).div(x)
+    # the first zero of each row, and the stretch after it up to the second
+    in_first = zeros_before == 1
+    first_idx = in_first.max(-1, keepdim=True).indices
+    first = torch.zeros_like(in_first).scatter_(-1, first_idx, True) & in_first
+    after_first = in_first & ~first
+    run = x.masked_fill(~after_first, 1.0).cumprod(-1).mul(g.masked_fill(~in_first, 0.0)).sum(-1, keepdim=True)
+    before = torch.gather(out, -1, (first_idx - 1).clamp(min=0)).masked_fill(first_idx == 0, 1.0)
+    at_first = run.mul(before).expand_as(x)
+    return torch.where(before_first, dense, torch.where(first, at_first, torch.zeros_like(x)))
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis whose backward never reads the
+    device from the host (:func:`cumprod_grad`), so that a CUDA graph can
+    capture it: PyTorch's ``CumprodBackward0`` reads whether the input holds
+    a zero, and a capture forbids that read. The forward is
+    ``torch.cumprod`` itself."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return cumprod_grad(x, out, g)
+
+
+def cumprod(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumprod(x, dim=-1)``; where ``x`` needs a gradient, with the
+    backward of :class:`_Cumprod`."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Cumprod.apply(x)
+    return torch.cumprod(x, dim=-1)
+
+
 def _termination_weights(occ: torch.Tensor) -> torch.Tensor:
     """Per-sample termination probability occ_s * prod_{j<s} (1 - occ_j)."""
-    non_term = torch.cat(
-        [torch.ones_like(occ[..., :1]), torch.cumprod(1.0 - occ[..., :-1], dim=-1)], dim=-1
-    )
+    non_term = torch.cat([torch.ones_like(occ[..., :1]), cumprod(1.0 - occ[..., :-1])], dim=-1)
     return occ * non_term
 
 

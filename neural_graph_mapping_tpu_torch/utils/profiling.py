@@ -91,6 +91,8 @@ COUNTERS: Dict[str, str] = {
     "sv.slots_valid": "single-view target slots filled: the sum of field_valid (device)",
     "sv.slots": "single-view target slots run: F a sampler call (host)",
     "sv.fields_eligible": "fields with at least R cloud segments through their sphere (device)",
+    "step.iterations": "training iterations run (host)",
+    "step.graphed": "training iterations whose pre, post and Adam segments ran from CUDA graphs (host)",
 }
 
 MAX_RECORDED_SPANS = 1 << 20

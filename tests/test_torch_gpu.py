@@ -1057,3 +1057,154 @@ def test_single_view_iteration_matches_cpu(cuda):
     worst, _, launches = chip_smoke.check_sv_iteration_against_cpu(torch, engine, permuto_cuda, ngm)
     assert worst <= 1e-3
     assert launches == {"encode_fwd": 1, "encode_bwd_table": 1}
+
+
+# -- the frame step from CUDA graphs (mapping/frame_graphs.py) -----------------------
+
+
+def _graph_test_maps(cfg, draws: bool, graphed: list):
+    """Maps of one config and seed, each from CUDA graphs (True) or eager."""
+    from port_bench import traffic
+
+    from neural_graph_mapping_tpu_torch.mapping import engine
+
+    maps = []
+    for g in graphed:
+        ngm = engine.NeuralGraphMap(cfg, "cuda", draws=traffic.SeededDraws(11, cfg, "cuda") if draws else None)
+        assert ngm._graphs is not None
+        if not g:
+            ngm._graphs = None
+        maps.append(ngm)
+    return maps
+
+
+def _state(ngm):
+    return {**{f"p.{k}": v for k, v in ngm._params.items()}, **{f"m.{k}": v for k, v in ngm._adam.m.items()},
+            **{f"v.{k}": v for k, v in ngm._adam.v.items()}, "steps": ngm._adam.steps,
+            "ti": ngm._map_arrays.training_iterations}
+
+
+def _synthetic():
+    from test_torch_tracing import DS_CFG
+
+    from neural_graph_mapping_tpu_torch.datasets.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(DS_CFG)
+    ds.load_slam_results()
+    return ds, DS_CFG["num_frames"]
+
+
+@pytest.mark.parametrize("draws", [True, False], ids=["draw_source", "generator"])
+@pytest.mark.parametrize("mode", ["multi_view", "single_view"])
+def test_captured_iterations_equal_eager_ones_from_the_same_state(cuda, mode, draws):
+    """One iteration a frame, 12 frames: before each, the eager map takes the
+    captured map's parameters, Adam state and counts; both then train the
+    frame from the same state and draws (the generator's own, drawn inside
+    the graphs, or a DrawSource's). The losses are equal bit for bit: the
+    first iteration of a key is eager, the second records, the rest replay,
+    through a capacity growth. The forward has no float atomics. Each frame
+    counts the same kernel launches on both maps (``permuto_cuda.LAUNCHES``:
+    a recording adds none, a replay the kernels it runs)."""
+    from test_torch_tracing import tiny_config
+
+    from neural_graph_mapping_tpu_torch.ops import permuto_cuda
+
+    ds, frames = _synthetic()
+    cfg = tiny_config(update_mode=mode, num_iterations_per_frame=1)
+    captured, eager = _graph_test_maps(cfg, draws, [True, False])
+    caps = set()
+
+    def step(ngm, f, rgbd):
+        before = dict(permuto_cuda.LAUNCHES)
+        losses = ngm.process_frame(ds, f, rgbd)
+        return losses, {k: n - before[k] for k, n in permuto_cuda.LAUNCHES.items()}
+
+    for f in range(frames):
+        for k, v in _state(eager).items():
+            v.copy_(_state(captured)[k])
+        rgbd = torch.from_numpy(ds[f]["rgbd"]).cuda()
+        (got, got_launches), (want, want_launches) = step(captured, f, rgbd), step(eager, f, rgbd)
+        assert got == want, f
+        assert got_launches == want_launches, f
+        assert want_launches["encode_fwd"] == (1 if want else 0), f
+        caps.add(captured.capacity)
+    assert len(caps) >= 2 and captured._graphs._segments is not None
+
+
+def _gap(a: dict, b: dict) -> float:
+    """The widest relative gap of norms over the state's tensors."""
+    return max(float((a[k].double() - b[k].double()).norm() / b[k].double().norm().clamp_min(1e-30)) for k in a)
+
+
+@pytest.mark.parametrize("draws", [True, False], ids=["draw_source", "generator"])
+@pytest.mark.parametrize("mode", ["multi_view", "single_view"])
+def test_captured_run_stays_within_the_eager_run_to_run_gap(cuda, mode, draws):
+    """12 frames of two iterations on three maps of one seed: one captured,
+    two eager. ``encode_bwd_table`` adds with float atomics, so two eager runs
+    part too; the captured run's losses, parameters and Adam moments part
+    from an eager run by no more than 10 times the eager pair's gap (1e-5
+    relative at least), and the training counts are equal."""
+    from test_torch_tracing import tiny_config
+
+    ds, frames = _synthetic()
+    cfg = tiny_config(update_mode=mode)
+    runs = _graph_test_maps(cfg, draws, [True, False, False])
+    losses = [[] for _ in runs]
+    for f in range(frames):
+        rgbd = torch.from_numpy(ds[f]["rgbd"]).cuda()
+        for m, out in zip(runs, losses):
+            out.append(torch.tensor(list(m.process_frame(ds, f, rgbd).values()), dtype=torch.float64))
+    assert runs[0].capacity > 64
+    series = [{"losses": torch.stack(out)} for out in losses]
+    states = [_state(m) for m in runs]
+    assert torch.equal(states[0].pop("ti"), states[1].pop("ti"))
+    states[2].pop("ti")
+    for got, ref, other in (series, states):
+        assert _gap(got, ref) <= max(10 * _gap(other, ref), 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["multi_view", "single_view"])
+def test_warm_captured_frame_syncs_only_for_the_losses(cuda, mode):
+    """A frame after the graphs are recorded (no keyframe, no growth), its
+    RGB-D already on the card as the prefetcher hands it: under sync debug
+    mode "warn" the whole process_frame waits for the device once, in the
+    losses' copy."""
+    import warnings
+
+    from test_torch_tracing import tiny_config
+
+    ds, _ = _synthetic()
+    (ngm,) = _graph_test_maps(tiny_config(update_mode=mode), False, [True])
+    for f in range(3):
+        ngm.process_frame(ds, f, torch.from_numpy(ds[f]["rgbd"]).cuda())
+    assert ngm._graphs._segments is not None and not ds.is_keyframe(3)
+    cap, rgbd = ngm.capacity, torch.from_numpy(ds[3]["rgbd"]).cuda()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses = ngm.process_frame(ds, 3, rgbd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert ngm.capacity == cap and losses
+    assert len(syncs) == 1 and syncs[0].startswith("engine.py:"), syncs
+
+
+@pytest.mark.parametrize("zeros", [0.0, 0.01, 0.3])
+def test_cumprod_backward_equals_torch_on_the_card(cuda, zeros):
+    """The quadrature's cumulative product (ops/quadrature.cumprod) on the
+    card: the same gradient as ``CumprodBackward0`` bit for bit, at a
+    training iteration's shape, with a share of exact zeros."""
+    from neural_graph_mapping_tpu_torch.ops import quadrature
+
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.rand((32, 512, 23), generator=gen, device=cuda)
+    x[torch.rand(x.shape, generator=gen, device=cuda) < zeros] = 0.0
+    g = torch.randn(x.shape, generator=gen, device=cuda)
+    ours, ref = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(quadrature.cumprod(ours), ours, g)
+    (want,) = torch.autograd.grad(torch.cumprod(ref, dim=-1), ref, g)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

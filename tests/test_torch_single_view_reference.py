@@ -194,3 +194,59 @@ def test_single_view_frame_step_makes_no_host_sync_outside_the_shared_core(cuda)
     ngm._frame_step = strict
     losses = ngm.process_frame(ds, 2, ds[2]["rgbd"])
     assert losses and all(np.isfinite(v) for v in losses.values())
+
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_graphed_single_view_sampler_matches_the_plain_reference(monkeypatch, device):
+    """The sampler as the frame step replays it from its pre graph
+    (``mapping/frame_graphs.py``), held against the reference as
+    ``sv_compare`` holds the eager sampler: after each replayed iteration,
+    the graph's targets against the reference's draw on the same cache,
+    map, active mask and draws (a DrawSource's). A graph hands out no view,
+    so the view is the reference's own choice; a wrong one shows in the
+    pixels' RGB-D. On the CPU the graphs are the eager stand-in of
+    ``test_torch_frame_graphs``."""
+    from test_torch_frame_graphs import _EagerRecord, _map
+
+    from neural_graph_mapping_tpu_torch.mapping import frame_graphs
+    from port_bench import traffic
+
+    cfg = tiny_config(update_mode="single_view")
+    if device == "cpu":
+        monkeypatch.setattr(frame_graphs.FrameGraphs, "_record", lambda self, fn, warm=True, draws=False: _EagerRecord(fn))
+        ngm = _map(cfg, True, True)
+    else:
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        from neural_graph_mapping_tpu_torch.ops import cuda_build
+
+        cuda_build.load_all()
+        ngm = engine.NeuralGraphMap(cfg, "cuda", draws=traffic.SeededDraws(13, cfg, "cuda"))
+    assert ngm._graphs is not None
+    ds = SyntheticDataset(DS_CFG)
+    ds.load_slam_results()
+    records = []
+    real = frame_graphs.FrameGraphs._iteration
+
+    def held(self, i, draws, camera, params, adam, arrays, cache):
+        replayed = self._segments is not None or self._iter_warm
+        it = {"iter_idx": i, "draws": draws, "map_positions": arrays.positions.clone(),
+              "active_mask": self._fixed["mask"].clone(),
+              **dict(zip(("cache_rgb", "cache_depth", "cache_c2w", "cache_valid"), [t.clone() for t in cache]))}
+        out = real(self, i, draws, camera, params, adam, arrays, cache)
+        if replayed:
+            slot = ref.choose_view(it["cache_valid"], draws.slot_gumbel, i)
+            view, view_c2w = ref.view_of(it["cache_rgb"], it["cache_depth"], it["cache_c2w"], slot)
+            call = {"camera": camera, "field_radius": self._fset.field_radius,
+                    "num_train_fields": self._num_train_fields, "num_rays_per_field": self._loss_cfg.num_rays_per_field,
+                    "cloud_idx": draws.cloud_idx, "u_fields": draws.u_fields, "u_rays": draws.u_rays,
+                    "rgbd_image": view, "c2w": view_c2w}
+            records.append(sv_compare.held_against_reference(it, call, self._segments.pre.outputs.target))
+        return out
+
+    monkeypatch.setattr(frame_graphs.FrameGraphs, "_iteration", held)
+    for f in range(DS_CFG["num_frames"]):
+        ngm.process_frame(ds, f, torch.as_tensor(ds[f]["rgbd"]).to(ngm._device))
+    assert len(records) >= 10 and any(r["slots_valid"] for r in records)
+    assert all(sv_compare.passed(r) for r in records), [r for r in records if not sv_compare.passed(r)]

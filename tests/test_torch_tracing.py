@@ -270,7 +270,9 @@ def test_input_spans_sit_on_the_worker_thread(traced_run):
     worker = {e["tid"] for e in reads}
     assert len(worker) == 1 and main not in worker
     assert all(any(_inside(d, r) for r in reads) for d in ev["ngm.input.decode"])
-    assert set(counters) == {"render.pairs_valid", "render.lanes_encoded", "render.lanes_mlp"}
+    # the CPU trains eagerly: iterations counted, none from graphs
+    assert set(counters) == {"render.pairs_valid", "render.lanes_encoded", "render.lanes_mlp", "step.iterations"}
+    assert counters["step.iterations"] == 3 * 2
 
 
 SV_SPANS = ("ngm.iter.sv_cloud", "ngm.iter.sv_count", "ngm.iter.sv_rays")
@@ -600,8 +602,10 @@ READERS = {
     "block_host_ms.render": ("images", 1e3 * 600e-6 / 3),
     "sv_sample_ms.train": ("sv_frames", 1e3 * 2 * (20 + 20 + 100 + 40) * 1e-6 / 2),
     "sv_slot_yield_pct.train": ("sv_frames", 100 * 50 / 64),
+    "graph_iter_pct.train": ("frames", 100 * 9 / 10),
 }
 SV_COUNTERS = {"sv.slots_valid": 50, "sv.slots": 64, "sv.fields_eligible": 7}
+STEP_COUNTERS = {"step.iterations": 10, "step.graphed": 9}
 
 
 def _hand_render_trace():
@@ -635,9 +639,18 @@ def _reading(tmp_path, monkeypatch, kind, tracer):
 @pytest.mark.parametrize("name", list(READERS))
 def test_each_new_reader_on_a_hand_made_trace(tmp_path, monkeypatch, name):
     kind, want = READERS[name]
-    counters = {"render.pairs_valid": 300, "render.lanes_encoded": 512, "render.lanes_mlp": 1024, **SV_COUNTERS}
+    counters = {"render.pairs_valid": 300, "render.lanes_encoded": 512, "render.lanes_mlp": 1024, **SV_COUNTERS,
+                **STEP_COUNTERS}
     r = _reading(tmp_path, monkeypatch, kind, _FakeTracer(counters=counters))
     assert mf.load_reader(name).read(r) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("counters,want", [({}, None), ({"step.graphed": 3}, None), ({"step.iterations": 8}, 0.0)])
+def test_graph_share_reads_nothing_without_iterations_and_zero_without_graphs(tmp_path, monkeypatch, counters, want):
+    """No iteration counted (a program before the counters): None, no error;
+    iterations and none from graphs: 0."""
+    r = _reading(tmp_path, monkeypatch, "frames", _FakeTracer(counters=counters))
+    assert mf.load_reader("graph_iter_pct.train").read(r) == want
 
 
 @pytest.mark.parametrize("name,missing", [("sv_sample_ms.train", "frames"), ("sv_sample_ms.train", "ngm.iter.sv_rays"),
@@ -698,15 +711,18 @@ def cuda():
 
 
 def _kernels_launched(monkeypatch, dataset, mode, what):
-    """Kernels a tiny map's second frame (or a render) launches under a
-    CUDA profiler, the tracer following it (``mode``) or held off."""
+    """Kernels a tiny map's third frame (or a render) launches under a
+    CUDA profiler, the tracer following it (``mode``) or held off. The
+    first two frames record the frame step's CUDA graphs, so the third
+    replays them."""
     monkeypatch.setattr(profiling, "tracing_on", _TRACING_ON if mode else (lambda: False))
     ngm = engine.NeuralGraphMap(tiny_config(), "cuda")
-    ngm.process_frame(dataset, 0, dataset[0]["rgbd"])
+    for f in range(2):
+        ngm.process_frame(dataset, f, dataset[f]["rgbd"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if what == "frames":
-            ngm.process_frame(dataset, 1, dataset[1]["rgbd"])
+            ngm.process_frame(dataset, 2, dataset[2]["rgbd"])
         else:
             ngm.render_image(dataset[1]["c2w"], dataset.camera.scaled_camera(0.4))
         torch.cuda.synchronize()
@@ -718,6 +734,9 @@ def _kernels_launched(monkeypatch, dataset, mode, what):
 @pytest.mark.gpu
 @pytest.mark.parametrize("what", ["frames", "render"])
 def test_on_the_card_spans_launch_no_kernel(monkeypatch, cuda, dataset, what):
+    # the process's first profiled frame also records 19 of CUDA's own copy
+    # kernels (memcpy32_post) beside the replayed graphs; later ones do not
+    _kernels_launched(monkeypatch, dataset, False, what)
     off, off_names = _kernels_launched(monkeypatch, dataset, False, what)
     on, on_names = _kernels_launched(monkeypatch, dataset, True, what)
     assert not any(n.startswith("ngm.") for n in off_names)

@@ -14,6 +14,21 @@ from that view's depth cloud (``sampling.sample_target_sv``). Host side: the
 pose graph, keyframe slot registry and kf->fields index, as in the JAX
 package.
 
+The frame step is written once. Its stages are functions here: the
+iteration's targets (:func:`mv_target`, :func:`sv_target`), the gather of
+the target fields (:func:`gather_targets`), their ray samples
+(:func:`ray_samples`), the loss and its gradients (:func:`loss_and_grads`),
+Adam and the training counts (:func:`adam_step`), and the observed-field
+test (:func:`observed_fields`). :func:`frame_step` is the one frame loop
+(cache writes, draws, the observed test or the single view's active mask,
+the iterations), and the two scans share one iteration loop
+(``_iterations``). A map's ``_graphs`` (set once, from
+``frame_graphs.supported``) selects per stage: None runs each eagerly, a
+``frame_graphs.FrameGraphs`` replays the observed test and each iteration
+from CUDA graphs recorded from these same stage functions, on the card for
+an unsharded map on the unfused encode. Setting it to None switches a map
+to eager.
+
 Randomness comes from ``torch.Generator``s on the engine's device; every
 ported function also takes its draws as optional tensors
 (:class:`IterationDraws`), and a map takes one optional :class:`DrawSource`
@@ -38,7 +53,9 @@ draws field init, render jitter and the single-view iterations (JAX feeds
 its single-view scan from ``_next_key()``); ``_frame_gen`` (JAX's
 ``_base_key`` folded with the frame counter) draws the multi-view frame
 programs and field allocation. So a render between frames moves later
-single-view draws, in both packages, and never multi-view ones.
+single-view draws, in both packages, and never multi-view ones. The map's
+``_step_generator`` says which one a frame step draws from (none under a
+DrawSource), for both of its paths.
 
 Field-axis sharding (config key ``num_field_shards: W``, a process group of
 W ranks, ``parallel/sharding.py``): ``_params`` and ``_adam`` hold this
@@ -54,6 +71,7 @@ evaluates on ``sharding.gather_field_tensors``' full copy.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import time
@@ -309,26 +327,60 @@ def compute_losses_sharded(
     return (local if target is not None else None), loss_dict
 
 
+def gather_targets(fset: NeuralFieldSet, params: dict, map_positions, map_orientations, target: sampling.Target):
+    """The target fields' parameters, positions and orientations, each with
+    leading axis F -> (sub_params, sub_positions, sub_orientations)."""
+    ids = target.field_ids
+    return fset.gather_fields(params, ids), map_positions[ids], map_orientations[ids]
+
+
+def ray_samples(fset: NeuralFieldSet, camera, rcfg: render.RenderConfig, target: sampling.Target, sub_positions,
+                sub_orientations, draws: IterationDraws, generator: Optional[torch.Generator]):
+    """The target rays' samples (``render.sample_rays``) -> (the samples,
+    their coordinates in each target field's frame, 3 x (F, R*S))."""
+    samples = render.sample_rays(camera, target, rcfg, draws.u_coarse, draws.u_guided, generator)
+    return samples, fset.world_to_local_soa(samples.points, sub_positions, sub_orientations)
+
+
+def _predict(fset: NeuralFieldSet, camera, rcfg: render.RenderConfig, sub_params: dict, sub_positions,
+             sub_orientations, target: sampling.Target, draws: IterationDraws,
+             generator: Optional[torch.Generator], cut: Optional[tuple] = None):
+    """The target rays rendered through the gathered fields -> (the leaves
+    the loss is differentiated by, the prediction); ``cut``: see
+    :func:`loss_and_grads`."""
+    if cut is None:
+        samples, coords = ray_samples(fset, camera, rcfg, target, sub_positions, sub_orientations, draws, generator)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
+        outs = fset.prototype.apply_fm_soa(leaves, coords)  # (F, 4, R*S)
+    else:
+        samples, encoded = cut
+        leaves = {k: v.detach().requires_grad_(True) for k, v in {**sub_params, "enc.table": encoded}.items()}
+        outs = fset.prototype.mlp_fm(leaves, leaves["enc.table"])
+    return leaves, render.composite(leaves, target, samples, outs, rcfg)
+
+
 def loss_and_grads(
     fset: NeuralFieldSet,
     camera,
     rcfg: render.RenderConfig,
     loss_cfg: LossConfig,
     sub_params: dict,
-    sub_positions: torch.Tensor,
-    sub_orientations: torch.Tensor,
+    sub_positions: Optional[torch.Tensor],
+    sub_orientations: Optional[torch.Tensor],
     target: sampling.Target,
     draws: IterationDraws = IterationDraws(),
     generator: Optional[torch.Generator] = None,
+    cut: Optional[tuple] = None,
 ):
     """Render the target's rays through the gathered fields, take the losses
-    and their gradients w.r.t. ``sub_params`` -> (loss_dict, grads)."""
+    and their gradients w.r.t. ``sub_params`` -> (loss_dict, grads).
+    ``cut``: a graphed iteration's (ray samples, encoded features at them),
+    from its pre graph and the eager ``encode_fwd`` (``frame_graphs``): the
+    fields' MLP runs from those features, the poses are not read, and the
+    gradient under ``enc.table`` is d loss / d the features."""
     with profiling.span("ngm.iter.render"):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
-        pred = render.render_rays_vmap(
-            fset, leaves, sub_positions, sub_orientations, camera, target, rcfg,
-            draws.u_coarse, draws.u_guided, generator,
-        )
+        leaves, pred = _predict(fset, camera, rcfg, sub_params, sub_positions, sub_orientations, target, draws,
+                                generator, cut)
     with profiling.span("ngm.iter.loss"):
         combined, loss_dict = compute_losses(loss_cfg, rcfg, target, pred)
     with profiling.span("ngm.iter.backward"):
@@ -341,6 +393,14 @@ def _grads(loss: torch.Tensor, leaves: dict) -> dict:
     names = list(leaves)
     grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
     return {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(names, grads)}
+
+
+def adam_step(ocfg: optimizer.AdamConfig, params: dict, adam: optimizer.AdamState, training_iterations,
+              target: sampling.Target, grads: dict, sub_params: dict) -> None:
+    """Per-field Adam on the target fields (``optimizer.adam_slice_update``)
+    and their training counts, in place."""
+    optimizer.adam_slice_update(ocfg, params, adam, target.field_ids, target.field_valid, grads, sub_params)
+    training_iterations.index_add_(0, target.field_ids, target.field_valid.to(training_iterations.dtype))
 
 
 def _sharded_iteration_core(
@@ -364,7 +424,10 @@ def _sharded_iteration_core(
     rank's (replicated). The render's draws are taken at full size, as one
     rank draws them, then this rank renders and steps Adam on the targets
     it owns; the losses span every rank's (:func:`compute_losses_sharded`).
-    One host sync: the count of owned targets."""
+    One host sync: the count of owned targets. Adam and the training counts
+    are its own lines, not :func:`adam_step`: Adam steps the owned targets'
+    local rows, and the counts take every rank's targets, also where this
+    rank owns none."""
     f, r = target.near_distances.shape
     dev = target.rgbds.device
     u_coarse, u_guided = draws.u_coarse, draws.u_guided
@@ -379,11 +442,9 @@ def _sharded_iteration_core(
         local = sampling.Target(*(x.index_select(0, slots) for x in target))
         rows = sharding.global_to_local(local.field_ids, shard)
         sub_params = fset.gather_fields(params, rows)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in sub_params.items()}
-        pred = render.render_rays_vmap(
-            fset, leaves, map_positions[local.field_ids], map_orientations[local.field_ids], camera, local,
-            rcfg, u_coarse[slots], None if u_guided is None else u_guided[slots],
-        )
+        local_draws = IterationDraws(u_coarse=u_coarse[slots], u_guided=None if u_guided is None else u_guided[slots])
+        leaves, pred = _predict(fset, camera, rcfg, sub_params, map_positions[local.field_ids],
+                                map_orientations[local.field_ids], local, local_draws, None)
         loss, loss_dict = compute_losses_sharded(loss_cfg, rcfg, local, pred, f * r, shard, dev)
         optimizer.adam_slice_update(
             ocfg, params, adam, rows, local.field_valid, _grads(loss, leaves), sub_params
@@ -410,8 +471,9 @@ def _optimization_iteration_core(
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
 ):
-    """Render + losses + per-field Adam for a pre-built target. Updates
-    ``params``, ``adam`` and ``training_iterations`` in place. With
+    """Render + losses + per-field Adam for a pre-built target: the stages
+    :func:`gather_targets`, :func:`loss_and_grads`, :func:`adam_step`.
+    Updates ``params``, ``adam`` and ``training_iterations`` in place. With
     ``shard``, :func:`_sharded_iteration_core`."""
     if shard is not None:
         return _sharded_iteration_core(
@@ -419,20 +481,15 @@ def _optimization_iteration_core(
             map_orientations, target, draws, generator, shard,
         )
     with profiling.span("ngm.iter.gather"):
-        sub_params = fset.gather_fields(params, target.field_ids)
-        sub_positions = map_positions[target.field_ids]
-        sub_orientations = map_orientations[target.field_ids]
+        sub_params, sub_positions, sub_orientations = gather_targets(
+            fset, params, map_positions, map_orientations, target
+        )
     loss_dict, grads = loss_and_grads(
         fset, camera, rcfg, loss_cfg, sub_params, sub_positions, sub_orientations,
         target, draws, generator,
     )
     with profiling.span("ngm.iter.adam"):
-        optimizer.adam_slice_update(
-            ocfg, params, adam, target.field_ids, target.field_valid, grads, sub_params
-        )
-        training_iterations.index_add_(
-            0, target.field_ids, target.field_valid.to(training_iterations.dtype)
-        )
+        adam_step(ocfg, params, adam, training_iterations, target, grads, sub_params)
     return params, adam, training_iterations, loss_dict
 
 
@@ -506,6 +563,23 @@ def mv_target(
         )
 
 
+def _iterations(num_iters: int, iteration_draws, graphs, camera, maps: tuple, step, targets, inputs) -> dict:
+    """The loop of both scans; ``maps`` = (params, adam, training_iterations,
+    map positions, orientations, the keyframe cache), all updated in place.
+    Iteration i is ``step(i, draws)``, the eager iteration, which returns its
+    loss dict; or, given ``graphs`` (a :class:`frame_graphs.FrameGraphs`),
+    the engine's stages replayed from CUDA graphs around ``targets(buffers,
+    draws, generator)``, the iteration's target stage over the graphs'
+    buffers of ``inputs(i)``. -> the last iteration's loss dict."""
+    loss_dict = {}
+    for i in range(num_iters):
+        profiling.count("step.iterations")
+        draws = iteration_draws[i] if iteration_draws else IterationDraws()
+        eager = functools.partial(step, i, draws)
+        loss_dict = eager() if graphs is None else graphs.iteration(camera, maps, targets, inputs(i), draws, eager)
+    return loss_dict
+
+
 def optimization_iterations_scan(
     fset: NeuralFieldSet,
     camera,
@@ -528,21 +602,29 @@ def optimization_iterations_scan(
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
     iteration_draws: Optional[Sequence[IterationDraws]] = None,
+    graphs=None,
 ):
-    """``num_iters`` iterations, each resampling its targets (iteration i
-    from ``iteration_draws[i]`` where given); returns the last iteration's
-    loss dict with the updated state. No host syncs (sharded: one an
-    iteration)."""
-    loss_dict = {}
-    for i in range(num_iters):
-        profiling.count("step.iterations")
-        params, adam, training_iterations, loss_dict = optimization_iteration(
-            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam,
-            training_iterations, map_positions, map_orientations, allocated_mask,
-            observed_mask, cache_rgb, cache_depth, cache_c2w, cache_valid,
-            draws=iteration_draws[i] if iteration_draws else IterationDraws(),
-            generator=generator, shard=shard,
-        )
+    """``num_iters`` iterations (:func:`optimization_iteration`), each
+    resampling its targets (iteration i from ``iteration_draws[i]`` where
+    given), eagerly or from ``graphs`` (:func:`_iterations`); returns the
+    state, updated in place, and the last iteration's loss dict. No host
+    syncs (sharded: one an iteration)."""
+    cache = (cache_rgb, cache_depth, cache_c2w, cache_valid)
+
+    def step(i, draws):
+        return optimization_iteration(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, params, adam, training_iterations,
+            map_positions, map_orientations, allocated_mask, observed_mask, *cache,
+            draws=draws, generator=generator, shard=shard,
+        )[3]
+
+    def targets(inputs, draws, gen):
+        return mv_target(fset, camera, loss_cfg, num_train_fields, map_positions, inputs["allocated"],
+                         inputs["mask"], *cache, draws, gen)
+
+    maps = (params, adam, training_iterations, map_positions, map_orientations, cache)
+    loss_dict = _iterations(num_iters, iteration_draws, graphs, camera, maps, step, targets,
+                            lambda i: {"allocated": allocated_mask, "mask": observed_mask})
     return params, adam, training_iterations, loss_dict
 
 
@@ -569,52 +651,44 @@ def optimization_iteration_sv(
     shard: Optional[sharding.FieldGroup] = None,
 ):
     """One single-view optimization iteration (the body of the JAX
-    package's ``optimization_iterations_scan_sv``): odd iterations train on
-    the current frame (slot 0) if it is valid, the others on a random valid
-    keyframe slot other than 0; targets from that view's depth cloud
-    (``sampling.sample_target_sv``); then render, losses and Adam as in the
-    multi-view iteration. Returns (params, adam, training_iterations,
-    loss_dict). No host sync."""
-    slot = sv_slot(cache_valid, iter_idx % 2 != 0, draws.slot_gumbel, generator)
-    with profiling.span("ngm.iter.sample"):
-        view, view_c2w = sv_view(cache_rgb, cache_depth, cache_c2w, slot)
-        target = sampling.sample_target_sv(
-            camera, view, view_c2w, map_positions, active_mask,
-            fset.field_radius, num_train_fields, loss_cfg.num_rays_per_field,
-            cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=generator,
-        )
+    package's ``optimization_iterations_scan_sv``): :func:`sv_target`, then
+    render, losses and Adam as in the multi-view iteration. Returns
+    (params, adam, training_iterations, loss_dict). No host sync."""
+    target = sv_target(
+        fset, camera, loss_cfg, num_train_fields, map_positions, active_mask, iter_idx % 2 != 0, cache_rgb,
+        cache_depth, cache_c2w, cache_valid, draws, generator,
+    )
     return _optimization_iteration_core(
         fset, camera, rcfg, ocfg, loss_cfg, params, adam, training_iterations,
         map_positions, map_orientations, target, draws, generator, shard,
     )
 
 
-def sv_slot(
-    cache_valid: torch.Tensor,
-    odd,  # Python bool or 0-d bool tensor: the iteration's parity
-    slot_gumbel: Optional[torch.Tensor],
-    generator: Optional[torch.Generator],
-) -> torch.Tensor:
-    """A single-view iteration's cache slot (1,): the current frame (slot 0)
-    on odd iterations if it is valid, else a random valid keyframe slot
-    other than 0. A span ``ngm.iter.select``."""
+def sv_target(fset: NeuralFieldSet, camera, loss_cfg: LossConfig, num_train_fields: int, map_positions,
+              active_mask, odd, cache_rgb, cache_depth, cache_c2w, cache_valid, draws: IterationDraws,
+              generator: Optional[torch.Generator]) -> sampling.Target:
+    """A single-view iteration's targets. Its view (span ``ngm.iter.select``):
+    the current frame (slot 0) where ``odd`` (a Python bool or a 0-d bool
+    tensor: the iteration's parity) and it is valid, else a random valid
+    keyframe slot other than 0. Then that view's RGB-D gathered (span
+    ``ngm.iter.sv_cloud``: the sampler draws its cloud next) and its targets
+    from its depth cloud against the active fields (``sampling.sample_target_sv``)."""
     with profiling.span("ngm.iter.select"):
+        slot_gumbel = draws.slot_gumbel
         if slot_gumbel is None:
             slot_gumbel = sampling.gumbel_noise(cache_valid.shape, generator, cache_valid.device)
         others = torch.cat([torch.zeros_like(cache_valid[:1]), cache_valid[1:]])
         random_slot = torch.argmax(slot_gumbel + torch.where(others, 0.0, -torch.inf))
-        use_current = cache_valid[0] & odd
-        return torch.where(use_current, 0, random_slot).reshape(1)
-
-
-def sv_view(cache_rgb: torch.Tensor, cache_depth: torch.Tensor, cache_c2w: torch.Tensor, slot: torch.Tensor):
-    """The cached view in ``slot`` -> (its RGB-D (H, W, 4), its c2w (4, 4)).
-    A span ``ngm.iter.sv_cloud``: the sampler draws the view's cloud next."""
-    with profiling.span("ngm.iter.sv_cloud"):
-        rgbd = torch.cat(
-            [cache_rgb.index_select(0, slot)[0].float(), cache_depth.index_select(0, slot)[0][..., None]], dim=-1
+        slot = torch.where(cache_valid[0] & odd, 0, random_slot).reshape(1)
+    with profiling.span("ngm.iter.sample"):
+        with profiling.span("ngm.iter.sv_cloud"):
+            view = torch.cat([cache_rgb.index_select(0, slot)[0].float(),
+                              cache_depth.index_select(0, slot)[0][..., None]], dim=-1)
+        return sampling.sample_target_sv(
+            camera, view, cache_c2w.index_select(0, slot)[0], map_positions, active_mask, fset.field_radius,
+            num_train_fields, loss_cfg.num_rays_per_field, cloud_idx=draws.cloud_idx, u_fields=draws.u_fields,
+            u_rays=draws.u_rays, generator=generator,
         )
-    return rgbd, cache_c2w.index_select(0, slot)[0]
 
 
 def optimization_iterations_scan_sv(
@@ -638,21 +712,28 @@ def optimization_iterations_scan_sv(
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
     iteration_draws: Optional[Sequence[IterationDraws]] = None,
+    graphs=None,
 ):
     """``num_iters`` single-view iterations (:func:`optimization_iteration_sv`,
     iteration i choosing its view by i's parity, from ``iteration_draws[i]``
-    where given); returns the last iteration's loss dict with the updated
-    state. No host syncs (sharded: one an iteration)."""
-    loss_dict = {}
-    for i in range(num_iters):
-        profiling.count("step.iterations")
-        params, adam, training_iterations, loss_dict = optimization_iteration_sv(
-            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam,
-            training_iterations, map_positions, map_orientations, active_mask,
-            cache_rgb, cache_depth, cache_c2w, cache_valid,
-            draws=iteration_draws[i] if iteration_draws else IterationDraws(),
-            generator=generator, shard=shard,
-        )
+    where given), eagerly or from ``graphs`` (:func:`_iterations`); returns
+    the state, updated in place, and the last iteration's loss dict. No host
+    syncs (sharded: one an iteration)."""
+    cache = (cache_rgb, cache_depth, cache_c2w, cache_valid)
+
+    def step(i, draws):
+        return optimization_iteration_sv(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, i, params, adam, training_iterations,
+            map_positions, map_orientations, active_mask, *cache, draws=draws, generator=generator, shard=shard,
+        )[3]
+
+    def targets(inputs, draws, gen):
+        return sv_target(fset, camera, loss_cfg, num_train_fields, map_positions, inputs["mask"], inputs["odd"],
+                         *cache, draws, gen)
+
+    maps = (params, adam, training_iterations, map_positions, map_orientations, cache)
+    loss_dict = _iterations(num_iters, iteration_draws, graphs, camera, maps, step, targets,
+                            lambda i: {"mask": active_mask, "odd": i % 2 != 0})
     return params, adam, training_iterations, loss_dict
 
 
@@ -667,6 +748,22 @@ def write_cache(cache_rgb, cache_depth, rgbd, write_current: bool, kf_slot: int)
     if kf_slot >= 0:
         cache_rgb[kf_slot] = rgb
         cache_depth[kf_slot] = depth
+
+
+def observed_fields(fset: NeuralFieldSet, camera, depth, c2w, map_positions, allocated_mask,
+                    gumbel: Optional[torch.Tensor], generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The frame's observed-field test (``sampling.observed_fields_mask``)
+    on its depth (H, W) and pose -> (N_cap,) bool."""
+    return sampling.observed_fields_mask(camera, depth, c2w, map_positions, allocated_mask, fset.field_radius,
+                                         gumbel=gumbel, generator=generator)
+
+
+def draw_shapes(rcfg: render.RenderConfig, loss_cfg: LossConfig, num_train_fields: int, map_positions,
+                cache_depth) -> DrawShapes:
+    """The sizes of a frame's draws, from the map's capacity and cache."""
+    num_slots, height, width = cache_depth.shape
+    return DrawShapes(map_positions.shape[0], num_train_fields, loss_cfg.num_rays_per_field, num_slots,
+                      rcfg.num_samples_coarse, rcfg.num_samples_depth_guided, height, width)
 
 
 def frame_step(
@@ -694,26 +791,49 @@ def frame_step(
     kf_slot: int,  # < 0 -> not a keyframe
     generator: Optional[torch.Generator] = None,
     shard: Optional[sharding.FieldGroup] = None,
-    observed_gumbel: Optional[torch.Tensor] = None,  # (500, H*W)
-    iteration_draws: Optional[Sequence[IterationDraws]] = None,
+    draws: Optional[DrawSource] = None,
+    frame_counter: int = 0,
+    active_mask: Optional[torch.Tensor] = None,  # (N_cap,) single view: the BFS-active fields
+    graphs=None,
 ):
-    """One frame: keyframe-cache writes (in place), the observed-field test,
-    and all optimization iterations; draws not given come from
-    ``generator``."""
+    """One frame: keyframe-cache writes (in place); the frame's draws from
+    ``draws``, a :class:`DrawSource` called with ``frame_counter``, where
+    given, else each from ``generator``; then the observed-field test and
+    the multi-view iterations over it, or, given ``active_mask``, the
+    single-view iterations over those fields; iterations where
+    ``has_fields``. ``graphs``: a :class:`frame_graphs.FrameGraphs` whose
+    CUDA graphs the observed test and each iteration replay; None: eagerly.
+    -> (params, adam, training_iterations, cache_rgb, cache_depth, the
+    observed mask or None, the last iteration's loss dict)."""
+    single_view = active_mask is not None
+    cache = (cache_rgb, cache_depth, cache_c2w, cache_valid)
     with profiling.span("ngm.frame.cache_write"):
         write_cache(cache_rgb, cache_depth, rgbd, write_current, kf_slot)
-    with profiling.span("ngm.frame.observed"):
-        observed = sampling.observed_fields_mask(
-            camera, rgbd[..., 3], c2w, map_positions, allocated_mask, fset.field_radius,
-            gumbel=observed_gumbel, generator=generator,
-        )
+    observed_gumbel = iteration_draws = observed = None
+    if draws is not None and (has_fields or not single_view):
+        with profiling.span("ngm.frame.draws"):
+            shapes = draw_shapes(rcfg, loss_cfg, num_train_fields, map_positions, cache_depth)
+            if single_view:
+                iteration_draws = draws.single_view(num_iters, shapes, cache_depth, cache_valid)
+            else:
+                observed_gumbel = draws.observed_gumbel(frame_counter, shapes, sampling.OBSERVED_NUM_POINTS)
+                if has_fields:
+                    iteration_draws = draws.multi_view(frame_counter, num_iters, shapes)
+    if not single_view:
+        with profiling.span("ngm.frame.observed"):
+            if graphs is None:
+                observed = observed_fields(fset, camera, rgbd[..., 3], c2w, map_positions, allocated_mask,
+                                           observed_gumbel, generator)
+            else:
+                maps = (params, adam, training_iterations, map_positions, map_orientations, cache)
+                observed = graphs.observed(camera, maps, rgbd[..., 3], c2w, allocated_mask, observed_gumbel)
     loss_dict = {}
     if has_fields:
-        params, adam, training_iterations, loss_dict = optimization_iterations_scan(
-            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, num_iters,
-            params, adam, training_iterations, map_positions, map_orientations,
-            allocated_mask, observed, cache_rgb, cache_depth, cache_c2w,
-            cache_valid, generator, shard, iteration_draws,
+        scan = optimization_iterations_scan_sv if single_view else optimization_iterations_scan
+        masks = (active_mask,) if single_view else (allocated_mask, observed)
+        params, adam, training_iterations, loss_dict = scan(
+            fset, camera, rcfg, ocfg, loss_cfg, num_train_fields, num_iters, params, adam, training_iterations,
+            map_positions, map_orientations, *masks, *cache, generator, shard, iteration_draws, graphs,
         )
     return params, adam, training_iterations, cache_rgb, cache_depth, observed, loss_dict
 
@@ -1090,18 +1210,26 @@ class NeuralGraphMap:
         self._frame_gen = torch.Generator(self._device).manual_seed(self._seed + 1)
         self._frame_counter = 0
 
+    @property
+    def _step_generator(self) -> Optional[torch.Generator]:
+        """The generator the frame step draws from, eager or graphed: none
+        under a DrawSource, which gives every draw; else, as the JAX engine's
+        keys, ``_init_gen`` in single view (JAX feeds its single-view scan
+        from ``_next_key()``) and ``_frame_gen`` in multi-view."""
+        if self._draws is not None:
+            return None
+        return self._init_gen if self._update_mode == "single_view" else self._frame_gen
+
     def _frame_graphs(self):
         """The frame step's CUDA graphs (:mod:`frame_graphs`), or None where
         the map trains eagerly: on the CPU, sharded, on the ``fused_mlp``
         route, with fields the encode cut does not take."""
         from neural_graph_mapping_tpu_torch.mapping import frame_graphs
 
-        single_view = self._update_mode == "single_view"
-        gen = None if self._draws is not None else (self._init_gen if single_view else self._frame_gen)
+        gen = self._step_generator
         if not frame_graphs.supported(self._fset, self._device, self._shard, gen):
             return None
-        return frame_graphs.FrameGraphs(self._fset, self._rcfg, self._ocfg, self._loss_cfg, self._num_train_fields,
-                                        single_view, gen, self._device)
+        return frame_graphs.FrameGraphs(self._fset, self._rcfg, self._ocfg, self._loss_cfg, gen, self._device)
 
     def _field_group(self, group: Optional[sharding.FieldGroup]) -> Optional[sharding.FieldGroup]:
         """The group the field axis is split over, None unsharded."""
@@ -1205,11 +1333,8 @@ class NeuralGraphMap:
         return self._fset.init_fields(num_fields, self._init_gen, self._device)
 
     def _draw_shapes(self) -> DrawShapes:
-        return DrawShapes(
-            self.capacity, self._num_train_fields, self._loss_cfg.num_rays_per_field, self._num_kf_slots,
-            self._rcfg.num_samples_coarse, self._rcfg.num_samples_depth_guided,
-            self._cache_depth.shape[1], self._cache_depth.shape[2],
-        )
+        return draw_shapes(self._rcfg, self._loss_cfg, self._num_train_fields, self._map_arrays.positions,
+                           self._cache_depth)
 
     def _own_rows(self, tree: dict) -> dict:
         """This rank's rows of a full stacked-field dict (all of it unsharded)."""
@@ -1468,107 +1593,19 @@ class NeuralGraphMap:
 
     def _frame_step(self, frame_id: int, rgbd, c2w, kf_slot: int, write_current: bool,
                     allocated: torch.Tensor) -> dict:
-        """The frame's device program (the multi-view ``frame_step`` or the
-        single-view iterations; replayed from CUDA graphs where
-        :mod:`frame_graphs` takes the map and fields train) -> the last
-        iteration's loss dict."""
-        graphed = self._graphs is not None and self._num_fields > 0
-        if self._update_mode == "multi_view":
-            observed_gumbel = iteration_draws = None
-            if self._draws is not None:
-                with profiling.span("ngm.frame.draws"):
-                    shapes = self._draw_shapes()
-                    observed_gumbel = self._draws.observed_gumbel(
-                        self._frame_counter, shapes, sampling.OBSERVED_NUM_POINTS
-                    )
-                    if self._num_fields > 0:
-                        iteration_draws = self._draws.multi_view(
-                            self._frame_counter, self._num_iterations_per_frame, shapes
-                        )
-            if graphed:
-                with profiling.span("ngm.frame.cache_write"):
-                    write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
-                self._observed_mask, loss_dict = self._graphed_iterations(
-                    allocated, rgbd=rgbd, c2w=c2w, observed_gumbel=observed_gumbel, iteration_draws=iteration_draws,
-                )
-                return loss_dict
-            # the training counts, cache and map change in place
-            self._params, self._adam, _, _, _, self._observed_mask, loss_dict = frame_step(
-                self._fset,
-                self._camera,
-                self._rcfg,
-                self._ocfg,
-                self._loss_cfg,
-                self._num_train_fields,
-                self._num_iterations_per_frame,
-                write_current,
-                self._num_fields > 0,
-                self._params,
-                self._adam,
-                self._map_arrays.training_iterations,
-                self._map_arrays.positions,
-                self._map_arrays.orientations,
-                allocated,
-                self._cache_rgb,
-                self._cache_depth,
-                self._cache_c2w_dev,
-                self._cache_valid_dev,
-                rgbd,
-                c2w,
-                kf_slot,
-                self._frame_gen,
-                self._shard,
-                observed_gumbel,
-                iteration_draws,
-            )
-            return loss_dict
-        # single_view
-        with profiling.span("ngm.frame.cache_write"):
-            write_cache(self._cache_rgb, self._cache_depth, rgbd, write_current, kf_slot)
-        if self._num_fields == 0:
-            return {}
-        active_mask = self._active_mask(frame_id)
-        iteration_draws = None
-        if self._draws is not None:
-            with profiling.span("ngm.frame.draws"):
-                iteration_draws = self._draws.single_view(
-                    self._num_iterations_per_frame, self._draw_shapes(), self._cache_depth,
-                    self._cache_valid_dev,
-                )
-        if graphed:
-            return self._graphed_iterations(allocated, active=active_mask, iteration_draws=iteration_draws)[1]
-        self._params, self._adam, _, loss_dict = optimization_iterations_scan_sv(
-            self._fset,
-            self._camera,
-            self._rcfg,
-            self._ocfg,
-            self._loss_cfg,
-            self._num_train_fields,
-            self._num_iterations_per_frame,
-            self._params,
-            self._adam,
-            self._map_arrays.training_iterations,
-            self._map_arrays.positions,
-            self._map_arrays.orientations,
-            active_mask,
-            self._cache_rgb,
-            self._cache_depth,
-            self._cache_c2w_dev,
-            self._cache_valid_dev,
-            self._init_gen,  # JAX: self._next_key(), the init / render stream
-            self._shard,
-            iteration_draws,
+        """The frame's device program, :func:`frame_step`, whose observed
+        test and iterations replay from ``self._graphs`` where the map has
+        graphs (None: eagerly) -> the last iteration's loss dict."""
+        active = self._active_mask(frame_id) if self._update_mode == "single_view" else None
+        # the training counts, cache and map change in place
+        self._params, self._adam, _, _, _, self._observed_mask, loss_dict = frame_step(
+            self._fset, self._camera, self._rcfg, self._ocfg, self._loss_cfg, self._num_train_fields,
+            self._num_iterations_per_frame, write_current, self._num_fields > 0, self._params, self._adam,
+            self._map_arrays.training_iterations, self._map_arrays.positions, self._map_arrays.orientations,
+            allocated, self._cache_rgb, self._cache_depth, self._cache_c2w_dev, self._cache_valid_dev, rgbd, c2w,
+            kf_slot, self._step_generator, self._shard, self._draws, self._frame_counter, active, self._graphs,
         )
         return loss_dict
-
-    def _graphed_iterations(self, allocated: torch.Tensor, **frame_inputs):
-        """The frame's observed test (multi-view) and iterations through
-        ``self._graphs`` -> (the observed mask or None, the loss dict)."""
-        return self._graphs.frame(
-            camera=self._camera, params=self._params, adam=self._adam, arrays=self._map_arrays,
-            cache=(self._cache_rgb, self._cache_depth, self._cache_c2w_dev, self._cache_valid_dev),
-            allocated=allocated, num_iters=self._num_iterations_per_frame, **frame_inputs,
-        )
 
     def _allocate_new_fields(self, frame_id, depth, c2w, kf_slot) -> None:
         active_ids = self._active_field_ids(frame_id)

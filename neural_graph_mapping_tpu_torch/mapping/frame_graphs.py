@@ -1,42 +1,45 @@
-"""The frame step's device work replayed from CUDA graphs.
+"""The frame step's stages replayed from CUDA graphs.
 
-One training iteration of :mod:`engine` (``optimization_iteration`` or
-``optimization_iteration_sv``, unsharded) launches some 750 kernels, and the
-host's enqueue of them, not the device, set the pace of a trained frame.
-Here each iteration is cut where it calls the hand-written encode kernels,
-which stay eager Python calls (their shape-based routing, and what a caller
-that wraps them sees, stay as they are); the stretches between them are
-CUDA graphs, recorded once and replayed with one launch each:
+:mod:`engine` writes the frame step once: ``frame_step``, and the loop the
+two scans share (``_iterations``). A map's ``_graphs`` selects how each of
+its stages runs: None, eagerly; a :class:`FrameGraphs`, from CUDA graphs of
+the engine's own stage functions. One unsharded iteration launches some 750
+kernels, and the host's enqueue of them, not the device, set the pace of a
+trained frame. So an iteration is cut where it calls the hand-written
+encode kernels, which stay eager Python calls (their shape-based routing,
+and what a caller that wraps them sees, stay as they are); the stretches
+between them are graphs, recorded once and replayed with one launch each:
 
-- ``pre``: the targets (multi-view: field selection and
-  ``sampling.sample_target_mv``; single view: the view and
-  ``sampling.sample_target_sv``), the target fields' parameters and poses
-  gathered, the ray samples and their field-local coordinates (F, 3, P);
+- ``pre``: the iteration's target stage as the engine's loop hands it over
+  (``engine.mv_target`` or ``engine.sv_target`` over this object's
+  buffers), ``engine.gather_targets`` and ``engine.ray_samples``: the
+  targets, the target fields' parameters and poses, the ray samples and
+  their field-local coordinates, stacked (F, 3, P);
 - ``permuto_cuda.encode_fwd``, eager;
-- ``post``: the MLP, compositing and the losses, and their backward down to
-  the encoded features and the MLP weights, recorded with autograd in one
-  graph;
+- ``post``: ``engine.loss_and_grads`` from the encoded features (its
+  ``cut``): the MLP, compositing, the losses and their backward down to the
+  features and the MLP weights, recorded with autograd in one graph;
 - ``permuto_cuda.encode_bwd_table`` on that gradient, eager;
-- ``adam``: ``optimizer.adam_slice_update`` and the training counts.
+- ``adam``: ``engine.adam_step``.
 
 The replayed iteration calls the two encode entries itself, where the eager
 one reaches them through autograd (``permuto._EncodeFused``): the same
 calls, without autograd's engine, which would hand the backward to its
 device thread and back each iteration. A multi-view frame's observed-field
-test is a graph of its own.
+test (``engine.observed_fields``) is a graph of its own.
 
 Graphs read and write fixed tensors. The map's tensors (parameters, Adam
 state, poses, training counts, keyframe cache) are updated in place, and
 the frame's other inputs (the allocated mask, the observed or active mask,
-the frame's depth and pose, a :class:`engine.DrawSource`'s draws, the
-single-view parity, the encode's output and the table's gradient) are
-copied into buffers of this object before each replay. The graphs belong
-to a key: the address and shape of every map tensor they touch, which a
-capacity growth or a loaded map changes. A new key drops them with their
-memory; its first iteration (and observed test) runs eagerly, which warms
-every kernel at the new shapes, and the next one records the graphs, whose
-own first replay is that iteration's step, so no Adam step is ever applied
-twice.
+the single-view parity, the frame's depth and pose, a
+:class:`engine.DrawSource`'s draws, the encode's output and the table's
+gradient) are copied into buffers of this object before each replay. The
+graphs belong to a key: the address and shape of every map tensor they
+touch, which a capacity growth or a loaded map changes. A new key drops
+them with their memory; its first iteration (and observed test) runs
+eagerly, through the engine's eager iteration, which warms every kernel at
+the new shapes, and the next one records the graphs, whose own first
+replay is that iteration's step, so no Adam step is ever applied twice.
 
 Generator draws are drawn inside the graphs: each graph that draws
 registers the map's generator (``CUDAGraph.register_generator_state``), so
@@ -45,19 +48,21 @@ recording draws nothing. Captures run on a side stream of this object in
 the thread-local capture mode, so that the frame prefetcher's thread may
 allocate and copy while one is underway.
 
-A recording launches nothing, and a replay calls no kernel wrapper: each
-graph takes back what its recording added to ``permuto_cuda.LAUNCHES`` and
-adds it again at every replay, so the counts stay those of the kernels run.
+A recording launches nothing, and a replay calls no kernel wrapper and no
+counter: each graph takes back what its recording added to
+``permuto_cuda.LAUNCHES`` and adds it again at every replay, so the counts
+stay those of the kernels run, and adds the tracer's counters its
+recording kept (the single-view sampler's) at every replay while tracing.
 """
 
 from __future__ import annotations
 
 import gc
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from neural_graph_mapping_tpu_torch.mapping import engine, optimizer, render, sampling
+from neural_graph_mapping_tpu_torch.mapping import engine, render, sampling
 from neural_graph_mapping_tpu_torch.ops import permuto_cuda
 from neural_graph_mapping_tpu_torch.ops.encodings import PermutohedralEncoding
 from neural_graph_mapping_tpu_torch.utils import profiling
@@ -86,18 +91,20 @@ class _Capture:
     :meth:`replay` rewrites. Python's garbage collector is held off while
     recording: a graph it destroyed meanwhile (another map's, dropped in a
     reference cycle) would end the recording. ``pool``: the memory pool it
-    shares with the other graphs of its key. ``launches``: the counted
-    kernels each replay runs (module docstring)."""
+    shares with the other graphs of its key. ``launches`` and ``counts``:
+    the counted kernels and the tracer's counters of each replay (module
+    docstring)."""
 
     def __init__(self, fn, stream, pool, generator: Optional[torch.Generator] = None) -> None:
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
         before = dict(permuto_cuda.LAUNCHES)
+        self.counts: list = []
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), profiling.collected_counts(self.counts):
                 self.graph.capture_begin(pool, capture_error_mode="thread_local")
                 try:
                     self.outputs = fn()
@@ -119,6 +126,9 @@ class _Capture:
         self.graph.replay()
         for k, n in self.launches.items():
             permuto_cuda.LAUNCHES[k] += n
+        if profiling.tracing_on():  # device values cloned: the next replay rewrites them
+            for name, value in self.counts:
+                profiling.count(name, value.clone() if isinstance(value, torch.Tensor) else value)
 
 
 class _Pre(NamedTuple):
@@ -128,7 +138,6 @@ class _Pre(NamedTuple):
     sub_params: dict  # the target fields' parameters (F, ...)
     samples: render.RaySamples
     coords: torch.Tensor  # (F, 3, R*S) field-local sample coordinates
-    stats: tuple  # single view: (target slots filled, eligible fields), 0-d
 
 
 class _Segments(NamedTuple):
@@ -138,20 +147,20 @@ class _Segments(NamedTuple):
 
     pre: _Capture
     enc: torch.Tensor  # the encode's output, copied in before the post graph
-    post: _Capture  # -> (loss terms, d loss / d enc, {MLP key: gradient or None})
+    post: _Capture  # -> (loss terms, d loss / d enc, {MLP key: gradient})
     grads: dict  # the Adam graph's gradients: the table's copied in, the MLP's from post
     adam: _Capture
 
 
 class FrameGraphs:
-    """The graphs of one map's frame step (module docstring). The map calls
-    :meth:`frame` for each frame that trains fields."""
+    """The graphs of one map's frame step (module docstring). The engine's
+    frame loop calls :meth:`observed` for a multi-view frame's test and
+    :meth:`iteration` for each iteration; ``maps`` is then (params, adam,
+    training counts, positions, orientations, (cache RGB, depth, c2w,
+    valid)), the map tensors that make the key."""
 
-    def __init__(self, fset, rcfg, ocfg, loss_cfg, num_train_fields: int, single_view: bool,
-                 generator: Optional[torch.Generator], device) -> None:
+    def __init__(self, fset, rcfg, ocfg, loss_cfg, generator: Optional[torch.Generator], device) -> None:
         self._fset, self._rcfg, self._ocfg, self._loss_cfg = fset, rcfg, ocfg, loss_cfg
-        self._num_train_fields = num_train_fields
-        self._single_view = single_view
         self._gen = generator  # None: every draw comes from a DrawSource
         self._device = torch.device(device)
         self._stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
@@ -170,13 +179,17 @@ class FrameGraphs:
         self._pool = torch.cuda.graph_pool_handle() if self._device.type == "cuda" else None
         self._iter_warm = self._observed_warm = False
         self._fixed: dict = {}  # the frame's inputs, copied in before each replay
+        self._sources: dict = {}  # the tensor last copied into each of them
         self._draws: dict = {}  # the iteration's draws, copied in before each replay
 
-    @staticmethod
-    def _key_of(camera, params, adam, arrays, cache) -> tuple:
-        tensors = [*params.values(), *adam.m.values(), *adam.v.values(), adam.steps, arrays.positions,
-                   arrays.orientations, arrays.training_iterations, *cache]
-        return (id(camera),) + tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+    def _bind(self, camera, maps: tuple) -> None:
+        """A new key where ``maps`` are not the tensors of the last one."""
+        params, adam, ti, positions, orientations, cache = maps
+        tensors = [*params.values(), *adam.m.values(), *adam.v.values(), adam.steps, ti, positions, orientations,
+                   *cache]
+        key = (id(camera),) + tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+        if key != self._key:
+            self._reset(key)
 
     @staticmethod
     def _copy_in(store: dict, name: str, value: torch.Tensor) -> torch.Tensor:
@@ -187,28 +200,34 @@ class FrameGraphs:
             buf = store[name] = torch.empty_like(value, memory_format=torch.contiguous_format)
         return buf.copy_(value)
 
-    def _fixed_copy(self, name: str, value: torch.Tensor) -> torch.Tensor:
+    def _fixed_copy(self, name: str, value) -> torch.Tensor:
+        """A frame input into its buffer -> the buffer. A Python bool fills a
+        0-d one. A tensor is copied unless it is the buffer or the tensor
+        last copied there: the engine hands each of a frame's iterations the
+        frame's masks, new tensors each frame that nothing changes in place."""
+        buf = self._fixed.get(name)
+        if isinstance(value, bool):
+            if buf is None:
+                buf = self._fixed[name] = torch.zeros((), dtype=torch.bool, device=self._device)
+            return buf.fill_(value)
+        if value is buf or value is self._sources.get(name):
+            return buf
+        self._sources[name] = value
         return self._copy_in(self._fixed, name, value)
-
-    def _fixed_draws(self, draws: engine.IterationDraws) -> engine.IterationDraws:
-        """A DrawSource's draws copied into this key's buffers -> the buffers
-        (None where the source gives none)."""
-        return engine.IterationDraws(**{name: self._copy_in(self._draws, name, value)
-                                        for name, value in draws._asdict().items() if value is not None})
 
     def _record(self, fn, warm: bool = True, draws: bool = False) -> _Capture:
         """``fn`` recorded into a graph on the capture stream, the map's
         generator registered where ``fn`` ``draws``; with ``warm`` run once
         there first, the generator's state kept (a warm-up draws nothing that
-        the step would). Only an ``fn`` that writes nothing outside its own
-        outputs, and launches no counted kernel, may be warmed: a warm-up is
-        no step."""
+        the step would) and its counters dropped. Only an ``fn`` that writes
+        nothing outside its own outputs, and launches no counted kernel, may
+        be warmed: a warm-up is no step."""
         stream = self._stream
         gen = self._gen if draws else None
         stream.wait_stream(torch.cuda.current_stream())
         if warm:
             state = None if gen is None else gen.get_state()
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), profiling.collected_counts([]):
                 fn()
             if state is not None:
                 gen.set_state(state)
@@ -216,164 +235,91 @@ class FrameGraphs:
         torch.cuda.current_stream().wait_stream(stream)
         return captured
 
-    # -- one frame ------------------------------------------------------------
-
-    def frame(self, *, camera, params: dict, adam: optimizer.AdamState, arrays, cache: tuple,
-              allocated: torch.Tensor, num_iters: int, rgbd=None, c2w=None, observed_gumbel=None,
-              active=None, iteration_draws=None):
-        """One frame's observed-field test (multi-view) and ``num_iters``
-        iterations; ``cache`` is (rgb, depth, c2w, valid), ``active`` the
-        single view's active-field mask. Updates the map in place -> (the
-        observed mask or None, the last iteration's loss dict)."""
-        key = self._key_of(camera, params, adam, arrays, cache)
-        if key != self._key:
-            self._reset(key)
-        self._fixed_copy("allocated", allocated)
-        observed = None
-        if self._single_view:
-            self._fixed_copy("mask", active)
-        else:
-            with profiling.span("ngm.frame.observed"):
-                observed = self._observed_test(camera, arrays.positions, rgbd, c2w, observed_gumbel)
-        loss_dict = {}
-        for i in range(num_iters):
-            draws = iteration_draws[i] if iteration_draws else engine.IterationDraws()
-            loss_dict = self._iteration(i, draws, camera, params, adam, arrays, cache)
-        return observed, loss_dict
-
-    def _observed_test(self, camera, positions, rgbd, c2w, gumbel) -> torch.Tensor:
-        """The frame's observed-field test into the buffer ``mask``, which
-        the pre graph reads -> that buffer."""
-        fixed = self._fixed
+    def observed(self, camera, maps: tuple, depth, c2w, allocated, gumbel) -> torch.Tensor:
+        """The frame's observed-field test (``engine.observed_fields``) into
+        the buffer ``mask``, an iteration's input of that name: a new key's
+        first test eagerly, its second recorded, later ones replayed -> that
+        buffer."""
+        self._bind(camera, maps)
+        fset, positions, gen = self._fset, maps[3], self._gen
         if self._observed is None and not self._observed_warm:
-            observed = sampling.observed_fields_mask(
-                camera, rgbd[..., 3], c2w, positions, fixed["allocated"], self._fset.field_radius,
-                gumbel=gumbel, generator=self._gen,
-            )
             self._observed_warm = True
-            return self._fixed_copy("mask", observed)
-        depth = self._fixed_copy("depth", rgbd[..., 3])
-        pose = self._fixed_copy("c2w", c2w)
-        noise = None if gumbel is None else self._fixed_copy("gumbel", gumbel)
-        mask = fixed["mask"]  # the warm frame's test made it
+            return self._fixed_copy("mask", engine.observed_fields(fset, camera, depth, c2w, positions, allocated,
+                                                                   gumbel, gen))
+        depth, c2w = self._fixed_copy("depth", depth), self._fixed_copy("c2w", c2w)
+        allocated = self._fixed_copy("allocated", allocated)
+        gumbel = None if gumbel is None else self._copy_in(self._draws, "gumbel", gumbel)  # a draw: always
+        mask = self._fixed["mask"]  # the warm frame's test made it
         if self._observed is None:
-            def test():
-                mask.copy_(sampling.observed_fields_mask(
-                    camera, depth, pose, positions, fixed["allocated"], self._fset.field_radius,
-                    gumbel=noise, generator=self._gen,
-                ))
-
-            self._observed = self._record(test, draws=True)
+            self._observed = self._record(lambda: mask.copy_(engine.observed_fields(
+                fset, camera, depth, c2w, positions, allocated, gumbel, gen)), draws=True)
         self._observed.replay()
         return mask
 
-    # -- one iteration ----------------------------------------------------------
-
-    def _iteration(self, i: int, draws, camera, params, adam, arrays, cache) -> dict:
-        profiling.count("step.iterations")
+    def iteration(self, camera, maps: tuple, targets: Callable, inputs: dict, draws: engine.IterationDraws,
+                  eager: Callable[[], dict]) -> dict:
+        """One iteration: a new key's first through ``eager()``, the engine's
+        eager iteration; its second recorded; later ones replayed.
+        ``targets(buffers, draws, generator)``: the iteration's target stage
+        over this object's buffers of ``inputs`` -> the loss dict."""
+        self._bind(camera, maps)
         if self._segments is None and not self._iter_warm:
             self._iter_warm = True
-            return self._eager_iteration(i, draws, camera, params, adam, arrays, cache)
+            return eager()
+        params, adam, ti, positions, orientations, _ = maps
+        seg = self._segments
         with profiling.span("ngm.iter.sample"):
-            fixed_draws = self._fixed_draws(draws)
-            if self._single_view:
-                odd = self._fixed.get("odd")
-                if odd is None:
-                    odd = self._fixed["odd"] = torch.zeros((), dtype=torch.bool, device=self._device)
-                odd.fill_(i % 2 != 0)
-            if self._segments is None:
+            fixed = {name: self._fixed_copy(name, value) for name, value in inputs.items()}
+            fixed_draws = engine.IterationDraws(**{name: self._copy_in(self._draws, name, value)
+                                                   for name, value in draws._asdict().items() if value is not None})
+            if seg is None:
                 # not warmed: the key's eager iteration ran its kernels, batched_gather among them
-                pre = self._record(lambda: self._pre(camera, params, arrays, cache, fixed_draws), warm=False,
-                                   draws=True)
+                pre = self._record(lambda: self._pre(camera, targets, fixed, fixed_draws, params, positions,
+                                                     orientations), warm=False, draws=True)
             else:
-                pre = self._segments.pre
+                pre = seg.pre
             pre.replay()
         out: _Pre = pre.outputs
-        if self._single_view and profiling.tracing_on():  # the sampler's counters, from the graph's outputs
-            profiling.count("sv.slots_valid", out.stats[0].clone())
-            profiling.count("sv.slots", self._num_train_fields)
-            profiling.count("sv.fields_eligible", out.stats[1].clone())
         with profiling.span("ngm.iter.render"):
             enc = self._enc.fused_forward(out.sub_params["enc.table"], out.coords)
-            if self._segments is None:
+            if seg is None:
                 enc_in = enc.clone()
-                post = self._record(lambda: self._post(out, enc_in))
+                post = self._record(lambda: self._post(camera, out, enc_in))
             else:
-                enc_in, post = self._segments.enc, self._segments.post
+                enc_in, post = seg.enc, seg.post
                 enc_in.copy_(enc)
             post.replay()
             values, grad_enc, mlp_grads = post.outputs
         with profiling.span("ngm.iter.backward"):
             table_grad = self._enc.fused_table_grad(out.coords, grad_enc)
         with profiling.span("ngm.iter.adam"):
-            if self._segments is None:
+            if seg is None:
                 grads = {"enc.table": table_grad.clone(), **mlp_grads}
-                step = self._record(lambda: self._adam(params, adam, arrays, out, grads), warm=False)
-                self._segments = _Segments(pre, enc_in, post, grads, step)
+                step = self._record(lambda: engine.adam_step(self._ocfg, params, adam, ti, out.target, grads,
+                                                             out.sub_params), warm=False)
+                seg = self._segments = _Segments(pre, enc_in, post, grads, step)
             else:
-                self._segments.grads["enc.table"].copy_(table_grad)
-            self._segments.adam.replay()
+                seg.grads["enc.table"].copy_(table_grad)
+            seg.adam.replay()
         profiling.count("step.graphed")
         return dict(zip(self._loss_keys, values.unbind(0)))
 
-    def _eager_iteration(self, i, draws, camera, params, adam, arrays, cache) -> dict:
-        """The iteration through the engine's eager code (a new key's first)."""
-        fixed = self._fixed
-        common = (self._fset, camera, self._rcfg, self._ocfg, self._loss_cfg, self._num_train_fields)
-        if self._single_view:
-            _, _, _, loss_dict = engine.optimization_iteration_sv(
-                *common, i, params, adam, arrays.training_iterations, arrays.positions, arrays.orientations,
-                fixed["mask"], *cache, draws=draws, generator=self._gen,
-            )
-        else:
-            _, _, _, loss_dict = engine.optimization_iteration(
-                *common, params, adam, arrays.training_iterations, arrays.positions, arrays.orientations,
-                fixed["allocated"], fixed["mask"], *cache, draws=draws, generator=self._gen,
-            )
-        return loss_dict
+    # -- what the graphs record ------------------------------------------------
 
-    # -- the segments (what the graphs record) ------------------------------------
+    def _pre(self, camera, targets, fixed: dict, draws, params, positions, orientations) -> _Pre:
+        fset, gen = self._fset, self._gen
+        target = targets(fixed, draws, gen)
+        sub_params, sub_positions, sub_orientations = engine.gather_targets(fset, params, positions, orientations,
+                                                                            target)
+        samples, coords = engine.ray_samples(fset, camera, self._rcfg, target, sub_positions, sub_orientations,
+                                             draws, gen)
+        return _Pre(target, sub_params, samples, torch.stack(coords, dim=-2).contiguous())
 
-    def _pre(self, camera, params, arrays, cache, draws) -> _Pre:
-        fset, fixed, gen = self._fset, self._fixed, self._gen
-        cache_rgb, cache_depth, cache_c2w, cache_valid = cache
-        stats = ()
-        if self._single_view:
-            slot = engine.sv_slot(cache_valid, fixed["odd"], draws.slot_gumbel, gen)
-            view, view_c2w = engine.sv_view(cache_rgb, cache_depth, cache_c2w, slot)
-            target, eligible = sampling.sample_target_sv_eligible(
-                camera, view, view_c2w, arrays.positions, fixed["mask"], fset.field_radius,
-                self._num_train_fields, self._loss_cfg.num_rays_per_field,
-                cloud_idx=draws.cloud_idx, u_fields=draws.u_fields, u_rays=draws.u_rays, generator=gen,
-            )
-            stats = (target.field_valid.sum(), eligible.sum())
-        else:
-            target = engine.mv_target(
-                fset, camera, self._loss_cfg, self._num_train_fields, arrays.positions, fixed["allocated"],
-                fixed["mask"], *cache, draws, gen,
-            )
-        ids = target.field_ids
-        sub_params = fset.gather_fields(params, ids)
-        samples = render.sample_rays(camera, target, self._rcfg, draws.u_coarse, draws.u_guided, gen)
-        local = fset.world_to_local_soa(samples.points, arrays.positions[ids], arrays.orientations[ids])
-        return _Pre(target, sub_params, samples, torch.stack(local, dim=-2).contiguous(), stats)
-
-    def _post(self, pre: _Pre, enc: torch.Tensor) -> tuple:
-        """MLP, compositing and losses from the encoded features, and their
-        backward -> (every loss term stacked, in the eager loss dict's order;
-        d loss / d enc; {MLP key: its gradient, zeros where the loss does not
-        reach it})."""
-        enc = enc.detach().requires_grad_(True)
-        mlp = {k: v.detach().requires_grad_(True) for k, v in pre.sub_params.items() if k != "enc.table"}
-        outs = self._fset.prototype.mlp_fm(mlp, enc)
-        pred = render.composite(mlp, pre.target, pre.samples, outs, self._rcfg)
-        combined, loss_dict = engine.compute_losses(self._loss_cfg, self._rcfg, pre.target, pred)
+    def _post(self, camera, pre: _Pre, enc: torch.Tensor) -> tuple:
+        """The loss stage from the encoded features -> (every loss term
+        stacked, in the eager loss dict's order; d loss / d enc; {MLP key:
+        its gradient, zeros where the loss does not reach it})."""
+        loss_dict, grads = engine.loss_and_grads(self._fset, camera, self._rcfg, self._loss_cfg, pre.sub_params,
+                                                 None, None, pre.target, cut=(pre.samples, enc))
         self._loss_keys = list(loss_dict)
-        grads = engine._grads(combined, {**mlp, "enc.table": enc})  # that key: d loss / d enc
-        return torch.stack([v.detach() for v in loss_dict.values()]), grads.pop("enc.table"), grads
-
-    def _adam(self, params, adam, arrays, pre: _Pre, grads: dict) -> None:
-        target, ti = pre.target, arrays.training_iterations
-        optimizer.adam_slice_update(self._ocfg, params, adam, target.field_ids, target.field_valid, grads,
-                                    pre.sub_params)
-        ti.index_add_(0, target.field_ids, target.field_valid.to(ti.dtype))
+        return torch.stack(list(loss_dict.values())), grads.pop("enc.table"), grads

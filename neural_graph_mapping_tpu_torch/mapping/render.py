@@ -1,6 +1,7 @@
 """Ray rendering for training (port of neural_graph_mapping_tpu.mapping.render,
-field-parallel path): stratified coarse plus depth-guided samples, world
-transform, field evaluation, residual masks and quadrature."""
+field-parallel path): stratified coarse plus depth-guided samples and their
+world points, then, from the fields' outputs there (evaluated by the
+engine's stages), residual masks and quadrature."""
 
 from __future__ import annotations
 
@@ -175,23 +176,3 @@ def composite(
         freespace_mask=freespace_mask & fv,
         tsdf_mask=tsdf_mask & fv,
     )
-
-
-def render_rays_vmap(
-    fset,
-    sub_params,
-    field_positions: torch.Tensor,  # (F, 3) world poses of the target fields
-    field_orientations: torch.Tensor,  # (F, 4)
-    camera: Camera,
-    target: Target,
-    cfg: RenderConfig,
-    u_coarse: Optional[torch.Tensor] = None,
-    u_guided: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-) -> Prediction:
-    """Field-parallel training render of the target's rays through the
-    gathered fields ``sub_params`` (leading axis F): :func:`sample_rays`,
-    the fields at the samples, :func:`composite`."""
-    samples = sample_rays(camera, target, cfg, u_coarse, u_guided, generator)
-    outs = fset.apply_vmap_fm_soa(sub_params, samples.points, field_positions, field_orientations)  # (F, 4, R*S)
-    return composite(sub_params, target, samples, outs, cfg)

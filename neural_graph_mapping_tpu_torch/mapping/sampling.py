@@ -303,38 +303,10 @@ def sample_target_sv(
     Spans ``ngm.iter.sv_cloud`` (1 and the centres in the view's frame),
     ``ngm.iter.sv_count`` (2 and the eligibility test) and
     ``ngm.iter.sv_rays`` (3, 4 and the targets); counters ``sv.slots_valid``
-    and ``sv.fields_eligible`` (device) and ``sv.slots`` (host, F a call).
+    and ``sv.fields_eligible`` (device) and ``sv.slots`` (host, F a call),
+    whose sums run only while counters are kept (``profiling.counting``:
+    traced, or in a CUDA graph's recording, which replays them).
     """
-    target, eligible = sample_target_sv_eligible(
-        camera, rgbd_image, c2w, field_positions, active_mask, field_radius, num_train_fields,
-        num_rays_per_field, num_cloud_points, cloud_chunk, cloud_idx, u_fields, u_rays, generator,
-    )
-    if profiling.tracing_on():  # target slots filled against the slots run
-        profiling.count("sv.slots_valid", target.field_valid.sum())
-        profiling.count("sv.slots", num_train_fields)
-        profiling.count("sv.fields_eligible", eligible.sum())
-    return target
-
-
-def sample_target_sv_eligible(
-    camera: Camera,
-    rgbd_image: torch.Tensor,  # (H, W, 4)
-    c2w: torch.Tensor,  # (4, 4)
-    field_positions: torch.Tensor,  # (N_cap, 3)
-    active_mask: torch.Tensor,  # (N_cap,)
-    field_radius: float,
-    num_train_fields: int,
-    num_rays_per_field: int,
-    num_cloud_points: int = 50_000,
-    cloud_chunk: int = 8192,
-    cloud_idx: Optional[torch.Tensor] = None,  # (num_cloud_points,) pixel indices
-    u_fields: Optional[torch.Tensor] = None,  # (N_cap,) Gumbel uniforms
-    u_rays: Optional[torch.Tensor] = None,  # (F, R) ~ U(0, 1)
-    generator: Optional[torch.Generator] = None,
-) -> Tuple[Target, torch.Tensor]:
-    """:func:`sample_target_sv` without its counters -> (the targets, the
-    (N_cap,) mask of eligible fields): the counters' values for a caller
-    that adds them itself (a captured iteration adds its graph's outputs)."""
     f, r = num_train_fields, num_rays_per_field
     dev = rgbd_image.device
     with profiling.span("ngm.iter.sv_cloud"):
@@ -397,4 +369,8 @@ def sample_target_sv_eligible(
             term_probs=depth_mask.float(),
             term_mask=torch.ones_like(depth_mask) & fv,
         )
-    return target, eligible
+    if profiling.counting():  # target slots filled against the slots run
+        profiling.count("sv.slots_valid", target.field_valid.sum())
+        profiling.count("sv.slots", num_train_fields)
+        profiling.count("sv.fields_eligible", eligible.sum())
+    return target

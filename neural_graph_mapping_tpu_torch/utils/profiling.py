@@ -24,7 +24,9 @@ in ``SPANS``, every counter in ``COUNTERS``.
 
 Counters take host numbers, or 0-d device tensors where the value lives on
 the device: those accumulate on the device without a host sync and are read
-once, by :func:`counters`, after the window.
+once, by :func:`counters`, after the window. While a CUDA graph records
+(:func:`collected_counts`), the recording thread's counters are kept, traced
+or not, and the graph adds them again at each replay.
 
 The ``benchmark`` decorator prints a call's wall time, nested calls
 indented, behind its own switch (the ``benchmark`` config key); where the
@@ -100,6 +102,7 @@ MAX_RECORDED_SPANS = 1 << 20
 _lock = threading.Lock()
 _counters: Dict[str, object] = {}
 _recorded: List[tuple] = []  # spans past MAX_RECORDED_SPANS are dropped
+_collecting = threading.local()  # .into: the list a recording's counters go to
 
 
 def tracing_on() -> bool:
@@ -152,9 +155,31 @@ def span(name: str, **ids):
     return _Span(name, ids)
 
 
+def counting() -> bool:
+    """Whether :func:`count` keeps what it is given: while tracing, or while
+    this thread records counters (:func:`collected_counts`)."""
+    return tracing_on() or getattr(_collecting, "into", None) is not None
+
+
+@contextlib.contextmanager
+def collected_counts(into: list):
+    """Within the block, this thread's :func:`count` calls append (name,
+    value) to ``into``, traced or not, and add nothing: a CUDA graph's
+    recording keeps its counters to add them at each replay."""
+    _collecting.into = into
+    try:
+        yield into
+    finally:
+        _collecting.into = None
+
+
 def count(name: str, value=1) -> None:
     """Add ``value`` (a host number or a 0-d device tensor, kept as it is
     given: pass one nothing writes later) to the counter ``name``."""
+    into = getattr(_collecting, "into", None)
+    if into is not None:
+        into.append((name, value))
+        return
     if not tracing_on():
         return
     if isinstance(value, torch.Tensor):

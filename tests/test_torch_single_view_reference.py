@@ -227,25 +227,27 @@ def test_graphed_single_view_sampler_matches_the_plain_reference(monkeypatch, de
     ds = SyntheticDataset(DS_CFG)
     ds.load_slam_results()
     records = []
-    real = frame_graphs.FrameGraphs._iteration
+    real = frame_graphs.FrameGraphs.iteration
 
-    def held(self, i, draws, camera, params, adam, arrays, cache):
+    def held(self, camera, maps, targets, inputs, draws, eager):
+        self._bind(camera, maps)  # a new key drops the graphs before the iteration
         replayed = self._segments is not None or self._iter_warm
-        it = {"iter_idx": i, "draws": draws, "map_positions": arrays.positions.clone(),
-              "active_mask": self._fixed["mask"].clone(),
-              **dict(zip(("cache_rgb", "cache_depth", "cache_c2w", "cache_valid"), [t.clone() for t in cache]))}
-        out = real(self, i, draws, camera, params, adam, arrays, cache)
+        it = {"iter_idx": int(inputs["odd"]), "draws": draws, "map_positions": maps[3].clone(),
+              "active_mask": inputs["mask"].clone(),
+              **dict(zip(("cache_rgb", "cache_depth", "cache_c2w", "cache_valid"), [t.clone() for t in maps[5]]))}
+        out = real(self, camera, maps, targets, inputs, draws, eager)
         if replayed:
-            slot = ref.choose_view(it["cache_valid"], draws.slot_gumbel, i)
+            slot = ref.choose_view(it["cache_valid"], draws.slot_gumbel, it["iter_idx"])
             view, view_c2w = ref.view_of(it["cache_rgb"], it["cache_depth"], it["cache_c2w"], slot)
             call = {"camera": camera, "field_radius": self._fset.field_radius,
-                    "num_train_fields": self._num_train_fields, "num_rays_per_field": self._loss_cfg.num_rays_per_field,
+                    "num_train_fields": cfg["num_train_fields"],
+                    "num_rays_per_field": self._loss_cfg.num_rays_per_field,
                     "cloud_idx": draws.cloud_idx, "u_fields": draws.u_fields, "u_rays": draws.u_rays,
                     "rgbd_image": view, "c2w": view_c2w}
             records.append(sv_compare.held_against_reference(it, call, self._segments.pre.outputs.target))
         return out
 
-    monkeypatch.setattr(frame_graphs.FrameGraphs, "_iteration", held)
+    monkeypatch.setattr(frame_graphs.FrameGraphs, "iteration", held)
     for f in range(DS_CFG["num_frames"]):
         ngm.process_frame(ds, f, torch.as_tensor(ds[f]["rgbd"]).to(ngm._device))
     assert len(records) >= 10 and any(r["slots_valid"] for r in records)

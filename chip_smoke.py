@@ -70,13 +70,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    all 4,194,304 points, with the share of (point, centre) pairs it
    evaluated (each box's surviving centres, counted by the kernel in a
    launch of its own and equal to its plain model's), the two
-   MoE encodes within 1e-5 on 256 live tiles (tables U(-1, 1)), timed;
+   MoE encodes as the render calls them, with the field MLP as their
+   epilogue, against the plain encode + ``permuto_cuda.moe_mlp_plain``
+   within 1e-6 + 1e-5 |plain| on 256 live tiles (tables U(-1, 1)), timed;
    their lines give the block's live tiles, live pairs and field runs and
-   name their device kernel (one body, by point source). ``kernel_variant``
-   lines check and time ``topk2_fields`` at 1,024 centres (the map's slots
-   and seeded centres in its box, as ``benchmarks/scale_sweep.py`` grows a
-   map), both MoE encodes on the same block with tables of T = 16,384, and
-   the carried encode with a field change at every tile.
+   name their device kernel (one body, by point source and epilogue).
+   ``kernel_variant`` lines check and time ``topk2_fields`` at 1,024
+   centres (the map's slots and seeded centres in its box, as
+   ``benchmarks/scale_sweep.py`` grows a map), both MoE encodes storing the
+   features (within 1e-5), both with tables of T = 16,384, and the carried
+   encode with a field change at every tile.
 6. render: ``NeuralGraphMap.render_image`` of frame 11's pose on the trained
    map at 160x120 (PSNR and depth-L1 against the frame, median ms of 5
    renders, each render kernel launched once per block) and at 640x480
@@ -1461,28 +1464,30 @@ def check_render_kernels(torch, engine, permuto_cuda, topk, dispatch, ngm, ds):
     bounds["topk2_fields"] = topk_bound(n_pts, n_cen, evaluated)
     check_topk_many_centres(torch, topk, pts, cen, valid)
 
-    # the MoE encodes on tables U(-1, 1), compared on 256 live tiles
+    # the MoE encodes on tables U(-1, 1), as the render calls them (with the
+    # field MLP as their epilogue), compared on 256 live tiles
     for name, (c_args, c_kw) in (("encode_fwd_moe_rays", (rays_args, rays_kw)),
                                  ("encode_fwd_moe", (moe_args, moe_kw))):
-        kernel = getattr(permuto_cuda, name)
-        plain = getattr(permuto_cuda, name + "_plain")
         tables = torch.rand(c_args[0].shape, generator=gen, device=dev) * 2 - 1
         c_args = (tables,) + tuple(c_args[1:])
         num_live = c_kw["num_live_tiles"]
         live = int(num_live)
         n_tiles, levels = c_args[1].shape[0], tables.shape[2]
         sel = torch.unique(torch.linspace(0, live - 1, min(256, live), device=dev).round().long())
-        err = check_moe(torch, permuto_cuda, name, c_args, c_kw, sel)
-        rows.append((name, err, f"max abs <= 1e-5 on {sel.numel()} live tiles",
-                     measure(torch, lambda: kernel(*c_args, **c_kw),
-                             lambda: plain(*c_args, **c_kw), plain_window=True)))
-        te = c_args[3] if name == "encode_fwd_moe_rays" else c_args[2]
+        err, tol = check_moe(torch, permuto_cuda, name, c_args, c_kw, sel)
+        rows.append((name, err, tol, measure(torch, lambda: getattr(permuto_cuda, name)(*c_args, **c_kw),
+                                             lambda: moe_plain(permuto_cuda, name, c_args, c_kw),
+                                             plain_window=True)))
+        te = c_args[MOE_EXPERTS_AT[name]]
         experts = int(torch.unique(te[:live]).numel())
         pairs = live * permuto_cuda.TILE
-        bounds[name] = moe_bound(name, pairs, experts, levels, tables.shape[3])
+        bounds[name] = moe_bound(name, pairs, experts, levels, tables.shape[3], c_kw.get("mlp"))
         shapes[name] = {"tiles": n_tiles, "live_tiles": live, "pairs": pts.shape[1] * 2,
-                        "live_pairs": live_pairs, "live_fields": experts, **field_runs(torch, te, live)}
-        rows[-1][3].update(device_kernels=[MOE_DEVICE_KERNELS[name]])
+                        "live_pairs": live_pairs, "live_fields": experts, **field_runs(torch, te, live),
+                        **moe_epilogue_shape(c_kw)}
+        rows[-1][3].update(device_kernels=[moe_device_kernel(name, c_kw)])
+        if c_kw.get("mlp") is not None:
+            check_moe_store_features(torch, permuto_cuda, name, c_args, c_kw, sel, shapes[name])
         check_moe_big_tables(torch, permuto_cuda, name, ngm._fset.prototype.encoding, c_args, c_kw, sel,
                              gen, shapes[name])
         if name == "encode_fwd_moe":
@@ -1557,32 +1562,94 @@ def check_topk_many_centres(torch, topk, pts, cen, valid) -> None:
           bound_ms=bound_ms, bound_by=bound_by)
 
 
-# The device kernel of each MoE encode: one body, by point source.
-MOE_DEVICE_KERNELS = {"encode_fwd_moe": "encode_fwd_moe_kernel<CarriedPoints>",
-                      "encode_fwd_moe_rays": "encode_fwd_moe_kernel<RayPoints>"}
+# The device kernel of each MoE encode: one body, by point source and by
+# epilogue (the features stored, or the field MLP run on them).
+MOE_DEVICE_KERNELS = {
+    ("encode_fwd_moe", "features"): "encode_fwd_moe_kernel<CarriedPoints, StoreFeatures>",
+    ("encode_fwd_moe", "mlp"): "encode_fwd_moe_kernel<CarriedPoints, MlpHead>",
+    ("encode_fwd_moe_rays", "features"): "encode_fwd_moe_kernel<RayPoints, StoreFeatures>",
+    ("encode_fwd_moe_rays", "mlp"): "encode_fwd_moe_kernel<RayPoints, MlpHead>",
+}
+# where each MoE encode takes its tile_experts argument
+MOE_EXPERTS_AT = {"encode_fwd_moe": 2, "encode_fwd_moe_rays": 3}
 
 
-def check_moe(torch, permuto_cuda, name: str, args, kw, sel) -> float:
+def moe_device_kernel(name: str, kw) -> str:
+    return MOE_DEVICE_KERNELS[(name, "features" if kw.get("mlp") is None else "mlp")]
+
+
+def moe_epilogue_shape(kw) -> dict:
+    """The epilogue of a MoE encode call, for a row's shape: the features,
+    or the MLP with its hidden and output widths."""
+    mlp = kw.get("mlp")
+    if mlp is None:
+        return {"epilogue": "features"}
+    return {"epilogue": "mlp", "hidden": mlp[0].shape[-1], "out": mlp[2].shape[-1]}
+
+
+def moe_plain(permuto_cuda, name: str, args, kw):
+    """A MoE encode's plain version: the plain encode, then with ``mlp``
+    each tile's field MLP on its features (permuto_cuda.moe_mlp_plain)."""
+    mlp = kw.get("mlp")
+    feats = getattr(permuto_cuda, name + "_plain")(*args, **{k: v for k, v in kw.items() if k != "mlp"})
+    return feats if mlp is None else permuto_cuda.moe_mlp_plain(feats, args[MOE_EXPERTS_AT[name]], mlp)
+
+
+def check_moe(torch, permuto_cuda, name: str, args, kw, sel):
     """A MoE encode (``name``) on a render block's inputs against its plain
-    version on the live tiles ``sel`` -> max abs error; raises above 1e-5."""
+    version (:func:`moe_plain`) on the live tiles ``sel`` -> (max abs error,
+    tolerance). Features within 1e-5 absolute; the MLP epilogue's outputs
+    within 1e-6 + 1e-5 |plain| each (summation order alone). Raises beyond."""
     full = getattr(permuto_cuda, name)(*args, **kw)
     per_tile = (1, 2, 3) if name == "encode_fwd_moe_rays" else (1, 2)  # tile-major inputs
     sub_args = tuple(a[sel].contiguous() if j in per_tile else a for j, a in enumerate(args))
     sub_kw = {k: v for k, v in kw.items() if k != "num_live_tiles"}
-    ref = getattr(permuto_cuda, name + "_plain")(*sub_args, **sub_kw)
-    err = float((full[sel] - ref).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"{name} max abs err {err} > 1e-5 on {sel.numel()} live tiles")
-    return err
+    ref = moe_plain(permuto_cuda, name, sub_args, sub_kw)
+    diff = (full[sel] - ref).abs()
+    err = float(diff.max())
+    if kw.get("mlp") is None:
+        tol, ok = f"max abs <= 1e-5 on {sel.numel()} live tiles", err <= 1e-5
+    else:
+        tol = f"|err| <= 1e-6 + 1e-5 |plain| on {sel.numel()} live tiles"
+        ok = bool((diff <= 1e-6 + 1e-5 * ref.abs()).all())
+    if not ok:
+        rel = float((diff / ref.abs().clamp_min(1e-30)).max())
+        raise AssertionError(f"{name} ({moe_device_kernel(name, kw)}) max abs err {err}, max rel err {rel}: "
+                             f"not {tol}")
+    return err, tol
 
 
-def moe_bound(name: str, pairs: int, experts: int, levels: int, t: int):
+def moe_bound(name: str, pairs: int, experts: int, levels: int, t: int, mlp=None):
     """(least ms, what bounds it) of a MoE encode over ``pairs`` pairs of
     live tiles: their inputs (an index and a distance, or xyz) and the
-    fields' tables in, the features out; the lattice (and the ray rebuild)."""
+    fields' tables in, the features out; the lattice (and the ray rebuild).
+    With the MLP epilogue (``mlp`` = (w0, b0, w1, b1)) the fields' weights
+    come in too, O outputs go out in place of the 2L features, and each
+    pair does 2 (2L H + H O) more operations."""
     rays = name == "encode_fwd_moe_rays"
-    return bound(pairs * (8 if rays else 12) + experts * 2 * levels * t * 4 + pairs * 2 * levels * 4,
-                 pairs * (levels * LATTICE_OPS + (40 if rays else 0)))
+    ops = pairs * (levels * LATTICE_OPS + (40 if rays else 0))
+    n_out, weights = 2 * levels, 0
+    if mlp is not None:
+        h, o = mlp[0].shape[-1], mlp[2].shape[-1]
+        ops += pairs * 2 * (2 * levels * h + h * o)
+        n_out, weights = o, experts * (2 * levels * h + h + h * o + o) * 4
+    return bound(pairs * (8 if rays else 12) + experts * 2 * levels * t * 4 + weights + pairs * n_out * 4, ops)
+
+
+def check_moe_store_features(torch, permuto_cuda, name: str, args, kw, sel, shape) -> None:
+    """Phase kernel_variant: a MoE encode on the render block's inputs as
+    the render calls it but storing the features (no ``mlp``), the other
+    epilogue of the same body, against its plain version on the same live
+    tiles, timed."""
+    f_kw = {k: v for k, v in kw.items() if k != "mlp"}
+    err, tol = check_moe(torch, permuto_cuda, name, args, f_kw, sel)
+    timing = measure(torch, lambda: getattr(permuto_cuda, name)(*args, **f_kw),
+                     lambda: moe_plain(permuto_cuda, name, args, f_kw), plain_window=True)
+    pairs = shape["live_tiles"] * permuto_cuda.TILE
+    bound_ms, bound_by = moe_bound(name, pairs, shape["live_fields"], args[0].shape[2], args[0].shape[3])
+    phase("kernel_variant", name=name, device_kernels=[moe_device_kernel(name, f_kw)],
+          case="the features stored (no MLP epilogue)", tolerance=tol, max_abs_err=err,
+          shape=dict(shape, **moe_epilogue_shape(f_kw)), **timing, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_moe_big_tables(torch, permuto_cuda, name: str, enc, args, kw, sel, gen, shape) -> None:
@@ -1594,14 +1661,14 @@ def check_moe_big_tables(torch, permuto_cuda, name: str, enc, args, kw, sel, gen
     tables = torch.rand(args[0].shape[:3] + (big.capacity,), generator=gen, device=args[0].device) * 2 - 1
     consts_at = 7 if name == "encode_fwd_moe_rays" else 3  # scales, shifts, elev, t_size
     big_args = (tables,) + tuple(args[1:consts_at]) + consts
-    err = check_moe(torch, permuto_cuda, name, big_args, kw, sel)
+    err, tol = check_moe(torch, permuto_cuda, name, big_args, kw, sel)
     timing = measure(torch, lambda: getattr(permuto_cuda, name)(*big_args, **kw),
-                     lambda: getattr(permuto_cuda, name + "_plain")(*big_args, **kw), plain_window=True)
+                     lambda: moe_plain(permuto_cuda, name, big_args, kw), plain_window=True)
     pairs = shape["live_tiles"] * permuto_cuda.TILE
-    bound_ms, bound_by = moe_bound(name, pairs, shape["live_fields"], big.nr_levels, big.capacity)
-    phase("kernel_variant", name=name, device_kernels=[MOE_DEVICE_KERNELS[name]],
-          case=f"tables of log2_hashmap_size 14 (T = {big.capacity})",
-          tolerance=f"max abs <= 1e-5 on {sel.numel()} live tiles", max_abs_err=err,
+    bound_ms, bound_by = moe_bound(name, pairs, shape["live_fields"], big.nr_levels, big.capacity,
+                                   kw.get("mlp"))
+    phase("kernel_variant", name=name, device_kernels=[moe_device_kernel(name, kw)],
+          case=f"tables of log2_hashmap_size 14 (T = {big.capacity})", tolerance=tol, max_abs_err=err,
           shape=dict(shape, table=big.capacity), **timing,
           bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1618,14 +1685,13 @@ def check_moe_field_changes(torch, permuto_cuda, args, kw, sel, shape) -> None:
     fields = torch.unique(te[:live])
     turns = fields[torch.arange(te.shape[0], device=te.device) % fields.numel()].to(torch.int32)
     r_args = (args[0], args[1], turns.contiguous()) + tuple(args[3:])
-    err = check_moe(torch, permuto_cuda, "encode_fwd_moe", r_args, kw, sel)
+    err, tol = check_moe(torch, permuto_cuda, "encode_fwd_moe", r_args, kw, sel)
     timing = measure(torch, lambda: permuto_cuda.encode_fwd_moe(*r_args, **kw),
-                     lambda: permuto_cuda.encode_fwd_moe_plain(*r_args, **kw), plain_window=True)
+                     lambda: moe_plain(permuto_cuda, "encode_fwd_moe", r_args, kw), plain_window=True)
     bound_ms, bound_by = moe_bound("encode_fwd_moe", live * permuto_cuda.TILE, int(fields.numel()),
-                                   args[0].shape[2], args[0].shape[3])
-    phase("kernel_variant", name="encode_fwd_moe", device_kernels=[MOE_DEVICE_KERNELS["encode_fwd_moe"]],
-          case="a field change at every tile",
-          tolerance=f"max abs <= 1e-5 on {sel.numel()} live tiles", max_abs_err=err,
+                                   args[0].shape[2], args[0].shape[3], kw.get("mlp"))
+    phase("kernel_variant", name="encode_fwd_moe", device_kernels=[moe_device_kernel("encode_fwd_moe", kw)],
+          case="a field change at every tile", tolerance=tol, max_abs_err=err,
           shape=dict(shape, field_runs=live, mean_run_tiles=1.0, min_run_tiles=1, max_run_tiles=1),
           **timing, bound_ms=bound_ms, bound_by=bound_by)
 

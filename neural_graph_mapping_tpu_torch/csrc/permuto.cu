@@ -31,6 +31,18 @@ constexpr int kCorners = kDim + 1;  // simplex corners per level
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;  // the card's limit on gridDim.y
 
+// The field MLP of the production shape: D = 2L features -> H hidden units
+// (ReLU) -> O outputs, one hidden layer, no skip. Compile-time maxima (the
+// production widths) keep every per-point vector in registers: loops run
+// over the maxima, fully unrolled, and the shared weights are zero-padded,
+// so padding units add exact zeros. The host entry points refuse larger
+// widths. The fused training route and the render's MoE encode with its
+// MLP epilogue take these widths.
+constexpr int kMlpMaxLevels = 16;
+constexpr int kMlpMaxD = 2 * kMlpMaxLevels;
+constexpr int kMlpMaxH = 32;
+constexpr int kMlpMaxO = 4;
+
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15u) == 0;
 }
@@ -249,24 +261,32 @@ __device__ __forceinline__ const T* opaque(const T* p) {
 }
 
 // One level of one point from one field's feature-major (2, L, T) table,
-// read through L2: o[(2l + f) * stride + p] = sum_k w_k * tab[f, l, idx_k].
-// Feature 1's row is addressed from feature 0's by a 32-bit offset (one
-// address instruction a read).
-__device__ __forceinline__ void encode_level(const float* __restrict__ tab, int T, int L, int l,
-                                             float x, float y, float z, const LevelConsts& c,
-                                             float* __restrict__ o, size_t stride, int p) {
+// read through L2: f_f = sum_k w_k * tab[f, l, idx_k]. Feature 1's row is
+// addressed from feature 0's by a 32-bit offset (one address instruction a
+// read).
+__device__ __forceinline__ void level_features(const float* __restrict__ tab, int T, int L, int l,
+                                               float x, float y, float z, const LevelConsts& c,
+                                               float& acc0, float& acc1) {
   uint32_t idx[kCorners];
   float w[kCorners];
   lattice_level(x, y, z, c, l, idx, w);
   const float* t0 = opaque(tab + (size_t)l * T);
   const uint32_t f1 = (uint32_t)L * (uint32_t)T;
-  float acc0 = 0.0f;
-  float acc1 = 0.0f;
+  acc0 = 0.0f;
+  acc1 = 0.0f;
 #pragma unroll
   for (int k = 0; k < kCorners; ++k) {
     acc0 = acc0 + w[k] * __ldg(t0 + idx[k]);
     acc1 = acc1 + w[k] * __ldg(t0 + (idx[k] + f1));
   }
+}
+
+// level_features stored: o[(2l + f) * stride + p].
+__device__ __forceinline__ void encode_level(const float* __restrict__ tab, int T, int L, int l,
+                                             float x, float y, float z, const LevelConsts& c,
+                                             float* __restrict__ o, size_t stride, int p) {
+  float acc0, acc1;
+  level_features(tab, T, L, l, x, y, z, c, acc0, acc1);
   o[(size_t)(2 * l) * stride + p] = acc0;
   o[(size_t)(2 * l + 1) * stride + p] = acc1;
 }
@@ -788,6 +808,26 @@ __global__ void batched_gather_kernel(const float* __restrict__ values,
 // at every tile the staged design lost 31%, the direct one nothing. The
 // TPU kernel's table DMA per grid step and its 128-lane sweep are not
 // carried over.
+//
+// The kernel is templated too on its epilogue: StoreFeatures writes the
+// (tiles, 2L, kTile) features; MlpHead runs the field's MLP on them and
+// writes (tiles, O, kTile). The render's MLP had been a chain of batched
+// products, bias adds and ReLUs over every tile of the dispatch, each pass
+// writing and reading (tiles, 32, kTile) f32: ~9 GB a render block, bound
+// by bytes at >= 2.8 ms, for 0.25 ms of f32 arithmetic. MlpHead's design:
+// the block copies its field's w0 (transposed, a hidden unit's weights in
+// one row), b0, w1 and b1 into 4.6 KB of shared memory with cp.async while
+// the encode runs; each thread keeps its pair's 2L features in registers
+// (the levels unrolled), then after one barrier streams the hidden units:
+// h_j = relu(b0_j + sum_d w0[d][j] f_d) in fp32 FMAs, added at once into O
+// output registers. Every thread of a warp reads the same shared words, a
+// broadcast. Only the O outputs are written, coalesced. It fits the
+// launch's 64 registers a thread with no spill. In an A/B on an H100 (700
+// W; 9,193 tiles, 7,000 live, 40 fields, random rays) the encode with its
+// MLP took 2.01-2.04 ms, against 5.49-5.51 ms for the feature store (1.35
+// ms) followed by mlp_fm's passes; unrolling the hidden-unit loop 1, 2, 4
+// or 8 times, or two partial sums a unit, all read 2.06-2.14 ms. A 640x480
+// render fell from 341-343 to 232-243 ms (PERF.md §6).
 constexpr int kTile = 1024;  // pairs per tile (permuto_pallas.TILE_M), threads a block
 
 // Launch constants of the ray rebuild (everything but the camera/extrinsics
@@ -870,20 +910,156 @@ struct RayPoints {
   }
 };
 
-template <class Points>
+// Epilogues of the MoE encode: what a block does with its tile's features.
+// run() takes field e's table, the pair's point, tile t and the thread's
+// lane.
+
+// The (tiles, 2L, kTile) features, stored as each level is done.
+struct StoreFeatures {
+  float* out;
+  __device__ __forceinline__ void run(const float* __restrict__ tab, int T, float x, float y, float z,
+                                      const LevelConsts& c, int t, int /*e*/, int lane) const {
+    encode_point(tab, T, x, y, z, c, out + (size_t)t * 2 * c.n_levels * kTile, kTile, lane);
+  }
+};
+
+// 4 bytes global -> shared without a register (cp.async): the copy runs
+// while the thread goes on, until cp_async_wait_all.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The field MLP, out[t, q, lane] = b1[q] + sum_j w1[j][q] relu(b0[j] +
+// sum_d w0[d][j] f[d]), from the stacked per-field weights w0 (N, D, H),
+// b0 (N, H), w1 (N, H, O), b1 (N, O) of field e, D = 2L <= kMlpMaxD,
+// H <= kMlpMaxH, O <= kMlpMaxO, into (tiles, O, kTile).
+struct MlpHead {
+  const float* w0;
+  const float* b0;
+  const float* w1;
+  const float* b1;
+  float* out;
+  int H;
+  int O;
+
+  __device__ __forceinline__ void run(const float* __restrict__ tab, int T, float x, float y, float z,
+                                      const LevelConsts& c, int t, int e, int lane) const {
+    __shared__ __align__(16) float sw0[kMlpMaxH][kMlpMaxD];  // w0 transposed: a unit's row
+    __shared__ __align__(16) float sw1[kMlpMaxH][kMlpMaxO];
+    __shared__ float sb0[kMlpMaxH];
+    __shared__ float sb1[kMlpMaxO];
+    static_assert(kMlpMaxD % 4 == 0 && kMlpMaxO == 4 && kMlpMaxD * kMlpMaxH <= kTile,
+                  "16-byte weight reads, one w0 entry a thread");
+    const int L = c.n_levels;
+    const int D = 2 * L;
+    // field e's weights, zero-padded, copied while the encode runs;
+    // consecutive threads write consecutive words of sw0
+    {
+      const int j = lane / kMlpMaxD;
+      const int d = lane - j * kMlpMaxD;
+      if (d < D && j < H) {
+        cp_async4(&sw0[j][d], w0 + ((size_t)e * D + d) * H + j);
+      } else {
+        sw0[j][d] = 0.0f;
+      }
+      if (lane < kMlpMaxH * kMlpMaxO) {
+        const int u = lane / kMlpMaxO;
+        const int q = lane - u * kMlpMaxO;
+        if (u < H && q < O) {
+          cp_async4(&sw1[u][q], w1 + ((size_t)e * H + u) * O + q);
+        } else {
+          sw1[u][q] = 0.0f;
+        }
+      }
+      if (lane < H) cp_async4(&sb0[lane], b0 + (size_t)e * H + lane);
+      if (lane < kMlpMaxO) {
+        if (lane < O) {
+          cp_async4(&sb1[lane], b1 + (size_t)e * O + lane);
+        } else {
+          sb1[lane] = 0.0f;
+        }
+      }
+    }
+    // the 2L features in registers: every level unrolled, so each lands in
+    // a register by a compile-time index
+    float f[kMlpMaxD];
+#pragma unroll
+    for (int l = 0; l < kMlpMaxLevels; ++l) {
+      if (l < L) {
+        level_features(tab, T, L, l, x, y, z, c, f[2 * l], f[2 * l + 1]);
+      } else {
+        f[2 * l] = 0.0f;
+        f[2 * l + 1] = 0.0f;
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    // the hidden units one at a time, each into the O outputs at once; every
+    // thread reads the same shared words (a broadcast)
+    float o[kMlpMaxO] = {sb1[0], sb1[1], sb1[2], sb1[3]};
+#pragma unroll 2
+    for (int j = 0; j < H; ++j) {
+      float a = sb0[j];
+#pragma unroll
+      for (int d = 0; d < kMlpMaxD; d += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(&sw0[j][d]);
+        a = fmaf(w.x, f[d], a);
+        a = fmaf(w.y, f[d + 1], a);
+        a = fmaf(w.z, f[d + 2], a);
+        a = fmaf(w.w, f[d + 3], a);
+      }
+      const float h = fmaxf(a, 0.0f);
+      const float4 v = *reinterpret_cast<const float4*>(sw1[j]);
+      o[0] = fmaf(v.x, h, o[0]);
+      o[1] = fmaf(v.y, h, o[1]);
+      o[2] = fmaf(v.z, h, o[2]);
+      o[3] = fmaf(v.w, h, o[3]);
+    }
+    float* ot = out + (size_t)t * O * kTile + lane;
+#pragma unroll
+    for (int q = 0; q < kMlpMaxO; ++q) {
+      if (q < O) ot[(size_t)q * kTile] = o[q];
+    }
+  }
+};
+
+template <class Points, class Epilogue>
 __global__ void __launch_bounds__(kTile) encode_fwd_moe_kernel(
     const float* __restrict__ tables, __grid_constant__ const Points src,
     const int* __restrict__ tile_experts, const int* __restrict__ num_live,
-    float* __restrict__ out, int T, __grid_constant__ const LevelConsts c) {
+    __grid_constant__ const Epilogue epi, int T, __grid_constant__ const LevelConsts c) {
   const int t = blockIdx.x;
   if (t >= __ldg(num_live)) return;
   const int lane = threadIdx.x;
   const int e = __ldg(tile_experts + t);
   float x, y, z;
   src.point(t, lane, e, x, y, z);
-  const int L = c.n_levels;
-  encode_point(tables + (size_t)e * 2 * L * T, T, x, y, z, c, out + (size_t)t * 2 * L * kTile, kTile,
-               lane);
+  epi.run(tables + (size_t)e * 2 * c.n_levels * T, T, x, y, z, c, t, e, lane);
+}
+
+// One launch of the MoE encode: the feature store, or with w0 the MLP
+// epilogue (widths checked by the caller).
+template <class Points>
+int launch_encode_fwd_moe(const float* tables, const Points& src, const int* tile_experts,
+                          const int* num_live, float* out, int tiles, int T, const LevelConsts& c,
+                          const float* w0, const float* b0, const float* w1, const float* b1,
+                          int H, int O, cudaStream_t s) {
+  if (w0 == nullptr) {
+    encode_fwd_moe_kernel<Points, StoreFeatures><<<tiles, kTile, 0, s>>>(
+        tables, src, tile_experts, num_live, StoreFeatures{out}, T, c);
+  } else {
+    if (c.n_levels > kMlpMaxLevels || H < 1 || H > kMlpMaxH || O < 1 || O > kMlpMaxO) {
+      return (int)cudaErrorInvalidValue;
+    }
+    encode_fwd_moe_kernel<Points, MlpHead><<<tiles, kTile, 0, s>>>(
+        tables, src, tile_experts, num_live, MlpHead{w0, b0, w1, b1, out, H, O}, T, c);
+  }
+  return (int)cudaGetLastError();
 }
 
 // -- gather route: per-(row, pair) lookups and their histogram ----------------
@@ -1281,16 +1457,7 @@ __global__ void table_grad_kernel(const int64_t* __restrict__ idx,
 
 // -- fused encode + MLP (the fused training route) ---------------------------
 //
-// The field MLP of the production shape: D = 2L features -> H hidden units
-// (ReLU) -> O outputs, one hidden layer, no skip. Compile-time maxima (the
-// production widths) keep every per-point vector in registers: loops run
-// over the maxima, fully unrolled, and the shared weights are zero-padded,
-// so padding units add exact zeros. The host entry points refuse larger
-// widths.
-constexpr int kMlpMaxLevels = 16;
-constexpr int kMlpMaxD = 2 * kMlpMaxLevels;
-constexpr int kMlpMaxH = 32;
-constexpr int kMlpMaxO = 4;
+// The field MLP at the widths of kMlpMax* (top of the file).
 constexpr int kMlpThreads = 128;
 constexpr int kMlpPad = kMlpThreads + 1;  // shared row stride: no bank conflicts
 
@@ -1927,28 +2094,32 @@ int ngm_batched_gather(const float* values, const int64_t* idx, float* out, int 
 }
 
 // tables (N, 2, L, T), coords (tiles, 3, kTile), tile_experts (tiles,) int32,
-// num_live () int32 on the device -> out (tiles, 2L, kTile).
+// num_live () int32 on the device -> out (tiles, 2L, kTile); with w0 (not
+// null) the field MLP on the device's stacked per-field weights w0
+// (N, 2L, H), b0 (N, H), w1 (N, H, O), b1 (N, O) -> out (tiles, O, kTile).
 int ngm_encode_fwd_moe(const float* tables, const float* coords,
-                       const int* tile_experts, const int* num_live, float* out,
-                       int tiles, int L, int T, const float* scales,
+                       const int* tile_experts, const int* num_live, const float* w0,
+                       const float* b0, const float* w1, const float* b1, float* out,
+                       int tiles, int L, int T, int H, int O, const float* scales,
                        const float* shifts, const float* elev, const int* caps,
                        void* stream) {
   LevelConsts c;
   const int err = fill_consts(&c, L, scales, shifts, elev, caps);
   if (err) return err;
-  encode_fwd_moe_kernel<CarriedPoints><<<tiles, kTile, 0, (cudaStream_t)stream>>>(
-      tables, CarriedPoints{coords}, tile_experts, num_live, out, T, c);
-  return (int)cudaGetLastError();
+  return launch_encode_fwd_moe(tables, CarriedPoints{coords}, tile_experts, num_live, out, tiles, T, c,
+                               w0, b0, w1, b1, H, O, (cudaStream_t)stream);
 }
 
 // tables (N, 2, L, T), orig (tiles, kTile) int32 k-minor pair indices, dist
 // (tiles, kTile), tile_experts (tiles,), num_live (), rayp (16,), poses
-// (N, 7), all on the device -> out (tiles, 2L, kTile).
+// (N, 7), all on the device -> out (tiles, 2L, kTile); with w0 (not null)
+// the MLP of ngm_encode_fwd_moe -> out (tiles, O, kTile).
 int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
                             const float* dist, const int* tile_experts,
                             const int* num_live, const float* rayp,
-                            const float* poses, float* out, int tiles, int L,
-                            int T, int block_offset, int log2_ks, int width,
+                            const float* poses, const float* w0, const float* b0,
+                            const float* w1, const float* b1, float* out, int tiles, int L,
+                            int T, int H, int O, int block_offset, int log2_ks, int width,
                             float coord_scale, float coord_shift,
                             const float* scales, const float* shifts,
                             const float* elev, const int* caps, void* stream) {
@@ -1957,9 +2128,8 @@ int ngm_encode_fwd_moe_rays(const float* tables, const int* orig,
   if (err) return err;
   if (width < 1 || log2_ks < 0 || log2_ks > 30) return (int)cudaErrorInvalidValue;
   const RayPoints src = {orig, dist, rayp, poses, {block_offset, log2_ks, width, coord_scale, coord_shift}};
-  encode_fwd_moe_kernel<RayPoints><<<tiles, kTile, 0, (cudaStream_t)stream>>>(
-      tables, src, tile_experts, num_live, out, T, c);
-  return (int)cudaGetLastError();
+  return launch_encode_fwd_moe(tables, src, tile_experts, num_live, out, tiles, T, c,
+                               w0, b0, w1, b1, H, O, (cudaStream_t)stream);
 }
 
 // 1 if ngm_gather_pairs takes the staged variant for this table, else 0.

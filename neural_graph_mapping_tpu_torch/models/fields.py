@@ -373,6 +373,17 @@ class NeuralFieldSet(nn.Module):
             and self.dim_points == 3
         )
 
+    def _mlp_epilogue(self, stacked_params: Params) -> Optional[tuple]:
+        """The stacked (w0, b0, w1, b1) that the MoE encode takes to run the
+        field MLP as its epilogue (``permuto_cuda.encode_fwd_moe*``'s
+        ``mlp``), where the field is one the fused kernels take
+        (:meth:`NeuralField._supports_fused_mlp`: one hidden layer, no skip,
+        the kernels' widths); else None, and the dispatch runs
+        :meth:`NeuralField.mlp_fm`."""
+        if not self.prototype._supports_fused_mlp():
+            return None
+        return tuple(stacked_params[k] for k in ("w0", "b0", "w1", "b1"))
+
     def _coord_scale_shift(self):
         if self.scale_mode == "unit_cube":
             return 1.0 / (2.0 * self.field_radius), 0.5
@@ -402,12 +413,16 @@ class NeuralFieldSet(nn.Module):
         Every valid (point, neighbour) pair is sorted by field into
         TILE-pair tiles that each belong to one field, encoded by one MoE
         kernel launch, pushed through the MLP with per-tile weights, and put
-        back in pair order. Points whose nearest field is beyond the radius
-        get ``outside_value``. No per-field capacity, no dropped pairs.
+        back in pair order. The MoE kernel runs the MLP itself where it can
+        (:meth:`_mlp_epilogue`: one hidden layer, no skip, the kernels'
+        widths); any other MLP runs as :meth:`NeuralField.mlp_fm` over
+        every tile. Points whose nearest field is beyond the radius get
+        ``outside_value``. No per-field capacity, no dropped pairs.
         While tracing, each stage is a span ``ngm.render.*``, and the
         counters ``render.pairs_valid``, ``render.lanes_encoded`` and
         ``render.lanes_mlp`` add the pairs inside a radius and the lanes
-        the encode and the MLP run (``utils/profiling.py``).
+        the encode and the MLP run, ``render.mlp_fused`` the dispatches
+        whose MLP ran in the encode (``utils/profiling.py``).
 
         Routing, as the JAX package at its defaults: k = 2 runs the
         ``topk2_fields`` kernel and keeps pairs k-major (pair i of rank kk
@@ -488,11 +503,15 @@ class NeuralFieldSet(nn.Module):
 
             buf_orig = tile_buffer(sorted_orig)
             te = tile_expert.long()
+            mlp = self._mlp_epilogue(stacked_params)
             if profiling.tracing_on():  # pairs inside a radius against the lanes run
                 live = torch.arange(num_tiles, device=tile_count.device) < num_live
                 profiling.count("render.pairs_valid", torch.where(live, tile_count, 0).sum())
-                profiling.count("render.lanes_encoded", num_live.to(torch.int64) * tile)
-                profiling.count("render.lanes_mlp", num_tiles * tile)
+                lanes_live = num_live.to(torch.int64) * tile
+                profiling.count("render.lanes_encoded", lanes_live)
+                profiling.count("render.lanes_mlp", num_tiles * tile if mlp is None else lanes_live)
+                if mlp is not None:
+                    profiling.count("render.mlp_fused")
 
         with profiling.span("ngm.render.encode"):
             consts = (enc._scales_t, enc._shifts_t, enc._elev_t, enc.level_capacities)
@@ -502,23 +521,24 @@ class NeuralFieldSet(nn.Module):
                 kern_orig = (buf_orig % p) * k + buf_orig // p if k_major else buf_orig
                 cs, csh = self._coord_scale_shift()
                 field_poses = torch.cat([field_positions, field_orientations], dim=-1).contiguous()
-                feats = permuto_cuda.encode_fwd_moe_rays(
+                outs = permuto_cuda.encode_fwd_moe_rays(
                     table, kern_orig.contiguous(), tile_buffer(sorted_payloads[0]), tile_expert,
                     ray_ctx["ray_params"], field_poses, ray_ctx["block_offset"], *consts,
                     log2_ks=ray_ctx["log2_ks"], width=ray_ctx["width"], coord_scale=cs,
-                    coord_shift=csh, num_live_tiles=num_live,
-                )  # (tiles, 2L, TILE)
+                    coord_shift=csh, num_live_tiles=num_live, mlp=mlp,
+                )  # with mlp (tiles, dim_out, TILE), else the features (tiles, 2L, TILE)
             else:
                 bx, by, bz = (tile_buffer(c) for c in sorted_payloads)
                 local = self.world_to_local_soa((bx, by, bz), field_positions[te], field_orientations[te])
-                feats = permuto_cuda.encode_fwd_moe(
+                outs = permuto_cuda.encode_fwd_moe(
                     table, torch.stack(local, dim=1).contiguous(), tile_expert, *consts,
-                    num_live_tiles=num_live,
+                    num_live_tiles=num_live, mlp=mlp,
                 )
 
-        with profiling.span("ngm.render.mlp"):
-            mlp_params = {key: v[te] for key, v in stacked_params.items() if not key.startswith("enc.")}
-            outs = self.prototype.mlp_fm(mlp_params, feats)  # (tiles, dim_out, TILE)
+        if mlp is None:
+            with profiling.span("ngm.render.mlp"):
+                mlp_params = {key: v[te] for key, v in stacked_params.items() if not key.startswith("enc.")}
+                outs = self.prototype.mlp_fm(mlp_params, outs)  # (tiles, dim_out, TILE)
 
         with profiling.span("ngm.render.scatter_blend"):
             dim_out = self.prototype.dim_out

@@ -78,11 +78,8 @@ def load_library() -> cuda_build.Library:
     lib.ngm_encode_bwd_table_plan.argtypes = [i32, i32, i32, i32]
     lib.ngm_encode_bwd_table.argtypes = enc_args
     lib.ngm_batched_gather.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.ngm_encode_fwd_moe.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *consts, ptr]
-    lib.ngm_encode_fwd_moe_rays.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, f32, f32,
-        *consts, ptr,
-    ]
+    lib.ngm_encode_fwd_moe.argtypes = [ptr] * 9 + [i32] * 5 + [*consts, ptr]
+    lib.ngm_encode_fwd_moe_rays.argtypes = [ptr] * 12 + [i32] * 8 + [f32, f32, *consts, ptr]
     lib.ngm_gather_pairs_staged.argtypes = [ptr, i32, i32, i32]
     lib.ngm_gather_pairs.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.ngm_table_grad_plan.argtypes = [i32, i32, i32, i32]
@@ -329,6 +326,43 @@ def _num_live(num_live_tiles, tiles: int, device) -> torch.Tensor:
     return torch.as_tensor(num_live_tiles, dtype=torch.int32, device=device).reshape(())
 
 
+def _moe_mlp_check(mlp, tables) -> Tuple[int, int]:
+    """The stacked per-field MLP weights of the MoE encodes' epilogue, (w0
+    (N, 2L, H), b0 (N, H), w1 (N, H, O), b1 (N, O)) -> (H, O); (0, 0)
+    without them."""
+    if mlp is None:
+        return 0, 0
+    w0, b0, w1, b1 = mlp
+    n_fields, n_levels = tables.shape[0], tables.shape[2]
+    h, o = _mlp_check((n_fields,), n_levels, w0, b0, w1)
+    _check_f32("b1", b1)
+    if b1.shape != (n_fields, o):
+        raise ValueError(f"b1 has shape {tuple(b1.shape)}, expected {(n_fields, o)}")
+    return h, o
+
+
+def moe_mlp_plain(feats, tile_experts, mlp) -> torch.Tensor:
+    """Each tile's field MLP on MoE features (tiles, 2L, TILE) -> (tiles, O,
+    TILE): the stacked weights ``mlp`` = (w0, b0, w1, b1) gathered by
+    ``tile_experts``, then :func:`mlp_plain` (``NeuralField.mlp_fm``'s
+    operations for one hidden layer and no skip)."""
+    te = tile_experts.long()
+    return mlp_plain(feats, *(w[te] for w in mlp))
+
+
+def _moe_launch_output(mlp, tables, tiles: int, h: int, o: int, device):
+    """(output, weight pointers) of a MoE encode launch: the (tiles, 2L,
+    TILE) features, or with ``mlp`` the (tiles, O, TILE) outputs of its
+    epilogue."""
+    n_levels = tables.shape[2]
+    if mlp is None:
+        out = torch.empty((tiles, 2 * n_levels, TILE), dtype=torch.float32, device=device)
+        return out, (None, None, None, None)
+    _mlp_widths_check(n_levels, h, o)
+    out = torch.empty((tiles, o, TILE), dtype=torch.float32, device=device)
+    return out, tuple(w.data_ptr() for w in mlp)
+
+
 def encode_fwd_moe_plain(
     tables, coords, tile_experts, scales, shifts, elev, t_size, num_live_tiles=None
 ) -> torch.Tensor:
@@ -359,7 +393,7 @@ def encode_fwd_moe_plain(
 
 
 def encode_fwd_moe(
-    tables, coords, tile_experts, scales, shifts, elev, t_size, num_live_tiles=None
+    tables, coords, tile_experts, scales, shifts, elev, t_size, num_live_tiles=None, mlp=None
 ) -> torch.Tensor:
     """Mixture-of-experts encode (permuto_pallas.encode_fwd_moe): every
     TILE-pair tile of ``coords`` (tiles, 3, TILE), field-local, is encoded
@@ -367,23 +401,32 @@ def encode_fwd_moe(
     (tiles, 2L, TILE). Tiles at or past ``num_live_tiles`` (a () int32
     tensor, read by the kernel on the device) are never written. Both MoE
     encodes run one kernel body, a block a tile (``csrc/permuto.cu``
-    ``encode_fwd_moe_kernel``); this one reads each pair's point."""
+    ``encode_fwd_moe_kernel``); this one reads each pair's point.
+
+    ``mlp`` = (w0 (N, 2L, H), b0 (N, H), w1 (N, H, O), b1 (N, O)), the
+    fields' stacked one-hidden-layer ReLU MLP (at most
+    :data:`MLP_MAX_LEVELS` levels, :data:`MLP_MAX_HIDDEN` hidden units and
+    :data:`MLP_MAX_OUT` outputs on the card): the kernel runs each tile's
+    field MLP on its features and returns (tiles, O, TILE) instead, in fp32;
+    a CPU tensor takes the plain encode, then :func:`moe_mlp_plain`."""
     tiles = coords.shape[0]
     if coords.shape != (tiles, 3, TILE):
         raise ValueError(f"coords must be (tiles, 3, {TILE}), got {tuple(coords.shape)}")
     _check_f32("coords", coords)
     caps = _moe_check(tables, tile_experts, tiles, scales, t_size)
     num_live = _num_live(num_live_tiles, tiles, coords.device)
-    if cuda_build.route(tables, coords, tile_experts, num_live) == "cpu":
-        return encode_fwd_moe_plain(tables, coords, tile_experts, scales, shifts, elev, caps, num_live)
+    h, o = _moe_mlp_check(mlp, tables)
+    if cuda_build.route(tables, coords, tile_experts, num_live, *(mlp or ())) == "cpu":
+        out = encode_fwd_moe_plain(tables, coords, tile_experts, scales, shifts, elev, caps, num_live)
+        return out if mlp is None else moe_mlp_plain(out, tile_experts, mlp)
     n_levels, t = tables.shape[2], tables.shape[3]
-    out = torch.empty((tiles, 2 * n_levels, TILE), dtype=torch.float32, device=coords.device)
+    out, weights = _moe_launch_output(mlp, tables, tiles, h, o, coords.device)
     if tiles == 0:
         return out
     lib = load_library().lib
     rc = lib.ngm_encode_fwd_moe(
         tables.data_ptr(), coords.data_ptr(), tile_experts.contiguous().data_ptr(),
-        num_live.data_ptr(), out.data_ptr(), tiles, n_levels, t,
+        num_live.data_ptr(), *weights, out.data_ptr(), tiles, n_levels, t, h, o,
         *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(coords),
     )
     cuda_build.check(rc, "encode_fwd_moe")
@@ -440,7 +483,7 @@ def encode_fwd_moe_rays_plain(
 def encode_fwd_moe_rays(
     tables, buf_orig, buf_dist, tile_experts, ray_params, field_poses, block_offset: int,
     scales, shifts, elev, t_size, log2_ks: int, width: int, coord_scale: float,
-    coord_shift: float, num_live_tiles=None,
+    coord_shift: float, num_live_tiles=None, mlp=None,
 ) -> torch.Tensor:
     """MoE encode that rebuilds each sample point from its pair index and
     span distance (permuto_pallas.encode_fwd_moe_rays).
@@ -451,7 +494,8 @@ def encode_fwd_moe_rays(
     1/fx, 1/fy, cx, cy (pixel centre 0); field_poses (N, 7) position + wxyz
     quaternion; block_offset: pixel index of the block's first ray (render
     blocks are row-major); width: image width. -> (tiles, 2L, TILE); tiles
-    at or past ``num_live_tiles`` are never written.
+    at or past ``num_live_tiles`` are never written. ``mlp``: the fields'
+    stacked MLP, as :func:`encode_fwd_moe` takes it -> (tiles, O, TILE).
     """
     tiles = buf_orig.shape[0]
     if buf_orig.shape != (tiles, TILE) or buf_orig.dtype != torch.int32 or not buf_orig.is_contiguous():
@@ -467,21 +511,24 @@ def encode_fwd_moe_rays(
         raise ValueError(f"log2_ks {log2_ks} / width {width}")
     caps = _moe_check(tables, tile_experts, tiles, scales, t_size)
     num_live = _num_live(num_live_tiles, tiles, buf_dist.device)
-    if cuda_build.route(tables, buf_orig, buf_dist, tile_experts, ray_params, field_poses, num_live) == "cpu":
-        return encode_fwd_moe_rays_plain(
+    h, o = _moe_mlp_check(mlp, tables)
+    tensors = (tables, buf_orig, buf_dist, tile_experts, ray_params, field_poses, num_live, *(mlp or ()))
+    if cuda_build.route(*tensors) == "cpu":
+        out = encode_fwd_moe_rays_plain(
             tables, buf_orig, buf_dist, tile_experts, ray_params, field_poses, int(block_offset),
             scales, shifts, elev, caps, int(log2_ks), int(width), coord_scale, coord_shift, num_live,
         )
+        return out if mlp is None else moe_mlp_plain(out, tile_experts, mlp)
     n_levels, t = tables.shape[2], tables.shape[3]
-    out = torch.empty((tiles, 2 * n_levels, TILE), dtype=torch.float32, device=buf_dist.device)
+    out, weights = _moe_launch_output(mlp, tables, tiles, h, o, buf_dist.device)
     if tiles == 0:
         return out
     lib = load_library().lib
     rc = lib.ngm_encode_fwd_moe_rays(
         tables.data_ptr(), buf_orig.data_ptr(), buf_dist.data_ptr(),
         tile_experts.contiguous().data_ptr(), num_live.data_ptr(), ray_params.data_ptr(),
-        field_poses.data_ptr(), out.data_ptr(), tiles, n_levels, t, int(block_offset),
-        int(log2_ks), int(width), float(coord_scale), float(coord_shift),
+        field_poses.data_ptr(), *weights, out.data_ptr(), tiles, n_levels, t, h, o,
+        int(block_offset), int(log2_ks), int(width), float(coord_scale), float(coord_shift),
         *_lattice_consts(scales, shifts, elev, caps, n_levels), cuda_build.stream(buf_dist),
     )
     cuda_build.check(rc, "encode_fwd_moe_rays")

@@ -80,8 +80,8 @@ SPANS: Dict[str, str] = {
     "ngm.render.span": "ray-sphere spans and sample distances",
     "ngm.render.route": "top-k routing of sample points to fields",
     "ngm.render.dispatch": "tile-sorted dispatch of the pairs and the tile buffers",
-    "ngm.render.encode": "MoE encode of the tiles",
-    "ngm.render.mlp": "per-tile MLP",
+    "ngm.render.encode": "MoE encode of the tiles (with the field MLP where the kernel runs it)",
+    "ngm.render.mlp": "per-tile MLP outside the encode (fields.NeuralField.mlp_fm)",
     "ngm.render.scatter_blend": "tile outputs back to pair order and the KNN blend",
     "ngm.render.composite": "quadrature of the samples into RGB-D",
 }
@@ -89,7 +89,8 @@ SPANS: Dict[str, str] = {
 COUNTERS: Dict[str, str] = {
     "render.pairs_valid": "(point, field) pairs inside a radius: tile_count over the live tiles (device)",
     "render.lanes_encoded": "lanes the MoE encode runs: live tiles x TILE (device)",
-    "render.lanes_mlp": "lanes the per-tile MLP runs: all tiles x TILE (host)",
+    "render.lanes_mlp": "lanes the per-tile MLP runs: live tiles x TILE in the encode (device), else all tiles x TILE (host)",
+    "render.mlp_fused": "tiled dispatches whose MLP ran in the MoE encode (host)",
     "sv.slots_valid": "single-view target slots filled: the sum of field_valid (device)",
     "sv.slots": "single-view target slots run: F a sampler call (host)",
     "sv.fields_eligible": "fields with at least R cloud segments through their sphere (device)",

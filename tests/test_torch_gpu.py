@@ -764,33 +764,61 @@ def test_encode_mlp_fwd_variant_by_shape(cuda, t, mlp_fwd):
 RAY_EXPERTS = [0, 0, 0, 1, 2, 2, 2, 2, 2, 3, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 5, 6, 6]
 
 
+def _moe_mlp(dev, n, seed):
+    """(field, its stacked MLP weights (w0, b0, w1, b1) for n fields) at the
+    production widths (32 features, 32 hidden units, 4 outputs)."""
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralField
+
+    field = NeuralField(encoding_type=PermutohedralEncoding, encoding_kwargs=PRODUCTION, num_layers=1, dim_out=4)
+    params = field.init(n, torch.Generator(dev).manual_seed(seed), dev)
+    return field, tuple(params[k] for k in ("w0", "b0", "w1", "b1"))
+
+
+def _check_moe_epilogue(got, feats, experts, live: int, epilogue: str, field, mlp):
+    """Live tiles of a MoE encode's output against the plain encode's
+    features ``feats``: within 1e-5 as features, or with the MLP epilogue
+    within rtol 1e-5, atol 1e-6 of NeuralField.mlp_fm on them (the weights
+    gathered by tile); dead tiles never written (still NaN)."""
+    assert bool(torch.isnan(got[live:]).all())
+    if not live:
+        return
+    if epilogue == "features":
+        assert float((got[:live] - feats[:live]).abs().max()) <= 1e-5
+        return
+    te = experts.long()
+    want = field.mlp_fm({k: w[te] for k, w in zip(("w0", "b0", "w1", "b1"), mlp)}, feats)
+    torch.testing.assert_close(got[:live], want[:live], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("epilogue", ["features", "mlp"])
 @pytest.mark.parametrize("log2_t", [12, 14])
 @pytest.mark.parametrize("live", [0, 11, len(RAY_EXPERTS)])
-def test_encode_fwd_moe_rays_tile_runs_and_live_count(cuda, live, log2_t):
+def test_encode_fwd_moe_rays_tile_runs_and_live_count(cuda, live, log2_t, epilogue):
     """The ray encode at T = 4,096 and T = 16,384 over tiles whose field
     changes inside a run of consecutive tiles, a field of one tile, and
-    num_live at 0, in the middle and at all tiles: live tiles within 1e-5
-    of the plain version, dead tiles never written (they keep the NaN of a
-    freed block), one launch a call, no host sync."""
+    num_live at 0, in the middle and at all tiles, storing the features or
+    running the field MLP as its epilogue: live tiles within the tolerance
+    of the plain version (+ mlp_fm), dead tiles never written (they keep the
+    NaN of a freed block), one launch a call, no host sync."""
     experts = torch.tensor(RAY_EXPERTS, dtype=torch.int32, device=cuda)
     args, kw = _ray_inputs(cuda, experts, 27, log2_t)
+    field, mlp = _moe_mlp(cuda, args[0].shape[0], 27)
+    epi = dict(mlp=mlp) if epilogue == "mlp" else {}
     num_live = torch.tensor(live, dtype=torch.int32, device=cuda)
     before = permuto_cuda.LAUNCHES["encode_fwd_moe_rays"]
-    shape = (len(RAY_EXPERTS), 32, 1024)
+    shape = (len(RAY_EXPERTS), 4 if epi else 32, 1024)
 
     def call():
         torch.cuda.set_sync_debug_mode("error")  # a host sync in the wrapper raises
         try:
-            return permuto_cuda.encode_fwd_moe_rays(*args, **kw, num_live_tiles=num_live)
+            return permuto_cuda.encode_fwd_moe_rays(*args, **kw, num_live_tiles=num_live, **epi)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
     got = _over_stale_nan(cuda, shape, call)
     assert permuto_cuda.LAUNCHES["encode_fwd_moe_rays"] == before + 1
     want = permuto_cuda.encode_fwd_moe_rays_plain(*args, **kw)
-    assert bool(torch.isnan(got[live:]).all())
-    if live:
-        assert float((got[:live] - want[:live]).abs().max()) <= 1e-5
+    _check_moe_epilogue(got, want, experts, live, epilogue, field, mlp)
 
 
 def test_lattice_far_out_takes_the_select_form(cuda):
@@ -870,17 +898,21 @@ def test_topk2_fields_exact_on_edge_cases(cuda, case):
 MOE_EXPERTS = [0, 1, 1, 1, 1, 2, 3, 3, 3, 4, 5, 5, 5, 5, 5, 5, 5, 5, 5, 6, 7, 8, 9, 10, 10, 10, 10]
 
 
+@pytest.mark.parametrize("epilogue", ["features", "mlp"])
 @pytest.mark.parametrize("log2_t", [12, 14])
 @pytest.mark.parametrize("live", [0, 13, len(MOE_EXPERTS)])
-def test_encode_fwd_moe_tile_runs_and_live_count(cuda, live, log2_t):
+def test_encode_fwd_moe_tile_runs_and_live_count(cuda, live, log2_t, epilogue):
     """The carried encode at T = 4,096 and T = 16,384 over field runs of
     one tile and runs across groups of 4 tiles, num_live at 0, in the middle
-    and at all tiles: live tiles within 1e-5 of the plain version, dead
-    tiles never written (they keep the NaN of a freed block), one launch a
-    call, no host sync."""
+    and at all tiles, storing the features or running the field MLP as its
+    epilogue: live tiles within the tolerance of the plain version
+    (+ mlp_fm), dead tiles never written (they keep the NaN of a freed
+    block), one launch a call, no host sync."""
     experts = torch.tensor(MOE_EXPERTS, dtype=torch.int32, device=cuda)
     args = _ray_inputs(cuda, experts, 28, log2_t)[0]
     tables, consts = args[0], args[7:]
+    field, mlp = _moe_mlp(cuda, tables.shape[0], 28)
+    epi = dict(mlp=mlp) if epilogue == "mlp" else {}
     gen = torch.Generator(cuda).manual_seed(28)
     coords = torch.rand((len(MOE_EXPERTS), 3, 1024), generator=gen, device=cuda) * 1.5 - 0.25
     num_live = torch.tensor(live, dtype=torch.int32, device=cuda)
@@ -889,16 +921,46 @@ def test_encode_fwd_moe_tile_runs_and_live_count(cuda, live, log2_t):
     def call():
         torch.cuda.set_sync_debug_mode("error")  # a host sync in the wrapper raises
         try:
-            return permuto_cuda.encode_fwd_moe(tables, coords, experts, *consts, num_live_tiles=num_live)
+            return permuto_cuda.encode_fwd_moe(tables, coords, experts, *consts, num_live_tiles=num_live, **epi)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    got = _over_stale_nan(cuda, (len(MOE_EXPERTS), 32, 1024), call)
+    got = _over_stale_nan(cuda, (len(MOE_EXPERTS), 4 if epi else 32, 1024), call)
     assert permuto_cuda.LAUNCHES["encode_fwd_moe"] == before + 1
     want = permuto_cuda.encode_fwd_moe_plain(tables, coords, experts, *consts)
-    assert bool(torch.isnan(got[live:]).all())
-    if live:
-        assert float((got[:live] - want[:live]).abs().max()) <= 1e-5
+    _check_moe_epilogue(got, want, experts, live, epilogue, field, mlp)
+
+
+@pytest.mark.parametrize("route", ["rays", "carried"])
+def test_render_with_the_mlp_epilogue_matches_the_mlp_fm_route(cuda, route):
+    """A production map trained on the card for three frames, one 160x120
+    image rendered twice from the same draws: with the MLP in the MoE
+    encode and through NeuralField.mlp_fm (the epilogue switched off), on
+    the ray route and on the carried one (eval span 768): equal within
+    1e-5."""
+    import chip_smoke
+
+    from neural_graph_mapping_tpu_torch.config import str_to_object
+    from neural_graph_mapping_tpu_torch.mapping import engine
+
+    cfg = chip_smoke.CONFIG
+    ds = str_to_object(cfg["dataset_type"])(cfg["dataset_config"])
+    ds.load_slam_results()
+    ngm = engine.NeuralGraphMap(cfg, device="cuda")
+    for fid in range(3):
+        ngm.process_frame(ds, fid, ds[fid]["rgbd"])
+    if route == "carried":
+        ngm._eval_span_samples = 768
+    c2w, cam = ds[1]["c2w"], ds.camera
+    assert ngm._fset._mlp_epilogue(ngm._params) is not None
+    state = ngm._init_gen.get_state()
+    fused = ngm.render_image(c2w, cam)
+    ngm._init_gen.set_state(state)
+    ngm._fset._mlp_epilogue = lambda params: None
+    unfused = ngm.render_image(c2w, cam)
+    for got, want in zip(fused, unfused):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("log2_t", [12, 14])

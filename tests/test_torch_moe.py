@@ -165,3 +165,100 @@ def test_moe_wrappers_reject_bad_inputs():
     before = dict(permuto_cuda.LAUNCHES)
     permuto_cuda.encode_fwd_moe(tables, coords, torch.zeros(2, dtype=torch.int32), *consts)
     assert permuto_cuda.LAUNCHES == before  # the plain version is no launch
+
+
+# -- the MLP epilogue (``mlp=``) and apply_knn_tiled's choice of it -------------
+
+
+def _field(**overrides):
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralField
+
+    kw = dict(encoding_type="neural_graph_mapping_tpu.ops.encodings.PermutohedralEncoding",
+              encoding_kwargs=POW2, num_layers=1, dim_out=4)
+    kw.update(overrides)
+    return NeuralField(**kw)
+
+
+@pytest.mark.parametrize("entry", ["rays", "carried"])
+def test_moe_mlp_plain_route_equals_encode_then_mlp_fm(entry):
+    """With ``mlp=`` a CPU tensor takes the plain encode, then the field MLP
+    of each tile's field: NeuralField.mlp_fm's result on the gathered
+    weights, bit for bit; dead tiles stay NaN."""
+    field = _field()
+    params = field.init(N, torch.Generator().manual_seed(5))
+    mlp = tuple(params[k] for k in ("w0", "b0", "w1", "b1"))
+    tables = torch.from_numpy(_tables(6))
+    experts = torch.tensor([1, 1, 2, 0], dtype=torch.int32)
+    consts = _consts(POW2)
+    live = torch.tensor(LIVE, dtype=torch.int32)
+    if entry == "rays":
+        kern_orig, dist, poses, ray_params, ctx = _ray_inputs(7)
+        args = (tables, torch.from_numpy(kern_orig), torch.from_numpy(dist), experts,
+                torch.from_numpy(ray_params), torch.from_numpy(poses), ctx.pop("block_offset"), *consts)
+        got = permuto_cuda.encode_fwd_moe_rays(*args, **ctx, num_live_tiles=live, mlp=mlp)
+        feats = permuto_cuda.encode_fwd_moe_rays_plain(*args, **ctx, num_live_tiles=live)
+    else:
+        coords = torch.from_numpy(np.random.default_rng(8).uniform(-0.2, 1.2, (TILES, 3, TILE)).astype(np.float32))
+        got = permuto_cuda.encode_fwd_moe(tables, coords, experts, *consts, num_live_tiles=live, mlp=mlp)
+        feats = permuto_cuda.encode_fwd_moe_plain(tables, coords, experts, *consts, num_live_tiles=live)
+    te = experts.long()
+    want = field.mlp_fm({k: v[te] for k, v in params.items() if not k.startswith("enc.")}, feats)
+    assert got.shape == (TILES, 4, TILE)
+    assert torch.equal(got[:LIVE], want[:LIVE])
+    assert torch.isnan(got[LIVE:]).all()
+    with pytest.raises(ValueError):  # b1 of the wrong width
+        permuto_cuda.encode_fwd_moe(tables, torch.zeros((TILES, 3, TILE)), experts, *consts,
+                                    mlp=mlp[:3] + (torch.zeros((N, 3)),))
+
+
+FALLBACK_MLPS = {
+    "concat": dict(skip_mode="concat"),
+    "add": dict(skip_mode="add"),
+    "rezero": dict(skip_mode="rezero"),
+    "two_layers": dict(num_layers=2),
+    "hidden_64": dict(dim_mlp_out=64),
+}
+
+
+@pytest.mark.parametrize("mlp", ["epilogue", *FALLBACK_MLPS])
+def test_apply_knn_tiled_takes_mlp_fm_for_other_mlps(monkeypatch, mlp):
+    """apply_knn_tiled hands the encode the MLP of one hidden layer with no
+    skip at the kernels' widths (its result then equals the mlp_fm route bit
+    for bit on the CPU); every other MLP (a skip, two hidden layers, 64
+    hidden units) runs as NeuralField.mlp_fm over the tiles."""
+    from neural_graph_mapping_tpu_torch.models.fields import NeuralFieldSet, NeuralField
+
+    field_kwargs = dict(encoding_type="neural_graph_mapping_tpu.ops.encodings.PermutohedralEncoding",
+                        encoding_kwargs=POW2, num_layers=1, dim_out=4)
+    field_kwargs.update(FALLBACK_MLPS.get(mlp, {}))
+    fset = NeuralFieldSet(dim_points=3, field_type=NeuralField, field_kwargs=field_kwargs, num_knn=2,
+                          distance_factor=10.0, outside_value=1.0, field_radius=1.0, scale_mode="unit_cube")
+    gen = torch.Generator().manual_seed(9)
+    params = fset.init_fields(6, gen, "cpu")
+    if "rezero" in params:
+        params["rezero"] = torch.full_like(params["rezero"], 0.5)
+    pos = torch.randn((6, 3), generator=gen)
+    q = torch.randn((6, 4), generator=gen)
+    quat = q / q.norm(dim=-1, keepdim=True)
+    valid = torch.ones(6, dtype=torch.bool)
+    pts = torch.randn((700, 3), generator=gen)
+    calls = {"mlp_fm": 0, "mlp": []}
+    real_fm, real_enc = NeuralField.mlp_fm, permuto_cuda.encode_fwd_moe
+
+    def mlp_fm(self, *a, **kw):
+        calls["mlp_fm"] += 1
+        return real_fm(self, *a, **kw)
+
+    def encode(*a, **kw):
+        calls["mlp"].append(kw.get("mlp") is not None)
+        return real_enc(*a, **kw)
+
+    monkeypatch.setattr(NeuralField, "mlp_fm", mlp_fm)
+    monkeypatch.setattr(permuto_cuda, "encode_fwd_moe", encode)
+    got = fset.apply_knn_tiled(params, pts, pos, quat, valid)
+    fused = mlp == "epilogue"
+    assert calls == {"mlp_fm": 0 if fused else 1, "mlp": [fused]}
+    assert (fset._mlp_epilogue(params) is not None) == fused
+    monkeypatch.setattr(fset, "_mlp_epilogue", lambda p: None)
+    want = fset.apply_knn_tiled(params, pts, pos, quat, valid)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())

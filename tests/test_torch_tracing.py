@@ -258,8 +258,9 @@ def test_render_spans_nest_as_listed(traced_run):
     blocks = ev["ngm.render.block"]
     assert len(blocks) == 3 and all(_inside(b, image) for b in blocks)  # 192 rays in blocks of 64
     for name in ("ngm.render.span", "ngm.render.route", "ngm.render.dispatch", "ngm.render.encode",
-                 "ngm.render.mlp", "ngm.render.scatter_blend", "ngm.render.composite"):
+                 "ngm.render.scatter_blend", "ngm.render.composite"):
         assert len(ev[name]) == 3 and all(any(_inside(e, b) for b in blocks) for e in ev[name]), name
+    assert "ngm.render.mlp" not in ev  # the tiny map's MLP runs in the encode
 
 
 def test_input_spans_sit_on_the_worker_thread(traced_run):
@@ -271,7 +272,9 @@ def test_input_spans_sit_on_the_worker_thread(traced_run):
     assert len(worker) == 1 and main not in worker
     assert all(any(_inside(d, r) for r in reads) for d in ev["ngm.input.decode"])
     # the CPU trains eagerly: iterations counted, none from graphs
-    assert set(counters) == {"render.pairs_valid", "render.lanes_encoded", "render.lanes_mlp", "step.iterations"}
+    assert set(counters) == {"render.pairs_valid", "render.lanes_encoded", "render.lanes_mlp", "render.mlp_fused",
+                             "step.iterations"}
+    assert counters["render.mlp_fused"] == 3
     assert counters["step.iterations"] == 3 * 2
 
 
@@ -408,9 +411,10 @@ def _export(prof):
 # -- counters ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("num_fields,num_points", [(6, 500), (16, 3000)])
-def test_render_counters_against_the_dispatch(monkeypatch, num_fields, num_points):
-    fset = NeuralFieldSet(**FIELD_KW)
+def _spied_dispatches(monkeypatch, field_kw, num_fields, num_points):
+    """Two traced apply_knn_tiled calls -> (counters, [(valid pairs, live
+    tiles, tiles)] of their dispatches)."""
+    fset = NeuralFieldSet(**field_kw)
     gen = torch.Generator().manual_seed(num_fields)
     params = fset.init_fields(num_fields, gen, "cpu")
     pos = torch.randn((num_fields, 3), generator=gen) * 1.5
@@ -433,11 +437,30 @@ def test_render_counters_against_the_dispatch(monkeypatch, num_fields, num_point
         fset.apply_knn_tiled(params, pts[: num_points // 2], pos, quat, valid)
     finally:
         dispatch.tiled_dispatch_sorted = real
-    c = profiling.counters()
+    return profiling.counters(), seen
+
+
+@pytest.mark.parametrize("num_fields,num_points", [(6, 500), (16, 3000)])
+def test_render_counters_against_the_dispatch(monkeypatch, num_fields, num_points):
+    """The encode runs the MLP: the MLP's lanes are the encode's, and each
+    dispatch counts once in ``render.mlp_fused``."""
+    c, seen = _spied_dispatches(monkeypatch, FIELD_KW, num_fields, num_points)
     tile = permuto_cuda.TILE
     assert c["render.pairs_valid"] == sum(s[0] for s in seen) > 0
     assert c["render.lanes_encoded"] == sum(s[1] * tile for s in seen)
-    assert c["render.lanes_mlp"] == sum(s[2] * tile for s in seen)
+    assert c["render.lanes_mlp"] == c["render.lanes_encoded"]
+    assert c["render.mlp_fused"] == len(seen) == 2
+
+
+def test_render_counters_on_a_fallback_mlp(monkeypatch):
+    """An MLP the encode does not run (two hidden layers): ``mlp_fm`` runs
+    over every tile of the dispatch, and no dispatch counts as fused."""
+    field_kw = dict(FIELD_KW, field_kwargs=dict(FIELD_KW["field_kwargs"], num_layers=2))
+    c, seen = _spied_dispatches(monkeypatch, field_kw, 6, 500)
+    tile = permuto_cuda.TILE
+    assert c["render.lanes_encoded"] == sum(s[1] * tile for s in seen)
+    assert c["render.lanes_mlp"] == sum(s[2] * tile for s in seen) > c["render.lanes_encoded"]
+    assert "render.mlp_fused" not in c
 
 
 def test_device_counters_accumulate_past_int32(monkeypatch):
@@ -740,7 +763,7 @@ def test_on_the_card_spans_launch_no_kernel(monkeypatch, cuda, dataset, what):
     off, off_names = _kernels_launched(monkeypatch, dataset, False, what)
     on, on_names = _kernels_launched(monkeypatch, dataset, True, what)
     assert not any(n.startswith("ngm.") for n in off_names)
-    assert {"ngm.frame.step", "ngm.iter.backward"} <= on_names if what == "frames" else "ngm.render.mlp" in on_names
+    assert {"ngm.frame.step", "ngm.iter.backward"} <= on_names if what == "frames" else "ngm.render.encode" in on_names
     if what == "frames":
         assert on == off > 0
     else:

@@ -6,7 +6,7 @@ UNIT = "%"
 BETTER = "lower"
 SOURCE = "device_trace"
 MOVES = "frame_ms"
-WORKLOADS = ["mv_replay"]
+WORKLOADS = ["mv_replay", "mv_live"]
 
 
 def read(r):

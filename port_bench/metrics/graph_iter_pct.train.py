@@ -10,7 +10,7 @@ UNIT = "%"
 BETTER = "higher"
 SOURCE = "program_counter"
 MOVES = "frame_ms"
-WORKLOADS = ["mv_replay", "sv_replay"]
+WORKLOADS = ["mv_replay", "sv_replay", "mv_live"]
 
 
 def read(r):

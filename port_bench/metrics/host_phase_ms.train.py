@@ -6,7 +6,7 @@ UNIT = "ms"
 BETTER = "lower"
 SOURCE = "program_span"
 MOVES = "frame_ms"
-WORKLOADS = ["mv_replay"]
+WORKLOADS = ["mv_replay", "mv_live"]
 
 
 def read(r):

@@ -9,7 +9,7 @@ UNIT = "%"
 BETTER = "higher"
 SOURCE = "device_trace"
 MOVES = "frame_ms"
-WORKLOADS = ["mv_replay"]
+WORKLOADS = ["mv_replay", "mv_live"]
 
 
 def read(r):

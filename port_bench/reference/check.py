@@ -72,7 +72,7 @@ def train_reference(map_config: dict, scene: dict, frames, poses, phase: int, se
     the stream's first ``n_frames`` frames -> (map, the draw source);
     ``on_frame(f, map, losses)`` after each frame."""
     source = _Recording(seed, map_config, device)
-    ds = traffic.LapDataset(make_camera(scene), poses, phase, int(scene["keyframe_every"]))
+    ds = traffic.lap_dataset(make_camera(scene), poses, phase, scene)
     with matmul_precision(tf32):
         ref = ref_engine.NeuralGraphMap(map_config, device, draws=source)
         for f in range(n_frames):
@@ -127,27 +127,32 @@ def training_gaps(program: dict, reference: dict) -> Dict[str, float]:
       the first frame (the first frame's gradients as the optimizer got
       them);
     - ``step_gap``: worst leaf's gap of norms of the parameters' change
-      over the followed frames.
+      over the followed frames;
+    - ``pose_gap``: over the fields after the followed frames, the larger
+      of the widest distance between the two maps' field positions (m)
+      and the widest angle between their orientations (rad): what the
+      keyframe poses' corrections (loop closures, bundle adjustment,
+      culled keyframes) move.
 
     Leaves whose reference first moment is under a thousandth of the median
     leaf's take no part: rounding alone moves them under Adam. A map that
     holds another number of fields than the reference reads 1 on each; a
-    NaN reads as infinite. For the record, not compared: ``loss_gap_frame``,
-    the frame of the largest loss gap, and ``step_gap_median``, the median
-    leaf's gap of the parameters' change."""
+    NaN reads as infinite. For the record, compared by no cell:
+    ``loss_gap_median``, the median over the followed frames of each frame's
+    largest loss share; ``step_gap_median``, the median leaf's gap of the
+    parameters' change; ``loss_gap_frame``, the frame of the largest loss
+    gap."""
     if program["fields"] != reference["fields"] or program["params"].keys() != reference["params"].keys() or any(
             program["params"][k].shape != reference["params"][k].shape for k in reference["params"]):
-        return {"loss_gap": 1.0, "grad_gap": 1.0, "step_gap": 1.0}
-    loss_gap, loss_frame = 0.0, 0
-    for f, (lp, lr) in enumerate(zip(program["losses"], reference["losses"])):
+        return {"loss_gap": 1.0, "loss_gap_median": 1.0, "grad_gap": 1.0, "step_gap": 1.0, "step_gap_median": 1.0,
+                "pose_gap": 1.0}
+    frame_gaps = []
+    for lp, lr in zip(program["losses"], reference["losses"]):
         scale = max(abs(lr["combined"]), 1e-30)
-        for term, value in lr.items():
-            if term.startswith(LOSS_TERMS_SKIPPED):
-                continue
-            gap = abs(lp.get(term, float("nan")) - value) / scale
-            gap = gap if gap == gap else float("inf")
-            if gap > loss_gap:
-                loss_gap, loss_frame = gap, f
+        gaps = [abs(lp.get(term, float("nan")) - value) / scale for term, value in lr.items()
+                if not term.startswith(LOSS_TERMS_SKIPPED)]
+        frame_gaps.append(max((g if g == g else float("inf") for g in gaps), default=0.0))
+    loss_gap = max(frame_gaps, default=0.0)
     m_ref = leaf_norms(reference["first_m"])
     m_prog = leaf_norms({k: v.to(reference["first_m"][k].device) for k, v in program["first_m"].items()})
     med = statistics.median(m_ref.values())
@@ -156,9 +161,31 @@ def training_gaps(program: dict, reference: dict) -> Dict[str, float]:
     step_ref = leaf_norms({k: reference["params"][k] - reference["init"][k] for k in moving})
     step_prog = leaf_norms({k: program["params"][k].to(dev) - reference["init"][k] for k in moving})
     step_median = statistics.median(abs(step_prog[k] - step_ref[k]) / max(step_ref[k], 1e-30) for k in moving)
-    return {"loss_gap": loss_gap, "grad_gap": _worst_leaf_gap(m_prog, m_ref, moving.__contains__),
-            "step_gap": _worst_leaf_gap(step_prog, step_ref, moving.__contains__),
-            "loss_gap_frame": float(loss_frame), "step_gap_median": step_median}
+    return {"loss_gap": loss_gap, "loss_gap_median": statistics.median(frame_gaps) if frame_gaps else 0.0,
+            "grad_gap": _worst_leaf_gap(m_prog, m_ref, moving.__contains__),
+            "step_gap": _worst_leaf_gap(step_prog, step_ref, moving.__contains__), "step_gap_median": step_median,
+            "pose_gap": pose_gap(program, reference),
+            "loss_gap_frame": float(frame_gaps.index(loss_gap)) if frame_gaps else 0.0}
+
+
+def pose_gap(program: dict, reference: dict) -> float:
+    """The larger of the widest field-position distance and the widest
+    orientation angle between two maps of as many fields (a NaN reads as
+    infinite). The angle is taken from the quaternions' chord, 4 asin(|q1 -
+    s q2| / 2) with s the sign of their dot product, which keeps its digits
+    where acos of the dot product loses them."""
+    n = int(reference["fields"])
+    if n == 0:
+        return 0.0
+    dev = reference["positions"].device
+    pos = [m["positions"][:n].to(dev).double() for m in (program, reference)]
+    quat = [torch.nn.functional.normalize(m["orientations"][:n].to(dev).double(), dim=-1)
+            for m in (program, reference)]
+    sign = torch.where((quat[0] * quat[1]).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    chord = torch.linalg.vector_norm(quat[0] - sign * quat[1], dim=-1)
+    angle = 4.0 * torch.asin(torch.clamp(chord / 2.0, max=1.0))
+    gaps = [float(torch.linalg.vector_norm(pos[0] - pos[1], dim=-1).max()), float(angle.max())]
+    return float("inf") if any(g != g for g in gaps) else max(gaps)
 
 
 def render_blocks(map_config: dict, scene: dict, state: dict, samples: list, device, tf32: bool = False) -> list:

@@ -108,7 +108,7 @@ def build_map(cfg: dict, seed: int, phase: int, poses, device):
     sc, mc = cfg["scene"], cfg["map"]
     cam = camera_mod.Camera.create(width=sc["width"], height=sc["height"], fx=sc["fx"], fy=sc["fy"],
                                    cx=sc["width"] / 2.0, cy=sc["height"] / 2.0)
-    ds = traffic.LapDataset(cam, poses, phase, sc["keyframe_every"])
+    ds = traffic.lap_dataset(cam, poses, phase, sc)
     return engine.NeuralGraphMap(mc, device, draws=traffic.SeededDraws(seed, mc, device)), ds
 
 

@@ -10,6 +10,10 @@ Unix nanoseconds: :func:`reading` puts them into the trace as
 (``baseTimeNanoseconds``), writes the trace back once, and reduces it:
 
 - ``spans``: {name: {"s": seconds inside the window, "n": count}};
+- ``graph_device_s``: {name: device seconds of the work replayed by the
+  CUDA graph launches that the main thread made while ``name`` was its
+  innermost open program span (the trace gives each replayed kernel, copy
+  and fill the correlation id of its launch)};
 - ``counters``: the tracer's counters, read once after the window;
 - ``idle_by_span``: the window's device-idle seconds credited to the
   innermost program span open on the main thread (``main``), and to each
@@ -147,6 +151,27 @@ def _innermost_at(pieces: list, s: float, e: float) -> str:
     return max(by_name.items(), key=lambda kv: kv[1])[0]
 
 
+def _graph_device_s(events: list, dev: list, pieces: list, main, w0: float, w1: float) -> Dict[str, float]:
+    """Device seconds of the window's device events ``dev`` that a CUDA graph
+    launch on the thread ``main`` replayed, by the innermost span of
+    ``pieces`` open at the launch (NO_SPAN outside them)."""
+    ends = [p[1] for p in pieces]
+
+    def innermost(t: float) -> str:
+        k = bisect.bisect_right(ends, t)
+        return pieces[k][2] if k < len(pieces) and pieces[k][0] <= t else NO_SPAN
+
+    launched = {e["args"]["correlation"]: innermost(float(e["ts"])) for e in events
+                if e.get("cat") in LAUNCH_CATS and "GraphLaunch" in str(e.get("name", "")) and e.get("tid") == main
+                and "correlation" in e.get("args", {}) and w0 <= float(e["ts"]) < w1}
+    out: Dict[str, float] = {}
+    for e in dev:
+        name = launched.get(e.get("args", {}).get("correlation"))
+        if name is not None:
+            out[name] = out.get(name, 0.0) + float(e["dur"]) / 1e6
+    return out
+
+
 def reduce_spans(events: list) -> dict:
     """The program's spans in the harness's window of ``events`` ->
     ``spans``, ``idle_by_span`` and ``coverage`` (see the module)."""
@@ -175,6 +200,7 @@ def reduce_spans(events: list) -> dict:
     main_spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in prog
                   if e.get("tid") == main]
     pieces = innermost_segments(main_spans)
+    graph_device_s = _graph_device_s(events, dev, pieces, main, w0, w1)
     by_main: Dict[str, float] = {}
     _credit(idle, pieces, by_main)
     by_other: Dict[str, float] = {}
@@ -204,6 +230,7 @@ def reduce_spans(events: list) -> dict:
     frame_s, image_s = main_s("ngm.frame.process"), main_s("ngm.render.image")
     return {
         "spans": spans,
+        "graph_device_s": graph_device_s,
         "idle_by_span": {"idle_s": sum(e - s for s, e in idle) / 1e6, "main": by_main, "other": by_other,
                          "main_tid": main,
                          "gaps": [[_innermost_at(pieces, s, e), (e - s) / 1e6] for s, e in gaps]},

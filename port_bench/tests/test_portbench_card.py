@@ -11,7 +11,7 @@ from port_bench import manifest as mf
 pytestmark = pytest.mark.gpu
 
 
-@pytest.mark.parametrize("workload", ["mv_render", "mv_replay"])
+@pytest.mark.parametrize("workload", ["mv_render", "mv_replay", "mv_live"])
 def test_the_control_fails_where_the_program_passes(workload, card):
     from neural_graph_mapping_tpu_torch.ops import cuda_build
 

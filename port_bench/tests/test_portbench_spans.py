@@ -4,6 +4,7 @@ cell at a tiny size on the CPU, the profiler recording host activity only
 (no device, so no entry markers), in which every one of them reads."""
 
 import contextlib
+import json
 import time
 
 import pytest
@@ -32,7 +33,7 @@ def test_program_metrics_are_declared_for_their_cell(cell):
     entries = {m["name"]: m for m in mf.cell_metrics(M, cell, "per_layer")}
     for name, source in PROGRAM_METRICS[cell].items():
         m = entries[name]
-        assert m["source"] == source and m["workloads"] == [cell]
+        assert m["source"] == source and cell in m["workloads"]
         assert m["moves"] == ("frame_ms" if cell == "mv_replay" else "render_ms")
 
 
@@ -85,3 +86,72 @@ def test_a_traced_tiny_run_reads_every_program_metric(cell, tmp_path, monkeypatc
             assert res["metrics"][name]["value"] <= 100.0
     (red,) = spans._memo.values()
     assert red["coverage"]["frame_children" if cell == "mv_replay" else "render_blocks"] > 0.9
+
+
+class _Tracer:
+    def __init__(self, counters):
+        self._counters = counters
+
+    def recorded_spans(self):
+        return []
+
+    def counters(self):
+        return dict(self._counters)
+
+
+def _x(name, ts, dur):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "pid": 1, "tid": 1, "ts": ts, "dur": dur}
+
+
+def _sv_frames(eager: bool, replayed: bool) -> list:
+    """Two single-view frames in a [0, 1000] us window: frame 0's iteration
+    eager (the sampler's three spans in ``ngm.iter.sample``), frame 1's
+    replayed (``ngm.iter.sample`` launches a graph whose two kernels take
+    30 us; ``ngm.iter.render`` launches one of 70 us)."""
+    ev = [_x("port_bench.window", 0, 1000)]
+    if eager:
+        ev += [_x("ngm.frame.process", 10, 480), _x("ngm.iter.sample", 100, 200), _x("ngm.iter.sv_cloud", 100, 20),
+               _x("ngm.iter.sv_count", 150, 100), _x("ngm.iter.sv_rays", 250, 40)]
+    if replayed:
+        ev += [_x("ngm.frame.process", 510, 480), _x("ngm.iter.sample", 600, 30), _x("ngm.iter.render", 630, 100),
+               _launch(610, 7), _launch(640, 8), _kernel(650, 10, 7), _kernel(700, 20, 7), _kernel(720, 70, 8),
+               _kernel(800, 5, 9)]
+    return ev
+
+
+def _launch(ts, correlation):
+    return {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "pid": 1, "tid": 1, "ts": ts, "dur": 5,
+            "args": {"correlation": correlation}}
+
+
+def _kernel(ts, dur, correlation):
+    return {"ph": "X", "cat": "kernel", "name": "k", "pid": 0, "tid": 7, "ts": ts, "dur": dur,
+            "args": {"correlation": correlation}}
+
+
+@pytest.mark.parametrize("eager,replayed,counters,want", [
+    (False, True, {"sv.slots": 64, "step.graphed": 5, "step.iterations": 5}, 1e3 * 30e-6 / 2),
+    (False, True, {"sv.slots": 64, "step.graphed": 4, "step.iterations": 5}, 1e3 * 30e-6 / 4 * 5 / 2),
+    (True, True, {"sv.slots": 64, "step.graphed": 5, "step.iterations": 10}, 1e3 * 30e-6 / 5 * 10 / 2),
+    (True, False, {"sv.slots": 64}, 1e3 * 160e-6 / 2),
+    (False, True, {"step.graphed": 5, "step.iterations": 5}, None),  # multi-view: no sampler counted
+    (False, True, {"sv.slots": 64}, None),  # graphs, but no iteration counted
+    (False, False, {"sv.slots": 64}, None),  # neither spans nor graphs
+])
+def test_the_sample_stage_reads_replayed_device_time_or_eager_spans(tmp_path, monkeypatch, eager, replayed, counters,
+                                                                    want):
+    """``sv_sample_ms.train``: the device time that the graph launches in
+    ``ngm.iter.sample`` replay, a replayed iteration, times the iterations a
+    frame; without such launches, the eager sampler's spans, ms a frame."""
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": _sv_frames(eager, replayed)}))
+    monkeypatch.setattr(spans, "trace_path", lambda workload: path)
+    monkeypatch.setattr(spans, "program_tracer", lambda: _Tracer(counters))
+    spans._memo.clear()
+    r = {"workload": "w", "frames": 2, "images": 0, "window_s": 1e-3, "entries": {}, "trace": {}, "phase_s": None}
+    got = mf.load_reader("sv_sample_ms.train").read(r)
+    assert got == (None if want is None else pytest.approx(want))
+    (red,) = spans._memo.values()
+    if replayed:
+        assert red["graph_device_s"] == {"ngm.iter.sample": pytest.approx(30e-6), "ngm.iter.render": pytest.approx(70e-6)}
+    spans._memo.clear()

@@ -58,6 +58,15 @@ class LapDataset:
         return self._graph
 
 
+def lap_dataset(camera, poses: np.ndarray, phase: int, scene: dict) -> LapDataset:
+    """The pose source of a scene, for the program and the reference alike:
+    ground truth. A scene that asks for a SLAM stream (a ``slam`` block) is
+    refused: the harness has no such source."""
+    if "slam" in scene:
+        raise ValueError("a scene with a slam block: the harness serves ground-truth poses only")
+    return LapDataset(camera, poses, phase, int(scene["keyframe_every"]))
+
+
 class Draws(NamedTuple):
     """One iteration's draws under the names ``engine.IterationDraws`` gives
     them (the map reads them by name)."""
